@@ -1,0 +1,61 @@
+"""ViT-B/16 backbone (``chess_vision_tpu/models/vit_backbone.py``).
+
+Parameter names are timm's (``patch_embed.proj``, ``blocks.{i}``, ``norm``),
+so the state_dict maps one-to-one onto the JAX package's converter. Input is
+NHWC, as in the JAX package. The patch embedding, a 16x16 stride-16
+convolution, is written as the per-patch linear product it equals: a patch
+reshape and one matrix product, with no cuDNN convolution (and so no TF32 in
+f32).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from chess_vision_tpu_torch.models.layers import LayerNorm, TransformerBlock
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch projection; ``proj`` holds the OIHW conv weight."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> (B, (H/P)*(W/P), D), patches in row-major order."""
+        B, H, W, C = x.shape
+        P = self.patch_size
+        patches = x.reshape(B, H // P, P, W // P, P, C).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(B, (H // P) * (W // P), P * P * C)
+        # OIHW -> O x (kh, kw, c), the order of the flattened patch
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        return F.linear(patches, w.to(x.dtype), self.proj.bias.to(x.dtype))
+
+
+class ViTBackbone(nn.Module):
+    def __init__(self, img_size: int = 256, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, norm_eps: float = 1e-6):
+        super().__init__()
+        self.grid_size = img_size // patch_size
+        self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, self.grid_size * self.grid_size + 1, embed_dim))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(embed_dim, num_heads, mlp_ratio, norm_eps)
+            for _ in range(depth))
+        self.norm = LayerNorm(embed_dim, eps=norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, 3) normalized images -> (B, 1 + grid^2, embed_dim)."""
+        x = self.patch_embed(x)
+        cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm(x)

@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+All kernels compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``: a few seconds to
+build, where an extension that includes PyTorch's headers takes minutes. The
+library lands in ``chess_vision_tpu_torch/build/`` (not tracked by git) and is
+rebuilt when a source is newer. Concurrent builds (threads or processes)
+serialize on a lock file; the library is written under a temporary name and
+renamed into place. A missing ``nvcc`` or a failed build raises: there is no
+path around the kernels on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libcvt_kernels.so")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+# Compiler output of the build this process ran (ptxas register and shared
+# memory counts per kernel); empty when an up-to-date library was reused.
+build_log = ""
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "cvt_preprocess_u8": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
+                          ctypes.c_int, _P],
+    "cvt_attention_fwd": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, _P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(candidate):
+            return candidate
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels of "
+        "chess_vision_tpu_torch cannot be built")
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in _sources())
+
+
+def _build() -> None:
+    global build_log
+    nvcc = find_nvcc()
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, LIB_PATH)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            if _stale():
+                _build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")

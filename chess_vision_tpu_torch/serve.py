@@ -1,0 +1,248 @@
+"""Batched board image -> FEN serving on a CUDA GPU.
+
+Counterpart of ``chess_vision_tpu/serve.py`` and the root ``serve.py`` CLI.
+Pipeline: host thread-pool decode -> uint8 NHWC batch staged in pinned host
+memory -> device (preprocess kernel, ChessViT with the attention kernel,
+argmax; only 69 bytes of results per board come back) -> host FEN assembly.
+A bounded window of ``inflight`` batches lets decode, staging and FEN
+assembly on the host overlap the device's work.
+
+    python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import queue
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from chess_vision_tpu.fen import assemble_fens_batch
+from chess_vision_tpu_torch.config import get_data_config
+from chess_vision_tpu_torch.convert.jax_params import state_dict_from_jax
+from chess_vision_tpu_torch.models import build_model
+from chess_vision_tpu_torch.ops import preprocess as preprocess_ops
+from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+from chess_vision_tpu_torch.utils.device import cuda_device
+
+
+def make_infer_fn(model, mean, std):
+    """Inference function: uint8 (B,S,S,3) on the model's device -> (square
+    ids u8 (B,64), turn bool (B,), castling bool (B,4)), left on the device."""
+
+    @torch.inference_mode()
+    def infer(images_u8: torch.Tensor):
+        x = preprocess_ops.preprocess_u8(images_u8, mean, std, model.dtype)
+        out = model(x)
+        preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
+        return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
+
+    return infer
+
+
+class _Slot:
+    """Host buffers of one in-flight batch: the staged images and the results,
+    pinned on a CUDA device so both copies run asynchronously."""
+
+    def __init__(self, batch: int, size: int, pin: bool):
+        self.images = torch.empty((batch, size, size, 3), dtype=torch.uint8,
+                                  pin_memory=pin)
+        self.preds = torch.empty((batch, 64), dtype=torch.uint8, pin_memory=pin)
+        self.turn = torch.empty((batch,), dtype=torch.bool, pin_memory=pin)
+        self.castling = torch.empty((batch, 4), dtype=torch.bool, pin_memory=pin)
+        self.done: torch.cuda.Event | None = None
+
+
+class Predictor:
+    """Load a checkpoint once, predict FENs for images at max throughput.
+
+    ``checkpoint`` is a path to a JAX-package checkpoint or a ``(cfg,
+    params)`` pair with params in the JAX layout. ``device`` defaults to the
+    CUDA device and raises without one; pass ``device="cpu"`` to run the
+    plain PyTorch ops on the CPU."""
+
+    def __init__(self, checkpoint, batch_size: int = 256,
+                 decode_workers: int = 8, inflight: int = 4,
+                 mode: str = "rgb", quant: str | None = None, device=None):
+        if mode != "rgb":
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet (ROADMAP Queue A item 2)")
+        if quant is not None:
+            raise NotImplementedError(
+                f"quant={quant!r} is not ported yet (ROADMAP Queue A item 5)")
+        self.device = cuda_device() if device is None else torch.device(device)
+        if isinstance(checkpoint, (str, os.PathLike)):
+            ckpt = load_checkpoint(os.fspath(checkpoint))
+            cfg, params = ckpt["config"], ckpt["params"]
+        else:
+            cfg, params = checkpoint
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.model.load_state_dict(state_dict_from_jax(params, cfg))
+        self.model.cast_weights().to(self.device)
+        self.input_size = cfg["model"].get("input_size") or 224
+        data_cfg = get_data_config(cfg["model"].get("name", ""))
+        self.infer = make_infer_fn(self.model, data_cfg["mean"], data_cfg["std"])
+        self.batch_size = batch_size
+        self.decode_workers = decode_workers
+        self.inflight = inflight
+        pin = self.device.type == "cuda"
+        self._slots = [_Slot(batch_size, self.input_size, pin)
+                       for _ in range(inflight)]
+        self._submitted = 0
+
+    def _decode(self, path: str) -> np.ndarray:
+        from chess_vision_tpu import native
+
+        out = native.decode_file(path, self.input_size)
+        if out is not None:
+            return out
+        from PIL import Image
+
+        img = Image.open(path).convert("RGB")
+        if img.size != (self.input_size, self.input_size):
+            img = img.resize((self.input_size, self.input_size), Image.BILINEAR)
+        return np.asarray(img, np.uint8)
+
+    def _submit(self, images: np.ndarray) -> tuple[int, _Slot]:
+        """Stage up to batch_size images (the tail padded with the last one)
+        and enqueue their inference. A slot is reused ``inflight`` submissions
+        later, by which time its batch has been drained."""
+        count = images.shape[0]
+        slot = self._slots[self._submitted % self.inflight]
+        self._submitted += 1
+        staged = slot.images.numpy()
+        staged[:count] = images
+        staged[count:] = images[-1]
+        preds, turn, castling = self.infer(
+            slot.images.to(self.device, non_blocking=True))
+        slot.preds.copy_(preds, non_blocking=True)
+        slot.turn.copy_(turn, non_blocking=True)
+        slot.castling.copy_(castling, non_blocking=True)
+        if self.device.type == "cuda":
+            slot.done = torch.cuda.Event()
+            slot.done.record()
+        return count, slot
+
+    @staticmethod
+    def _drain(count: int, slot: _Slot) -> list[str]:
+        if slot.done is not None:
+            slot.done.synchronize()
+        return assemble_fens_batch(slot.preds.numpy()[:count],
+                                   slot.turn.numpy()[:count],
+                                   slot.castling.numpy()[:count])
+
+    def _check_images(self, images_u8: np.ndarray) -> None:
+        want = (self.input_size, self.input_size, 3)
+        if images_u8.dtype != np.uint8 or images_u8.shape[1:] != want:
+            raise ValueError(f"expected uint8 (N, {want[0]}, {want[1]}, 3) "
+                             f"images, got {images_u8.dtype} "
+                             f"{tuple(images_u8.shape)}")
+
+    def predict_array(self, images_u8: np.ndarray) -> list[str]:
+        """uint8 (N,S,S,3) RGB -> N FEN strings (padding the tail batch)."""
+        self._check_images(images_u8)
+        fens: list[str] = []
+        window: list[tuple[int, _Slot]] = []
+        for start in range(0, images_u8.shape[0], self.batch_size):
+            window.append(self._submit(images_u8[start:start + self.batch_size]))
+            if len(window) >= self.inflight:
+                fens.extend(self._drain(*window.pop(0)))
+        while window:
+            fens.extend(self._drain(*window.pop(0)))
+        return fens
+
+    def predict_files(self, paths: list[str]) -> list[str]:
+        """Streaming image files -> FENs: decode overlaps device compute."""
+        batch_q: queue.Queue = queue.Queue(maxsize=self.inflight)
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.decode_workers) as pool:
+                    for start in range(0, len(paths), self.batch_size):
+                        chunk = paths[start:start + self.batch_size]
+                        batch_q.put(np.stack(list(pool.map(self._decode, chunk))))
+                batch_q.put(None)
+            except Exception as exc:  # handed to the consumer, which raises it
+                batch_q.put(exc)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        fens: list[str] = []
+        window: list[tuple[int, _Slot]] = []
+        while (item := batch_q.get()) is not None:
+            if isinstance(item, Exception):
+                raise item
+            window.append(self._submit(item))
+            if len(window) >= self.inflight:
+                fens.extend(self._drain(*window.pop(0)))
+        while window:
+            fens.extend(self._drain(*window.pop(0)))
+        thread.join()
+        return fens
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--images", required=True,
+                        help="directory or glob of board images")
+    parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument("--decode-workers", type=int, default=8)
+    parser.add_argument("--mode", choices=["rgb", "ycbcr420"], default="rgb",
+                        help="ycbcr420 is not ported yet")
+    parser.add_argument("--quant", choices=["int8"], default=None,
+                        help="int8 is not ported yet")
+    parser.add_argument("--calib", type=int, default=8,
+                        help="int8 only (not ported yet): softmax-shift "
+                             "calibration inputs")
+    parser.add_argument("--dp", action="store_true",
+                        help="data-parallel serving; not ported yet")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA device)")
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+
+    if args.dp:
+        raise NotImplementedError(
+            "--dp is not ported yet (ROADMAP Queue A item 11)")
+    if os.path.isdir(args.images):
+        paths = sorted(
+            os.path.join(args.images, f)
+            for f in os.listdir(args.images)
+            if f.lower().endswith((".jpg", ".jpeg", ".png"))
+        )
+    else:
+        paths = sorted(glob.glob(args.images))
+    if not paths:
+        sys.exit(f"no images found at {args.images}")
+
+    predictor = Predictor(
+        args.checkpoint, batch_size=args.batch_size,
+        decode_workers=args.decode_workers, mode=args.mode, quant=args.quant,
+        device=args.device,
+    )
+    t0 = time.time()
+    fens = predictor.predict_files(paths)
+    elapsed = time.time() - t0
+    print(f"{len(paths)} boards in {elapsed:.2f}s "
+          f"({len(paths) / elapsed:.0f} boards/s)", file=sys.stderr)
+
+    lines = [f"{os.path.basename(p)}\t{fen}" for p, fen in zip(paths, fens)]
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        print(f"wrote {args.out}", file=sys.stderr)
+    else:
+        print("\n".join(lines))
+
+
+if __name__ == "__main__":
+    main()

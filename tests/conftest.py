@@ -21,6 +21,14 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (hand-written CUDA kernels have no CPU or "
+        "interpret mode); skips where torch sees none",
+    )
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--regen-golden", action="store_true", default=False,
