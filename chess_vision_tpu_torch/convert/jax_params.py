@@ -7,6 +7,9 @@ existing converter on this function's output as an independent round trip.
 Layouts: flax conv HWIO -> torch OIHW, flax Dense kernel (in, out) -> torch
 Linear weight (out, in), LayerNorm scale -> weight; heads are
 ``Sequential(Dropout, Linear)``, so their keys carry index 1.
+
+``int8_pack_from_jax`` does the same for the int8 serving pack
+(``quantize_chessvit``, in the JAX package or ``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ HEADS = ("type_head", "color_head", "turn_head", "castling_head")
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    return torch.from_numpy(np.array(a, order="C"))  # a writable, contiguous copy
 
 
 def _linear(sd: dict, key: str, p: dict) -> None:
@@ -58,3 +61,40 @@ def state_dict_from_jax(params: dict, cfg: dict) -> dict[str, torch.Tensor]:
     for head in HEADS:
         _linear(sd, head + ".1", params[head])
     return sd
+
+
+def int8_pack_from_jax(pack: dict, device=None) -> dict:
+    """The JAX package's int8 pack (numpy arrays, ``quantize_chessvit``) ->
+    the port's tensors on ``device``, for ``ops/quant.chessvit_int8_apply``.
+
+    Each int8 ``wq`` is stored transposed, (O, K) with K contiguous: the
+    B-operand layout of the int8 GEMM (``mma.sync ... row.col``). The patch
+    embed kernel (P, P, C, D) becomes a (D, P*P*C) weight over patches
+    flattened in (row, column, channel) order, with ``patch_size`` P. Other
+    arrays keep their values and dtypes. Calibrated ``attn_shifts`` are not
+    weights: pop them off the pack first and pass them to the forward."""
+    t = lambda a: _tensor(a).to(device)  # noqa: E731
+    pair = lambda p, a, b: {a: t(p[a]), b: t(p[b])}  # noqa: E731
+    kernel = np.asarray(pack["patch_embed"]["kernel"])
+    out = {
+        "patch_embed": {
+            "weight": t(kernel.reshape(-1, kernel.shape[-1]).T),
+            "bias": t(pack["patch_embed"]["bias"]),
+            "patch_size": kernel.shape[0],
+        },
+        "cls_token": t(pack["cls_token"]),
+        "pos_embed": t(pack["pos_embed"]),
+        "norm": pair(pack["norm"], "scale", "bias"),
+        "heads": {name: pair(p, "kernel", "bias")
+                  for name, p in pack["heads"].items()},
+        "blocks": [],
+    }
+    for blk in pack["blocks"]:
+        q = {"norm1": pair(blk["norm1"], "scale", "bias"),
+             "norm2": pair(blk["norm2"], "scale", "bias")}
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            q[name] = {"wq": t(np.asarray(blk[name]["wq"]).T),
+                       "scale": t(blk[name]["scale"]),
+                       "bias": t(blk[name]["bias"])}
+        out["blocks"].append(q)
+    return out

@@ -2,9 +2,11 @@
 
 All kernels compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded with ``ctypes``: a few seconds to
-build, where an extension that includes PyTorch's headers takes minutes. The
-library lands in ``chess_vision_tpu_torch/build/`` (not tracked by git) and is
-rebuilt when a source is newer. Concurrent builds (threads or processes)
+build, where an extension that includes PyTorch's headers takes minutes. Each
+``.cu`` file compiles in its own ``nvcc`` process, all started together, and
+the objects are then linked. The library lands in
+``chess_vision_tpu_torch/build/`` (not tracked by git) and is rebuilt when a
+source or header is newer. Concurrent builds (threads or processes)
 serialize on a lock file; the library is written under a temporary name and
 renamed into place. A missing ``nvcc`` or a failed build raises: there is no
 path around the kernels on a CUDA device.
@@ -25,10 +27,9 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcvt_kernels.so")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +43,14 @@ _SIGNATURES = {
                           ctypes.c_int, _P],
     "cvt_attention_fwd": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, _P],
+    "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],
+    "cvt_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        _P, _P, ctypes.c_float, _P, _P, _P],
+    "cvt_attention_quant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_float, ctypes.c_int, _P],
 }
 
 
@@ -72,19 +81,42 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _sources())
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands in parallel; wait for every one of them."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    done = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        done.append(subprocess.CompletedProcess(cmd, proc.returncode, out, err))
+    return done
+
+
 def _build() -> None:
     global build_log
     nvcc = find_nvcc()
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, LIB_PATH)
+    tag = f"{os.getpid()}.tmp"
+    units = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(u)}.{tag}.o")
+            for u in units]
+    tmp = f"{LIB_PATH}.{tag}"
+    try:
+        steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, u]
+                          for u, o in zip(units, objs)])
+        if all(p.returncode == 0 for p in steps):
+            steps += _run_all([[nvcc, *_ARCH, "-shared", "-o", tmp, *objs]])
+        for proc in steps:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n"
+                    f"{' '.join(proc.args)}\n{proc.stdout}\n{proc.stderr}")
+        build_log = "".join(p.stdout + p.stderr for p in steps)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def library() -> ctypes.CDLL:

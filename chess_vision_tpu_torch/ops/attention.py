@@ -5,6 +5,11 @@ Counterpart of ``chess_vision_tpu/ops/attention.py`` ``fused_qkv_attention``
 Q, K and V straight out of the packed (B, N, 3*H*Dh) projection and keeps the
 scores on chip; ``reference_attention`` is the plain PyTorch version, with the
 same math as the JAX package's ``_reference_attention``.
+
+``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
+package's function of that name): attention, then per-token int8
+quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu``;
+``reference_attention_quant`` is its plain version.
 """
 
 from __future__ import annotations
@@ -14,10 +19,13 @@ import math
 import torch
 
 from chess_vision_tpu_torch.ops import _build
+from chess_vision_tpu_torch.ops.rowquant import quantize_rows
 
-# Kernel launches since the last reset (chip_smoke.py proves the main path
-# went through the kernel with it).
+# Kernel launches since the last reset, of the attention kernel and of the
+# quantizing one (chip_smoke.py proves the main path went through the kernels
+# with them).
 LAUNCHES = 0
+QUANT_LAUNCHES = 0
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
 _MAX_GRID_YZ = 65535
@@ -38,13 +46,8 @@ def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out.reshape(B, N, D)
 
 
-def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, N, 3*H*Dh) packed qkv -> (B, N, H*Dh) attention output.
-
-    A CPU tensor takes ``reference_attention``; a CUDA tensor launches the
-    kernel (bf16, head dim 16, 32 or 64) or raises."""
-    if qkv.device.type == "cpu":
-        return reference_attention(qkv, num_heads)
+def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
+    """Raise on what the attention kernels do not take; returns the head dim."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -61,6 +64,19 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         raise ValueError(f"batch {B} or heads {num_heads} exceed the grid")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
+    return head_dim
+
+
+def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, 3*H*Dh) packed qkv -> (B, N, H*Dh) attention output.
+
+    A CPU tensor takes ``reference_attention``; a CUDA tensor launches the
+    kernel (bf16, head dim 16, 32 or 64) or raises."""
+    if qkv.device.type == "cpu":
+        return reference_attention(qkv, num_heads)
+    head_dim = _check_kernel_input(qkv, num_heads)
+    B, N, C3 = qkv.shape
+    D = C3 // 3
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
@@ -73,3 +89,77 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _pow2(x: float) -> bool:
+    """True when x is an exact power of two (the JAX kernel then folds the
+    softmax scale into q and honours a fixed shift)."""
+    return math.frexp(x)[0] == 0.5
+
+
+def _fixed_shift(softmax_shift: float | None, head_dim: int) -> bool:
+    """Whether a calibrated shift is used as given. The JAX kernel uses it
+    only where the softmax scale folds exactly (``_attn_quant_image``); other
+    head dims keep the exact row max."""
+    return softmax_shift is not None and _pow2(1.0 / math.sqrt(head_dim))
+
+
+def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
+                              softmax_shift: float | None = None):
+    """Plain PyTorch version of the quantizing attention: (B, N, 3*H*Dh) ->
+    (int8 (B, N, H*Dh), f32 (B, N, 1)).
+
+    f32 scores; p = exp(s - shift) rounded to the input dtype feeds both P V
+    and the row sum (the JAX kernel's ones column of V); the output is
+    P V / max(rowsum, 1e-30) in f32, then quantized per token over all
+    heads. The shift is ``softmax_shift`` where the JAX kernel takes it as a
+    fixed shift, else the exact row max."""
+    B, N, C3 = qkv.shape
+    D = C3 // 3
+    head_dim = D // num_heads
+    q, k, v = qkv.reshape(B, N, 3, num_heads, head_dim).unbind(2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s * (1.0 / math.sqrt(head_dim))
+    if _fixed_shift(softmax_shift, head_dim):
+        shift = float(softmax_shift)
+    else:
+        shift = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - shift).to(qkv.dtype).float()
+    rowsum = p.sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, N, H, 1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = o / rowsum.clamp_min(1e-30)
+    return quantize_rows(o.reshape(B, N, D))
+
+
+def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
+                              softmax_shift: float | None = None):
+    """(B, N, 3*H*Dh) packed qkv -> (int8 (B, N, H*Dh), f32 (B, N, 1)).
+
+    softmax_shift: a calibrated per-layer shift (``ops/quant.py``
+    ``calibrate_attn_shifts``), else the exact row max. A CPU tensor takes
+    ``reference_attention_quant``; a CUDA tensor launches the kernel (bf16,
+    head dim 16, 32 or 64) or raises."""
+    if qkv.device.type == "cpu":
+        return reference_attention_quant(qkv, num_heads, softmax_shift)
+    head_dim = _check_kernel_input(qkv, num_heads)
+    B, N, C3 = qkv.shape
+    D = C3 // 3
+    if D % 8 or D > 4096:
+        raise ValueError(f"model width {D} must be a multiple of 8 up to 4096")
+    fixed = _fixed_shift(softmax_shift, head_dim)
+    scratch = torch.empty((B, N, D), dtype=torch.float32, device=qkv.device)
+    oq = torch.empty((B, N, D), dtype=torch.int8, device=qkv.device)
+    os_ = torch.empty((B, N, 1), dtype=torch.float32, device=qkv.device)
+    if oq.numel() == 0:
+        return oq, os_
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        rc = lib.cvt_attention_quant(
+            qkv.data_ptr(), scratch.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+            B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
+            float(softmax_shift) if fixed else 0.0, int(fixed),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "quantizing attention")
+    global QUANT_LAUNCHES
+    QUANT_LAUNCHES += 1
+    return oq, os_

@@ -5,9 +5,12 @@ Pipeline: host thread-pool decode -> uint8 NHWC batch staged in pinned host
 memory -> device (preprocess kernel, ChessViT with the attention kernel,
 argmax; only 69 bytes of results per board come back) -> host FEN assembly.
 A bounded window of ``inflight`` batches lets decode, staging and FEN
-assembly on the host overlap the device's work.
+assembly on the host overlap the device's work. ``quant="int8"`` serves the
+W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
+attention kernels), with per-layer softmax shifts calibrated on a few inputs.
 
-    python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob
+    python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob \
+        [--quant int8 --calib 8]
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ import torch
 
 from chess_vision_tpu.fen import assemble_fens_batch
 from chess_vision_tpu_torch.config import get_data_config
-from chess_vision_tpu_torch.convert.jax_params import state_dict_from_jax
+from chess_vision_tpu_torch.convert.jax_params import (
+    int8_pack_from_jax,
+    state_dict_from_jax,
+)
 from chess_vision_tpu_torch.models import build_model
 from chess_vision_tpu_torch.ops import preprocess as preprocess_ops
+from chess_vision_tpu_torch.ops import quant as quant_ops
 from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
 from chess_vision_tpu_torch.utils.device import cuda_device
 
@@ -41,6 +48,24 @@ def make_infer_fn(model, mean, std):
     def infer(images_u8: torch.Tensor):
         x = preprocess_ops.preprocess_u8(images_u8, mean, std, model.dtype)
         out = model(x)
+        preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
+        return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
+
+    return infer
+
+
+def make_int8_infer_fn(pack, mean, std, attn_shifts=None,
+                       gelu: str = "sigmoid", num_heads: int = 12):
+    """The int8 (W8A8) counterpart of ``make_infer_fn``: same input and
+    outputs, ChessViT run by ``ops/quant.chessvit_int8_apply`` on ``pack``
+    (the port's tensors) with the calibrated ``attn_shifts`` and the fc1
+    ``gelu`` closed in."""
+
+    @torch.inference_mode()
+    def infer(images_u8: torch.Tensor):
+        x = preprocess_ops.preprocess_u8(images_u8, mean, std, torch.bfloat16)
+        out = quant_ops.chessvit_int8_apply(pack, x, attn_shifts=attn_shifts,
+                                            gelu=gelu, num_heads=num_heads)
         preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
         return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
 
@@ -66,17 +91,23 @@ class Predictor:
     ``checkpoint`` is a path to a JAX-package checkpoint or a ``(cfg,
     params)`` pair with params in the JAX layout. ``device`` defaults to the
     CUDA device and raises without one; pass ``device="cpu"`` to run the
-    plain PyTorch ops on the CPU."""
+    plain PyTorch ops on the CPU.
+
+    ``quant="int8"`` (ViT only) serves the W8A8 form: weights quantized once,
+    and, given ``calib_paths``, per-layer softmax shifts calibrated on those
+    images. Its fc1 GELU is read from ``CHESS_VISION_GELU`` (default
+    "sigmoid") once, here. Then ``model`` is None and ``pack``,
+    ``attn_shifts`` and ``gelu`` hold what the forward runs on."""
 
     def __init__(self, checkpoint, batch_size: int = 256,
                  decode_workers: int = 8, inflight: int = 4,
-                 mode: str = "rgb", quant: str | None = None, device=None):
+                 mode: str = "rgb", quant: str | None = None, device=None,
+                 calib_paths=None):
         if mode != "rgb":
             raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP Queue A item 2)")
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r} is not ported yet (ROADMAP Queue A item 5)")
+                f"mode={mode!r} is not ported yet (ROADMAP Queue A item 5)")
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant {quant!r}; expected None or 'int8'")
         self.device = cuda_device() if device is None else torch.device(device)
         if isinstance(checkpoint, (str, os.PathLike)):
             ckpt = load_checkpoint(os.fspath(checkpoint))
@@ -84,12 +115,37 @@ class Predictor:
         else:
             cfg, params = checkpoint
         self.cfg = cfg
-        self.model = build_model(cfg)
-        self.model.load_state_dict(state_dict_from_jax(params, cfg))
-        self.model.cast_weights().to(self.device)
         self.input_size = cfg["model"].get("input_size") or 224
         data_cfg = get_data_config(cfg["model"].get("name", ""))
-        self.infer = make_infer_fn(self.model, data_cfg["mean"], data_cfg["std"])
+        self.model = self.pack = self.attn_shifts = self.gelu = None
+        if quant == "int8":
+            if cfg["model"].get("arch", "vit") != "vit":
+                raise ValueError("int8 quantization currently supports arch=vit")
+            self.gelu = quant_ops.approx_gelu()
+            num_heads = cfg["model"].get("num_heads", 12)
+            calib = None
+            if calib_paths:
+                # normalized on the host in f32, as the JAX Predictor does
+                imgs = np.stack([self._decode(p) for p in calib_paths])
+                m = np.asarray(data_cfg["mean"], np.float32) * 255.0
+                sd = np.asarray(data_cfg["std"], np.float32) * 255.0
+                calib = torch.from_numpy((imgs.astype(np.float32) - m) / sd)
+                calib = calib.to(self.device)
+            pack = quant_ops.quantize_chessvit(params, calib=calib,
+                                               num_heads=num_heads,
+                                               gelu=self.gelu)
+            self.attn_shifts = pack.pop("attn_shifts", None)
+            self.pack = int8_pack_from_jax(pack, self.device)
+            self.infer = make_int8_infer_fn(
+                self.pack, data_cfg["mean"], data_cfg["std"],
+                attn_shifts=self.attn_shifts, gelu=self.gelu,
+                num_heads=num_heads)
+        else:
+            self.model = build_model(cfg)
+            self.model.load_state_dict(state_dict_from_jax(params, cfg))
+            self.model.cast_weights().to(self.device)
+            self.infer = make_infer_fn(self.model, data_cfg["mean"],
+                                       data_cfg["std"])
         self.batch_size = batch_size
         self.decode_workers = decode_workers
         self.inflight = inflight
@@ -199,10 +255,11 @@ def main(argv=None):
     parser.add_argument("--mode", choices=["rgb", "ycbcr420"], default="rgb",
                         help="ycbcr420 is not ported yet")
     parser.add_argument("--quant", choices=["int8"], default=None,
-                        help="int8 is not ported yet")
+                        help="int8 W8A8 serving (ViT only)")
     parser.add_argument("--calib", type=int, default=8,
-                        help="int8 only (not ported yet): softmax-shift "
-                             "calibration inputs")
+                        help="int8 only: calibrate per-layer softmax shifts "
+                             "on the first N inputs (0 = exact row-max "
+                             "shifts, no calibration)")
     parser.add_argument("--dp", action="store_true",
                         help="data-parallel serving; not ported yet")
     parser.add_argument("--device", default=None,
@@ -228,6 +285,7 @@ def main(argv=None):
         args.checkpoint, batch_size=args.batch_size,
         decode_workers=args.decode_workers, mode=args.mode, quant=args.quant,
         device=args.device,
+        calib_paths=paths[:args.calib] if args.quant == "int8" else None,
     )
     t0 = time.time()
     fens = predictor.predict_files(paths)

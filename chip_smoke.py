@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phases, one line each; any failure exits non-zero before the last line:
   1. device  card name, ``nvidia-smi`` name and power limit; TF32 off.
-  2. build   nvcc builds ``chess_vision_tpu_torch/csrc/*.cu`` for sm_90a.
+  2. build   nvcc builds ``chess_vision_tpu_torch/csrc/*.cu`` for sm_90a, one
+             process per source, all started together.
   3. K1      preprocess kernel vs its plain version, (256,256,256,3) u8 -> bf16,
              at most 1 bf16 ulp apart.
   4. K2      attention kernel vs ``reference_attention`` at (256,257,2304) bf16
@@ -18,7 +19,28 @@ Phases, one line each; any failure exits non-zero before the last line:
              random boards (a padded tail batch) must launch K1 once and K2 12
              times per batch, and agree with the same Predictor running the
              plain ops on the card; boards/s of both at batch 256.
-  6. report  the kernels JSON line, the nvidia-smi line, then
+  6. K6/K7   row-quant kernel vs ``rowquant_plain`` at (65792, 768) ln and
+             (65792, 3072) gelu_sigmoid, bf16 in: int8 codes within one
+             level in under 1e-3 of the elements, scales rtol 1e-5; exact
+             ties k + 0.5 round half to even.
+  7. K8-K13  int8 GEMM kernel, every epilogue, vs its plain version at
+             (65792, 768) -> 2304 / 768 / 3072 and (65792, 3072) -> 768: codes
+             and scales as in 6, bf16 outputs within one bf16 ulp.
+  8. K4      quantizing attention vs ``reference_attention_quant`` at
+             (256, 257, 2304) with the exact row max and with a fixed shift,
+             and at (3, 17, 384): dequantized outputs within ATTN_ATOL.
+  9. int8    the same ViT-B/16 through ``Predictor(quant="int8")``, its
+             softmax shifts calibrated on 8 boards; ``predict_array`` on
+             --boards boards must launch, per batch, the row quant once, the
+             quantizing attention 12 times, the GEMM 12 (qkv), 23 (proj,
+             fc2), 12 (fc1) and 1 (last fc2) times, the preprocess once, and
+             agree with the same Predictor on the plain versions on the
+             card; then every kernel call of one batch must meet the
+             criteria of 6-8 against its plain version on the same inputs,
+             the path's own activations; int8-vs-bf16 FEN agreement
+             printed; boards/s of int8 kernel, int8 plain and bf16 kernel
+             paths at batch 256.
+ 10. report  the kernels JSON line, the nvidia-smi line, then
              {"ok": true, "device": {...}}.
 """
 
@@ -31,7 +53,7 @@ import subprocess
 import sys
 import time
 import traceback
-from contextlib import contextmanager, nullcontext
+from contextlib import ExitStack, contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -42,6 +64,16 @@ import numpy as np
 # ten bf16 ulps at the random model's logit scale (~0.5)
 SQUARES_ATOL = 5e-2
 ATTN_ATOL = 2e-2  # the JAX package's bound for its own kernel
+# logits of the int8 kernel path vs its plain path on the card: an int8 code
+# may land one level apart where a value sits on a rounding boundary (sums
+# in another order; ~1e-6 of the elements measured in phases 6-8), which
+# moves that output by one quantization step of its row, and 48 requants
+# through 12 blocks spread it. On the random model (H100) this reads
+# 0.052-0.062 for seeds 0-4, and so does any other one-rounding change of a
+# kernel (0.050-0.059 planted), so this bound only fails gross faults (a
+# wrong softmax scale read 0.119, a dropped residual 2.56). The per-op check
+# of phase 9 (path_op_checks) is the one that fails rounding-level faults.
+INT8_SQUARES_ATOL = 1e-1
 BATCH = 256
 SIZE = 256
 
@@ -285,12 +317,420 @@ def main() -> int:
           f"kernel {rates['kernel']}, plain {rates['plain']}; {kind}, {smi}",
           flush=True)
 
-    # 6. report
+    int8_kernel_phases(dev, kernels)
+    int8_path_phase(args, cfg, boards, fens, predictor, kernels, kind, smi)
+
+    # 10. report
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def codes_check(what: str, q, s, rq, rs) -> float:
+    """int8 codes within one level in under 1e-3 of the elements, scales
+    rtol 1e-5; returns the max |difference| of the dequantized values."""
+    import torch
+
+    diff = (q.int() - rq.int()).abs()
+    flips = (diff > 0).float().mean().item()
+    scale_rel = ((s - rs).abs() / rs.abs()).max().item()
+    deq = (q.float() * s - rq.float() * rs).abs().max().item()
+    print(f"  {what}: max level diff {diff.max().item()}, {flips:.2e} of "
+          f"codes differ, scale rel diff {scale_rel:.2e}, dequantized "
+          f"max |diff| {deq}", flush=True)
+    require(diff.max().item() <= 1 and flips < 1e-3,
+            f"{what}: codes differ by {diff.max().item()} in {flips}")
+    require(scale_rel <= 1e-5 and bool(torch.isfinite(s).all()),
+            f"{what}: scales differ by {scale_rel}")
+    return deq
+
+
+def bf16_check(what: str, out, ref) -> float:
+    """bf16 outputs within one bf16 ulp; returns the max |difference|."""
+    ulps = bf16_ulps(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"  {what}: max |diff| {err} ({ulps} bf16 ulp)", flush=True)
+    require(ulps <= 1.0, f"{what}: {ulps} bf16 ulp from the plain version")
+    return err
+
+
+def int8_kernel_phases(dev, kernels: dict) -> None:
+    """Phases 6-8: each int8 kernel at the main path's shapes vs its plain
+    version on the same inputs, timed with CUDA events."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    M = BATCH * (SIZE // 16 * SIZE // 16 + 1)
+    src = "chess_vision_tpu_torch/csrc/"
+
+    # 6. row quant (K7 in the path; K6 is the same rows flat)
+    for D, mode in ((768, "ln"), (3072, "gelu_sigmoid")):
+        x = (torch.randn((M, D), device=dev, generator=gen) * 2).bfloat16()
+        g = torch.rand(D, device=dev, generator=gen) + 0.5
+        b = torch.randn(D, device=dev, generator=gen) * 0.1
+        q, s = rq.fused_rowquant(x, mode, g, b)
+        rq_, rs = rq.rowquant_plain(x, mode, g, b)
+        torch.cuda.synchronize()
+        err = codes_check(f"[6 K6/K7] row quant ({M}, {D}) {mode}", q, s, rq_, rs)
+        ms = cuda_ms(lambda: rq.fused_rowquant(x, mode, g, b), 20)
+        plain_ms = cuda_ms(lambda: rq.rowquant_plain(x, mode, g, b), 5)
+        print(f"[6 K6/K7] row quant ({M}, {D}) {mode}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        if mode == "ln":
+            kernels["fused_rowquant"] = {
+                "name": "fused_rowquant", "route": "cuda",
+                "source": src + "rowquant.cu",
+                "replaces": "chess_vision_tpu/ops/quant.py:159",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del x, q, s, rq_, rs
+
+    # exact ties: with the row's abs-max at 127 each code is its value, so
+    # k + 0.5 must round half to even (as jnp.round), not away from zero
+    halves = torch.arange(-126, 127, device=dev, dtype=torch.float32) + 0.5
+    x = torch.cat([halves.new_tensor([127.0]), halves, halves.new_zeros(2)])
+    q, s = rq.fused_rowquant(x[None], "none")
+    torch.cuda.synchronize()
+    wrong = int((q[0].float() != torch.round(x)).sum())
+    print(f"  [6 K6/K7] row quant of {halves.numel()} exact ties: {wrong} codes "
+          f"not rounded half to even", flush=True)
+    require(wrong == 0 and abs(s.item() - 1.0) <= 1e-6,
+            f"row quant ties: {wrong} wrong, scale {s.item()}")
+
+    # 7. int8 GEMM epilogues (K8-K10 in the path; K11-K13 the same rows)
+    def operands(K, O):
+        ri = lambda *shape: torch.randint(  # noqa: E731
+            -127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+        return (ri(M, K), torch.rand((M, 1), device=dev, generator=gen) * 0.02
+                + 0.002, ri(O, K),
+                torch.rand(O, device=dev, generator=gen) * 0.0004 + 0.0002,
+                torch.randn(O, device=dev, generator=gen) * 0.1)
+
+    cases = (("scale_bias", 768, 2304, "chess_vision_tpu/ops/quant.py:251"),
+             ("res_ln_quant", 768, 768, "chess_vision_tpu/ops/int8_matmul.py:254"),
+             ("gelu_quant", 768, 3072, "chess_vision_tpu/ops/int8_matmul.py:219"),
+             ("res_ln_quant", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:254"),
+             ("res", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:297"))
+    for epi, K, O, replaces in cases:
+        ops = operands(K, O)
+        res = torch.randn((M, O), device=dev, generator=gen).bfloat16()
+        g = torch.rand(O, device=dev, generator=gen) + 0.5
+        b = torch.randn(O, device=dev, generator=gen) * 0.1
+        kernel = getattr(mm, f"int8_matmul_{epi}")
+        plain = getattr(mm, f"int8_matmul_{epi}_plain")
+        extra = {"scale_bias": (), "res": (res,), "gelu_quant": ("sigmoid",),
+                 "res_ln_quant": (res, g, b)}[epi]
+        out, ref = kernel(*ops, *extra), plain(*ops, *extra)
+        torch.cuda.synchronize()
+        what = f"[7 GEMM] {epi} ({M}, {K}) -> {O}"
+        if epi == "gelu_quant":
+            err = codes_check(what, *out, *ref)
+        elif epi == "res_ln_quant":
+            err = max(bf16_check(what + " x'", out[0], ref[0]),
+                      codes_check(what, *out[1:], *ref[1:]))
+        else:
+            err = bf16_check(what, out, ref)
+        ms = cuda_ms(lambda: kernel(*ops, *extra), 20)
+        plain_ms = cuda_ms(lambda: plain(*ops, *extra), 5)
+        tops = 2 * M * K * O / ms / 1e9
+        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s), plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        name = f"int8_matmul_{epi}"
+        # proj and fc2 share the res_ln_quant kernel: the entry keeps fc2's
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": src + "int8_matmul.cu",
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+        del ops, res, out, ref
+
+    # 8. quantizing attention
+    N = SIZE // 16 * SIZE // 16 + 1
+    for B, n, H, shift in ((BATCH, N, 12, None), (BATCH, N, 12, "fixed"),
+                           (3, 17, 2, "fixed")):
+        qkv = torch.randn((B, n, 3 * H * 64), device=dev,
+                          generator=gen).to(torch.bfloat16)
+        if shift == "fixed":  # as calibrate_attn_shifts sets it
+            q, k = qkv[:8].float().reshape(min(B, 8), n, 3, H, 64)[:, :, :2].unbind(2)
+            shift = torch.einsum("bqhd,bkhd->bhqk", q, k).max().item() / 8 - 40
+        oq, os_ = attn_ops.fused_qkv_attention_quant(qkv, H, shift)
+        rq_, rs = attn_ops.reference_attention_quant(qkv, H, shift)
+        torch.cuda.synchronize()
+        err = (oq.float() * os_ - rq_.float() * rs).abs().max().item()
+        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_quant(qkv, H, shift), 20)
+        plain_ms = cuda_ms(
+            lambda: attn_ops.reference_attention_quant(qkv, H, shift), 5)
+        flips = (oq != rq_).float().mean().item()
+        print(f"[8 K4] attention quant {tuple(qkv.shape)} H={H} shift={shift}: "
+              f"dequantized max |diff| {err} (atol {ATTN_ATOL}), {flips:.2e} "
+              f"of codes differ; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+              flush=True)
+        require(bool(torch.isfinite(os_).all()) and err <= ATTN_ATOL,
+                f"K4 at {tuple(qkv.shape)}, shift {shift}: max |diff| {err}")
+        if B == BATCH and shift is not None:
+            kernels["fused_qkv_attention_quant"] = {
+                "name": "fused_qkv_attention_quant", "route": "cuda",
+                "source": src + "attention_quant.cu",
+                "replaces": "chess_vision_tpu/ops/attention.py:486",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del qkv, oq, os_, rq_, rs
+
+
+def reset_counts() -> None:
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    pre_ops.LAUNCHES = rq.LAUNCHES = 0
+    attn_ops.LAUNCHES = attn_ops.QUANT_LAUNCHES = 0
+    for key in mm.LAUNCHES:
+        mm.LAUNCHES[key] = 0
+
+
+def int8_counts() -> dict:
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    return {"preprocess_u8": pre_ops.LAUNCHES,
+            "fused_qkv_attention": attn_ops.LAUNCHES,
+            "fused_rowquant": rq.LAUNCHES,
+            "fused_qkv_attention_quant": attn_ops.QUANT_LAUNCHES,
+            **{f"int8_matmul_{k}": v for k, v in mm.LAUNCHES.items()}}
+
+
+def path_op_checks(predictor, boards, mean, std) -> dict:
+    """Run one int8 forward on ``boards`` in which every kernel call is also
+    computed by its plain version on the same inputs (the path goes on with
+    the kernel's outputs). Returns, per op, the worst over its calls of: max
+    int8 level difference, share of codes that differ, scale relative
+    difference, dequantized max |difference| and bf16 ulps of bf16 outputs."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    worst: dict[str, dict] = {}
+
+    def record(name, **vals):
+        slot = worst.setdefault(name, {"calls": 0})
+        slot["calls"] += 1
+        for key, val in vals.items():
+            slot[key] = max(slot.get(key, 0.0), val)
+
+    def codes(q, s, rq_, rs):
+        diff = (q.int() - rq_.int()).abs()
+        return {"levels": diff.max().item(),
+                "flips": (diff > 0).float().mean().item(),
+                "scale_rel": ((s - rs).abs() / rs.abs()).max().item(),
+                "deq": (q.float() * s - rq_.float() * rs).abs().max().item(),
+                "nonfinite": float(not torch.isfinite(s).all())}
+
+    def hook(module, name, plain):
+        kernel = getattr(module, name)
+
+        def run(*a, **kw):
+            out, ref = kernel(*a, **kw), plain(*a, **kw)
+            if isinstance(out, torch.Tensor):  # scale_bias, res: bf16 out
+                record(name, ulps=bf16_ulps(out, ref))
+            elif len(out) == 3:  # res_ln_quant: x', yq, ys
+                record(name, ulps=bf16_ulps(out[0], ref[0]),
+                       **codes(*out[1:], *ref[1:]))
+            elif name == "fused_qkv_attention_quant":
+                vals = codes(*out, *ref)
+                shift = a[2] if len(a) > 2 else kw.get("softmax_shift")
+                if shift is None:  # the exact row max: p rounds at other
+                    del vals["levels"], vals["flips"]  # values (phase 8)
+                record(name, **vals)
+            else:
+                record(name, **codes(*out, *ref))
+            return out
+        return run
+
+    hooks = [(rq, "fused_rowquant", rq.rowquant_plain),
+             (attn_ops, "fused_qkv_attention_quant",
+              attn_ops.reference_attention_quant)]
+    hooks += [(mm, f"int8_matmul_{k}", getattr(mm, f"int8_matmul_{k}_plain"))
+              for k in mm.LAUNCHES]
+    with ExitStack() as stack:
+        for module, name, plain in hooks:
+            stack.enter_context(
+                mock.patch.object(module, name, hook(module, name, plain)))
+        int8_logits(predictor, boards, mean, std)
+    return worst
+
+
+def require_path_ops(worst: dict) -> None:
+    """The criteria of phases 6-8 at the path's own activations; the
+    quantizing attention's codes, where its shift is the calibrated one, also
+    within one level in under 1e-3 of the elements."""
+    for name, w in worst.items():
+        if "levels" in w:
+            require(w["levels"] <= 1 and w["flips"] < 1e-3,
+                    f"[9 int8] {name} on the path: {w}")
+        if "ulps" in w:
+            require(w["ulps"] <= 1.0, f"[9 int8] {name} on the path: {w}")
+        if name == "fused_qkv_attention_quant":
+            require(w["deq"] <= ATTN_ATOL and not w["nonfinite"],
+                    f"[9 int8] {name} on the path: {w}")
+        elif "scale_rel" in w:
+            require(w["scale_rel"] <= 1e-5 and not w["nonfinite"],
+                    f"[9 int8] {name} on the path: {w}")
+
+
+def int8_path_phase(args, cfg, boards, fens_bf16, predictor_bf16, kernels,
+                    kind, smi) -> None:
+    """Phase 9: the int8 serving path through ``Predictor(quant="int8")``."""
+    import torch
+
+    from chess_vision_tpu_torch import fen_to_labels
+    from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.serve import Predictor
+
+    depth = cfg["model"]["depth"]
+    rng = np.random.default_rng(args.seed + 1)
+    calib = rng.integers(0, 256, (8, SIZE, SIZE, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    # the Predictor decodes its calibration files; here they are boards in
+    # memory, named by index
+    with mock.patch.object(Predictor, "_decode",
+                           lambda self, path: calib[int(path)]):
+        predictor = Predictor((cfg, random_jax_params(cfg, args.seed)),
+                              batch_size=BATCH, device="cuda", quant="int8",
+                              calib_paths=[str(i) for i in range(len(calib))])
+    shifts = predictor.attn_shifts
+    predictor.predict_array(boards[:BATCH])  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    require(len(shifts) == depth, f"{len(shifts)} calibrated shifts")
+
+    reset_counts()
+    fens = predictor.predict_array(boards)
+    launches = int8_counts()
+    batches = math.ceil(args.boards / BATCH)
+    want = {"preprocess_u8": batches, "fused_qkv_attention": 0,
+            "fused_rowquant": batches, "fused_qkv_attention_quant": depth * batches,
+            "int8_matmul_scale_bias": depth * batches,
+            "int8_matmul_gelu_quant": depth * batches,
+            "int8_matmul_res_ln_quant": (2 * depth - 1) * batches,
+            "int8_matmul_res": batches}
+    print(f"[9 int8] ViT-B/16 {SIZE}px int8 full width, {args.boards} boards in "
+          f"{batches} batches of {BATCH}: launches {launches} (set-up "
+          f"{setup_s:.1f} s, gelu {predictor.gelu}, calibrated shifts "
+          f"{[None if s is None else round(s, 3) for s in shifts]})", flush=True)
+    require(launches == want, f"int8 launch counts {launches}, want {want}")
+    for name, count in launches.items():
+        if name in kernels and name not in ("preprocess_u8", "fused_qkv_attention"):
+            kernels[name]["launches"] = count
+
+    with plain_int8_ops():
+        fens_plain = predictor.predict_array(boards)
+    require(int8_counts() == want, "the plain-ops run launched a kernel")
+    data_cfg = get_data_config(cfg["model"]["name"])
+    mean, std = data_cfg["mean"], data_cfg["std"]
+    logits_k = int8_logits(predictor, boards, mean, std)
+    with plain_int8_ops():
+        logits_p = int8_logits(predictor, boards, mean, std)
+    sq_k, sq_p = logits_k["squares"], logits_p["squares"]
+    require(sq_k.shape == (args.boards, 64 * 13) and np.isfinite(sq_k).all(),
+            f"int8 logits: shape {sq_k.shape}, finite {np.isfinite(sq_k).all()}")
+    sq_err = float(np.abs(sq_k - sq_p).max())
+    require(len(fens) == len(fens_plain) == args.boards, "FEN count")
+    ids_k = np.stack([fen_to_labels(f.split()[0]) for f in fens])
+    ids_p = sq_p.reshape(-1, 64, 13).argmax(-1)
+    top2 = np.sort(sq_p.reshape(-1, 64, 13), axis=-1)[..., -2:]
+    confident = top2[..., 1] - top2[..., 0] > 2 * INT8_SQUARES_ATOL
+    mismatch = int((ids_k != ids_p)[confident].sum())
+    turn_k = np.array([f.split()[1] == "b" for f in fens])
+    turn_conf = np.abs(logits_p["turn"][:, 0]) > 2 * INT8_SQUARES_ATOL
+    turn_mismatch = int((turn_k != (logits_p["turn"][:, 0] > 0))[turn_conf].sum())
+    same = sum(a == b for a, b in zip(fens, fens_plain))
+    ids_bf16 = np.stack([fen_to_labels(f.split()[0]) for f in fens_bf16])
+    print(f"[9 int8] squares logits kernel vs plain: max |diff| {sq_err} (atol "
+          f"{INT8_SQUARES_ATOL}); {int(confident.sum())} of {confident.size} "
+          f"squares have top-2 margin > {2 * INT8_SQUARES_ATOL}, {mismatch} "
+          f"differ; turn mismatches on confident boards {turn_mismatch}; "
+          f"{same}/{args.boards} FEN strings identical", flush=True)
+    print(f"[9 int8] int8 vs bf16 (random weights, near-tied logits; not "
+          f"gated): square agreement {(ids_k == ids_bf16).mean():.4f}, "
+          f"{sum(a == b for a, b in zip(fens, fens_bf16))}/{args.boards} FEN "
+          f"strings identical", flush=True)
+    require(sq_err <= INT8_SQUARES_ATOL, f"int8 squares logits differ by {sq_err}")
+    require(mismatch == 0 and turn_mismatch == 0,
+            "int8 FENs differ on confident squares or turns")
+
+    # each kernel call of one batch against its plain version on the same
+    # inputs, at the path's own activations (launches here are not counted)
+    worst = path_op_checks(predictor, boards[:BATCH], mean, std)
+    print(f"[9 int8] each kernel call of one batch vs its plain version on "
+          f"the same inputs (worst per op): {worst}", flush=True)
+    calls = {f"int8_matmul_{k}": want[f"int8_matmul_{k}"] // batches
+             for k in ("scale_bias", "gelu_quant", "res_ln_quant", "res")}
+    calls.update(fused_rowquant=1, fused_qkv_attention_quant=depth)
+    require({k: w["calls"] for k, w in worst.items()} == calls,
+            f"checked calls {worst}, want {calls}")
+    require_path_ops(worst)
+
+    bench = np.concatenate([boards] * math.ceil(args.bench_boards / args.boards))
+    bench = bench[:args.bench_boards]
+    rates = {"int8 kernel": [], "int8 plain": [], "bf16 kernel": []}
+    for which in ("int8 kernel", "int8 plain", "bf16 kernel", "bf16 kernel",
+                  "int8 plain", "int8 kernel"):
+        pred = predictor_bf16 if which == "bf16 kernel" else predictor
+        with plain_int8_ops() if which == "int8 plain" else nullcontext():
+            t0 = time.perf_counter()
+            pred.predict_array(bench)
+            rates[which].append(len(bench) / (time.perf_counter() - t0))
+    print(f"[9 int8] predict_array boards/s at batch {BATCH} ({len(bench)} "
+          f"boards per run; in the order int8 kernel, int8 plain, bf16 kernel, "
+          f"bf16 kernel, int8 plain, int8 kernel): {rates}; {kind}, {smi}",
+          flush=True)
+
+
+@contextmanager
+def plain_int8_ops():
+    """Route the int8 forward's kernels and the preprocess through their
+    plain PyTorch versions, on the card."""
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    patches = [(rq, "fused_rowquant", rq.rowquant_plain),
+               (attn_ops, "fused_qkv_attention_quant",
+                attn_ops.reference_attention_quant),
+               (pre_ops, "preprocess_u8", pre_ops.preprocess_u8_plain)]
+    patches += [(mm, f"int8_matmul_{k}", getattr(mm, f"int8_matmul_{k}_plain"))
+                for k in mm.LAUNCHES]
+    with ExitStack() as stack:
+        for module, name, plain in patches:
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
+
+
+def int8_logits(predictor, boards, mean, std) -> dict[str, np.ndarray]:
+    import torch
+
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.ops import quant
+
+    outs = []
+    with torch.inference_mode():
+        for start in range(0, len(boards), BATCH):
+            u8 = torch.from_numpy(boards[start:start + BATCH]).to("cuda")
+            x = pre_ops.preprocess_u8(u8, mean, std, torch.bfloat16)
+            out = quant.chessvit_int8_apply(
+                predictor.pack, x, predictor.attn_shifts, gelu=predictor.gelu,
+                num_heads=predictor.cfg["model"]["num_heads"])
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 @contextmanager
