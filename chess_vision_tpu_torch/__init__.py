@@ -1,12 +1,14 @@
 """chess_vision_tpu_torch: the PyTorch/CUDA port of chess_vision_tpu.
 
-Serves the flagship ChessViT (board image -> FEN) on an NVIDIA Hopper GPU,
-with preprocessing and attention in hand-written CUDA kernels. The FEN codec
-is numpy-only and shared with the JAX package, not copied; importing this
-package does not import JAX.
+Serves and trains the flagship ChessViT (board image -> FEN) on an NVIDIA
+Hopper GPU, with preprocessing, attention forward and attention backward in
+hand-written CUDA kernels. The package stands alone: it imports nothing of
+``chess_vision_tpu`` or JAX and keeps its own copies of the numpy-only FEN
+codec (``fen.py``), the JPEG decoder (``native/``) and the host input
+pipeline (``data.py``); tests hold the copies equal to the JAX package's.
 """
 
-from chess_vision_tpu.fen import (  # noqa: F401
+from chess_vision_tpu_torch.fen import (  # noqa: F401
     CLASS_TO_COLOR,
     CLASS_TO_TYPE,
     INDEX_TO_PIECE,

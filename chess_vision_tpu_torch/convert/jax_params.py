@@ -1,9 +1,13 @@
-"""The weight bridge: JAX ChessViT params -> this package's state_dict.
+"""The weight bridge, both ways: JAX ChessViT params <-> this package's
+state_dict.
 
-The inverse of ``chess_vision_tpu/convert/timm_convert.py``
-``convert_reference_model``, which maps timm-named torch weights (the names
-this package's modules use) to the JAX parameter tree; the tests run that
-existing converter on this function's output as an independent round trip.
+``state_dict_from_jax`` is the inverse of
+``chess_vision_tpu/convert/timm_convert.py`` ``convert_reference_model``,
+which maps timm-named torch weights (the names this package's modules use) to
+the JAX parameter tree; the tests run that existing converter on this
+function's output as an independent round trip. ``tree_from_state_dict`` goes
+back, for checkpoints that the JAX package loads; both also carry the AdamW
+moments, which share the parameters' names and layouts.
 Layouts: flax conv HWIO -> torch OIHW, flax Dense kernel (in, out) -> torch
 Linear weight (out, in), LayerNorm scale -> weight; heads are
 ``Sequential(Dropout, Linear)``, so their keys carry index 1.
@@ -24,14 +28,76 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))  # a writable, contiguous copy
 
 
-def _linear(sd: dict, key: str, p: dict) -> None:
-    sd[key + ".weight"] = _tensor(np.asarray(p["kernel"]).T)
-    sd[key + ".bias"] = _tensor(p["bias"])
+def _torch_key(path: tuple[str, ...]) -> str:
+    """JAX tree path -> state_dict key, e.g. ("backbone", "block3", "attn",
+    "qkv", "kernel") -> "backbone.blocks.3.attn.qkv.weight"."""
+    *modules, leaf = path
+    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    if modules and modules[0] in HEADS:
+        return f"{modules[0]}.1.{leaf}"
+    if modules[0] != "backbone":
+        raise KeyError(f"no PyTorch counterpart for JAX parameter {path}")
+    rest = modules[1:]
+    if rest and rest[0] == "patch_embed":
+        rest = ["patch_embed", "proj"]
+    elif rest and rest[0].startswith("block"):
+        rest = ["blocks", rest[0][len("block"):], *rest[1:]]
+    return ".".join(["backbone", *rest, leaf])
 
 
-def _norm(sd: dict, key: str, p: dict) -> None:
-    sd[key + ".weight"] = _tensor(p["scale"])
-    sd[key + ".bias"] = _tensor(p["bias"])
+def _jax_path(key: str) -> tuple[str, ...]:
+    """state_dict key -> JAX tree path; the inverse of ``_torch_key``."""
+    *modules, leaf = key.split(".")
+    if leaf == "weight":
+        leaf = "scale" if modules[-1].startswith("norm") else "kernel"
+    if modules and modules[0] in HEADS:
+        return (modules[0], leaf)
+    if not modules or modules[0] != "backbone":
+        raise KeyError(f"no JAX counterpart for PyTorch parameter {key}")
+    rest = modules[1:]
+    if rest and rest[0] == "patch_embed":
+        rest = ["patch_embed"]
+    elif rest and rest[0] == "blocks":
+        rest = [f"block{rest[1]}", *rest[2:]]
+    return ("backbone", *rest, leaf)
+
+
+def _leaves(tree: dict, path=()):
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, path + (name,))
+        else:
+            yield path + (name,), value
+
+
+def state_dict_from_tree(tree: dict) -> dict[str, torch.Tensor]:
+    """Any tree in the JAX parameter layout (the parameters, or AdamW moments
+    of all or some of them; empty sub-dicts are skipped) -> tensors keyed by
+    ``state_dict`` names, in PyTorch's layouts."""
+    sd = {}
+    for path, value in _leaves(tree):
+        a = np.asarray(value)
+        if path[-1] == "kernel":  # HWIO -> OIHW, (in, out) -> (out, in)
+            a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+        sd[_torch_key(path)] = _tensor(a)
+    return sd
+
+
+def tree_from_state_dict(sd: dict) -> dict:
+    """The inverse bridge: tensors keyed by ``state_dict`` names (all or some
+    parameters, or their moments) -> nested dicts of numpy arrays in the JAX
+    package's layout."""
+    tree: dict = {}
+    for key, value in sd.items():
+        a = value.detach().cpu().numpy()
+        path = _jax_path(key)
+        if path[-1] == "kernel":  # OIHW -> HWIO, (out, in) -> (in, out)
+            a = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
 
 
 def state_dict_from_jax(params: dict, cfg: dict) -> dict[str, torch.Tensor]:
@@ -41,26 +107,7 @@ def state_dict_from_jax(params: dict, cfg: dict) -> dict[str, torch.Tensor]:
         raise NotImplementedError(
             f"arch={arch!r} is not ported to PyTorch yet (ROADMAP Queue A "
             "item 10)")
-    bb = params["backbone"]
-    sd: dict[str, torch.Tensor] = {}
-    sd["backbone.patch_embed.proj.weight"] = _tensor(
-        np.transpose(np.asarray(bb["patch_embed"]["kernel"]), (3, 2, 0, 1)))
-    sd["backbone.patch_embed.proj.bias"] = _tensor(bb["patch_embed"]["bias"])
-    sd["backbone.cls_token"] = _tensor(bb["cls_token"])
-    sd["backbone.pos_embed"] = _tensor(bb["pos_embed"])
-    depth = sum(1 for k in bb if k.startswith("block"))
-    for i in range(depth):
-        blk, pre = bb[f"block{i}"], f"backbone.blocks.{i}."
-        _norm(sd, pre + "norm1", blk["norm1"])
-        _linear(sd, pre + "attn.qkv", blk["attn"]["qkv"])
-        _linear(sd, pre + "attn.proj", blk["attn"]["proj"])
-        _norm(sd, pre + "norm2", blk["norm2"])
-        _linear(sd, pre + "mlp.fc1", blk["mlp"]["fc1"])
-        _linear(sd, pre + "mlp.fc2", blk["mlp"]["fc2"])
-    _norm(sd, "backbone.norm", bb["norm"])
-    for head in HEADS:
-        _linear(sd, head + ".1", params[head])
-    return sd
+    return state_dict_from_tree(params)
 
 
 def int8_pack_from_jax(pack: dict, device=None) -> dict:

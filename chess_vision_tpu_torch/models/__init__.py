@@ -1,16 +1,62 @@
 """Model dispatcher (``chess_vision_tpu/models/__init__.py``).
 
 ``build_model(cfg)`` builds the ViT; the CNN and square archs are not ported
-yet (ROADMAP Queue A item 10).
+yet (ROADMAP Queue A item 10). ``normalize_remat`` / ``resolve_remat`` choose
+the trainer's rematerialization, ``init_weights`` draws a fresh model from a
+seed.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch import nn
 
 from chess_vision_tpu_torch.models.vit import ChessViT
 
 ARCHS = ("vit", "cnn", "square")
+
+# Device memory model of ``resolve_remat`` for ViT-B/16 at 256 px in bf16,
+# bytes. The state: f32 parameters, gradients and two AdamW moments of the
+# 86 M-parameter model (1.28 GiB) and the per-use bf16 copies of the weights.
+# Per-image activations kept for the backward pass: (peak - state) / 64 from
+# ``torch.cuda.max_memory_allocated`` over train steps at batch 64, 6.60 GiB
+# without remat (chip_smoke.py train phase; NVIDIA H100 80GB HBM3, 700.00 W).
+STATE_BYTES = 1.5 * 2**30
+NOREMAT_BYTES_PER_IMAGE = 86e6
+HEADROOM_BYTES = 2.0 * 2**30  # cuBLAS workspaces, allocator fragmentation
+
+
+def normalize_remat(value):
+    """Normalize model.remat config values: ``--set model.remat=...`` arrives
+    as a raw string. The spellings of true and false map onto the booleans;
+    other strings ("auto", "attn_out") pass through in lower case."""
+    if isinstance(value, str):
+        v = value.lower()
+        if v in ("true", "1", "yes", "full"):
+            return True
+        if v in ("false", "0", "no", "none"):
+            return False
+        return v
+    return value
+
+
+def resolve_remat(batch: int, device=None, device_bytes: float | None = None):
+    """The auto remat policy for ViT-B training: no rematerialization when
+    the activations of ``batch`` images fit in the device's memory beside the
+    train state, else full remat (recomputing costs a second forward per
+    block). ``device_bytes`` defaults to the total memory of ``device``
+    (``torch.cuda.get_device_properties``); on the CPU, where there is
+    nothing to fit, the answer is False. The JAX package's third choice,
+    "attn_out", is not ported."""
+    if device_bytes is None:
+        device = torch.device("cpu" if device is None else device)
+        if device.type != "cuda":
+            return False
+        device_bytes = float(torch.cuda.get_device_properties(device).total_memory)
+    free = device_bytes - STATE_BYTES - HEADROOM_BYTES
+    return not NOREMAT_BYTES_PER_IMAGE * batch <= free
 
 
 def compute_dtype(cfg: dict) -> torch.dtype:
@@ -20,13 +66,19 @@ def compute_dtype(cfg: dict) -> torch.dtype:
 
 
 def build_model(cfg: dict) -> ChessViT:
-    """Build a chess recognition model from a full config dict (eval mode)."""
+    """Build a chess recognition model from a full config dict. The model
+    comes back in eval mode with PyTorch's default init; a trainer calls
+    ``init_weights`` and ``.train()``. ``model.remat`` "auto" that no caller
+    resolved means full remat, as in the JAX package."""
     model_cfg = cfg["model"]
     arch = model_cfg.get("arch", "vit")
     if arch == "vit":
+        remat = normalize_remat(model_cfg.get("remat", "auto"))
         return ChessViT(
             img_size=model_cfg.get("input_size") or 224,
             head_dropout=model_cfg.get("head_dropout", 0.0),
+            drop_path_rate=model_cfg.get("drop_path_rate", 0.0),
+            remat=True if remat == "auto" else remat,
             dtype=compute_dtype(cfg),
             embed_dim=model_cfg.get("embed_dim", 768),
             depth=model_cfg.get("depth", 12),
@@ -38,3 +90,44 @@ def build_model(cfg: dict) -> ChessViT:
             f"arch={arch!r} is not ported to PyTorch yet (ROADMAP Queue A "
             "item 10, CNN and square archs)")
     raise ValueError(f"Unknown architecture: {arch!r} (expected one of {ARCHS})")
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+_TRUNC_STD = 0.87962566  # std of a unit normal truncated at +-2
+
+
+def _trunc_normal_(tensor: torch.Tensor, std: float, gen: torch.Generator):
+    """Normal truncated at two standard deviations and rescaled so that the
+    result has standard deviation ``std`` (flax's ``truncated_normal``)."""
+    scale = std / _TRUNC_STD
+    nn.init.trunc_normal_(tensor, std=scale, a=-2 * scale, b=2 * scale,
+                          generator=gen)
+
+
+@torch.no_grad()
+def init_weights(model: ChessViT, seed: int = 0) -> ChessViT:
+    """Initialize in place as the JAX package's ``init_variables`` does:
+    truncated-normal(0.02) backbone kernels, patch embedding and position
+    embedding; LeCun-normal head kernels; zero biases and CLS token; unit
+    LayerNorm scales. Drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, module in model.named_modules():
+        if isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, (nn.Linear, nn.Conv2d)):
+            weight = torch.empty(module.weight.shape)
+            if name.startswith("backbone."):
+                _trunc_normal_(weight, 0.02, gen)
+            else:
+                _trunc_normal_(weight, 1.0 / math.sqrt(module.in_features), gen)
+            module.weight.copy_(weight)
+            nn.init.zeros_(module.bias)
+    pos = torch.empty(model.backbone.pos_embed.shape)
+    _trunc_normal_(pos, 0.02, gen)
+    model.backbone.pos_embed.copy_(pos)
+    nn.init.zeros_(model.backbone.cls_token)
+    return model

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from chess_vision_tpu.fen import CLASS_TO_COLOR, CLASS_TO_TYPE
+from chess_vision_tpu_torch.fen import CLASS_TO_COLOR, CLASS_TO_TYPE
 
 _TYPE_INDEX = torch.tensor(CLASS_TO_TYPE)
 _COLOR_INDEX = torch.tensor(CLASS_TO_COLOR)

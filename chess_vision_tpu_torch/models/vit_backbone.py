@@ -6,6 +6,14 @@ NHWC, as in the JAX package. The patch embedding, a 16x16 stride-16
 convolution, is written as the per-patch linear product it equals: a patch
 reshape and one matrix product, with no cuDNN convolution (and so no TF32 in
 f32).
+
+Training: stochastic depth grows linearly with depth
+(``drop_path_rate * i / (depth - 1)``), and ``remat=True`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, non-reentrant, the
+dropout generator's state preserved), so only block inputs are kept: the
+trade of FLOPs for device memory that the JAX package makes with
+``nn.remat``. ``remat="attn_out"`` (a saved-tensor policy that also keeps
+each block's attention output) is not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chess_vision_tpu_torch.models.layers import LayerNorm, TransformerBlock
 
@@ -39,23 +48,35 @@ class PatchEmbed(nn.Module):
 class ViTBackbone(nn.Module):
     def __init__(self, img_size: int = 256, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0, norm_eps: float = 1e-6):
+                 mlp_ratio: float = 4.0, norm_eps: float = 1e-6,
+                 dropout: float = 0.0, drop_path_rate: float = 0.0,
+                 remat: bool | str = False):
         super().__init__()
+        if remat not in (False, True):
+            raise NotImplementedError(
+                f"remat={remat!r} is not ported to PyTorch yet (ROADMAP "
+                "Queue A item 7: the attn_out saved-tensor policy); use "
+                "true or false")
+        self.remat = remat
         self.grid_size = img_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, self.grid_size * self.grid_size + 1, embed_dim))
+        self.pos_drop = nn.Dropout(dropout)
         self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, num_heads, mlp_ratio, norm_eps)
-            for _ in range(depth))
+            TransformerBlock(embed_dim, num_heads, mlp_ratio, norm_eps,
+                             dropout=dropout,
+                             drop_path=drop_path_rate * i / max(depth - 1, 1))
+            for i in range(depth))
         self.norm = LayerNorm(embed_dim, eps=norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) normalized images -> (B, 1 + grid^2, embed_dim)."""
         x = self.patch_embed(x)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        x = self.pos_drop(torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.norm(x)

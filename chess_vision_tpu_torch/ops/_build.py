@@ -43,6 +43,8 @@ _SIGNATURES = {
                           ctypes.c_int, _P],
     "cvt_attention_fwd": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, _P],
+    "cvt_attention_bwd": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,

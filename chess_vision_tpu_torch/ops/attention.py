@@ -1,10 +1,15 @@
-"""Multi-head attention forward on the packed qkv projection.
+"""Multi-head attention on the packed qkv projection, forward and backward.
 
 Counterpart of ``chess_vision_tpu/ops/attention.py`` ``fused_qkv_attention``
-(forward only; this package serves). The kernel, ``csrc/attention.cu``, reads
-Q, K and V straight out of the packed (B, N, 3*H*Dh) projection and keeps the
-scores on chip; ``reference_attention`` is the plain PyTorch version, with the
-same math as the JAX package's ``_reference_attention``.
+and its custom VJP. The forward kernel, ``csrc/attention.cu``, reads Q, K and
+V straight out of the packed (B, N, 3*H*Dh) projection and keeps the scores
+on chip; ``reference_attention`` is the plain PyTorch version, with the same
+math as the JAX package's ``_reference_attention``. ``fused_qkv_attention`` is
+differentiable through a ``torch.autograd.Function`` that saves only ``qkv``
+(as ``_tpu_attention_fwd`` does); its backward is the kernel
+``csrc/attention_bwd.cu`` (``fused_qkv_attention_bwd``), with
+``reference_attention_bwd`` as the plain version: the arithmetic of the JAX
+package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
 package's function of that name): attention, then per-token int8
@@ -21,10 +26,11 @@ import torch
 from chess_vision_tpu_torch.ops import _build
 from chess_vision_tpu_torch.ops.rowquant import quantize_rows
 
-# Kernel launches since the last reset, of the attention kernel and of the
-# quantizing one (chip_smoke.py proves the main path went through the kernels
-# with them).
+# Kernel launches since the last reset, of the attention forward kernel, of
+# the backward one and of the quantizing one (chip_smoke.py proves the main
+# path went through the kernels with them).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 QUANT_LAUNCHES = 0
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
@@ -40,10 +46,45 @@ def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     D = C3 // 3
     q, k, v = qkv.reshape(B, N, 3, num_heads, D // num_heads).unbind(2)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(_accum_dtype(qkv)) * scale
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
     return out.reshape(B, N, D)
+
+
+def reference_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """Plain PyTorch attention backward: saved qkv (B, N, 3*H*Dh) and the
+    cotangent g (B, N, H*Dh) of the output -> dqkv (B, N, 3*H*Dh).
+
+    The steps and rounding points of the JAX package's ``_attn_bwd_kernel``:
+    scores, the max-shifted softmax, its normalization, dP and r in f32; pn
+    rounded to the input dtype only as the operand of dV = pn^T g; dS rounded
+    to the input dtype after the scale is folded in, then dQ = dS K and
+    dK = dS^T Q; f32 accumulation and one rounding of each output."""
+    B, N, C3 = qkv.shape
+    D = C3 // 3
+    head_dim = D // num_heads
+    acc = _accum_dtype(qkv)
+    scale = 1.0 / math.sqrt(head_dim)
+    q, k, v = (t.to(acc) for t in
+               qkv.reshape(B, N, 3, num_heads, head_dim).unbind(2))
+    gh = g.reshape(B, N, num_heads, head_dim).to(acc)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pn = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pn.to(qkv.dtype).to(acc), gh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    r = (dp * pn).sum(dim=-1, keepdim=True)
+    ds = (pn * (dp - r) * scale).to(qkv.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3).to(qkv.dtype)
+
+
+def _accum_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for bf16, f16 and f32 inputs; f64 stays f64."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
@@ -68,10 +109,36 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, N, 3*H*Dh) packed qkv -> (B, N, H*Dh) attention output.
+    """(B, N, 3*H*Dh) packed qkv -> (B, N, H*Dh) attention output,
+    differentiable in ``qkv``.
 
-    A CPU tensor takes ``reference_attention``; a CUDA tensor launches the
-    kernel (bf16, head dim 16, 32 or 64) or raises."""
+    A CPU tensor takes ``reference_attention`` (and
+    ``reference_attention_bwd`` for its gradient); a CUDA tensor launches the
+    kernels (bf16, head dim 16, 32 or 64) or raises."""
+    if qkv.requires_grad and torch.is_grad_enabled():
+        return _FusedAttention.apply(qkv, num_heads)
+    return fused_qkv_attention_fwd(qkv, num_heads)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The forward saves only ``qkv``; the backward recomputes the softmax
+    from it (``fused_qkv_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return fused_qkv_attention_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return fused_qkv_attention_bwd(qkv, g, ctx.num_heads), None
+
+
+def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The forward alone, outside autograd: ``reference_attention`` for a CPU
+    tensor, the kernel for a CUDA tensor."""
     if qkv.device.type == "cpu":
         return reference_attention(qkv, num_heads)
     head_dim = _check_kernel_input(qkv, num_heads)
@@ -89,6 +156,43 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """Saved qkv (B, N, 3*H*Dh) and the output's cotangent g (B, N, H*Dh) ->
+    dqkv (B, N, 3*H*Dh).
+
+    A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
+    the backward kernel (bf16, head dim 16, 32 or 64) or raises. ``g`` is
+    made contiguous first (autograd may hand a strided one)."""
+    B, N, C3 = qkv.shape
+    D = C3 // 3
+    if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} on {g.device} "
+                         f"does not match qkv {tuple(qkv.shape)} {qkv.dtype} "
+                         f"on {qkv.device}")
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, g, num_heads)
+    head_dim = _check_kernel_input(qkv, num_heads)
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32,
+                        device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        rc = lib.cvt_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "attention backward")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dqkv
 
 
 def _pow2(x: float) -> bool:

@@ -5,12 +5,19 @@ normalize is one fused multiply-add per element with per-channel
 ``scale = 1/(255*std_c)`` and ``bias = -mean_c/std_c``; on a CUDA tensor it
 runs in the hand-written kernel ``csrc/preprocess.cu``, on a CPU tensor in
 ``preprocess_u8_plain`` (the same arithmetic in PyTorch).
+
+The YCbCr 4:2:0 transport (``ycbcr420_to_rgb``, ``ycbcr420_to_rgb_planar``,
+``ycbcr420_to_normalized``; the JAX package's functions of those names, plain
+array code there as here) rebuilds RGB on the device from the JPEG's own
+planes, which halves the host-to-device bytes; ``rgb_to_ycbcr420`` is the
+numpy host side for images the native 4:2:0 decoder does not take.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from chess_vision_tpu_torch.ops import _build
 
@@ -76,3 +83,57 @@ def preprocess_u8(images_u8: torch.Tensor, mean, std,
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _ycbcr420_rgb_planes(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
+    size = y.shape[-2:]
+    # bilinear chroma upsample with half-pixel centers: the triangle filter of
+    # libjpeg's fancy upsampler
+    up = lambda c: F.interpolate(  # noqa: E731
+        c.float()[:, None], size=size, mode="bilinear", align_corners=False)[:, 0]
+    yf = y.float()
+    cbf = up(cb) - 128.0
+    crf = up(cr) - 128.0
+    r = yf + 1.402 * crf
+    g = yf - 0.344136 * cbf - 0.714136 * crf
+    b = yf + 1.772 * cbf
+    return r, g, b
+
+
+def ycbcr420_to_rgb(y: torch.Tensor, cb: torch.Tensor,
+                    cr: torch.Tensor) -> torch.Tensor:
+    """Subsampled JPEG planes -> RGB f32 in [0, 255], (B, S, S, 3).
+
+    Y (B, S, S) uint8, Cb and Cr (B, S/2, S/2) uint8, as
+    ``native.decode_ycbcr420`` gives them; JFIF full-range BT.601 matrix."""
+    return torch.stack(_ycbcr420_rgb_planes(y, cb, cr), dim=-1).clamp(0.0, 255.0)
+
+
+def ycbcr420_to_rgb_planar(y: torch.Tensor, cb: torch.Tensor,
+                           cr: torch.Tensor) -> torch.Tensor:
+    """``ycbcr420_to_rgb`` with channel-planar (B, 3, S, S) output, the
+    layout the training augmentations run in."""
+    return torch.stack(_ycbcr420_rgb_planes(y, cb, cr), dim=1).clamp(0.0, 255.0)
+
+
+def ycbcr420_to_normalized(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                           mean, std, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Planes -> mean/std-normalized RGB (B, S, S, 3) in ``out_dtype``."""
+    rgb = ycbcr420_to_rgb(y, cb, cr)
+    mean = torch.tensor(mean, dtype=torch.float32, device=rgb.device) * 255.0
+    std = torch.tensor(std, dtype=torch.float32, device=rgb.device) * 255.0
+    return ((rgb - mean) / std).to(out_dtype)
+
+
+def rgb_to_ycbcr420(img: np.ndarray):
+    """Host side: uint8 (S, S, 3) RGB -> (Y, Cb, Cr) uint8 planes (JFIF
+    BT.601, 2x2 box-averaged chroma)."""
+    f = img.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    sub = lambda c: c.reshape(  # noqa: E731
+        c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean(axis=(1, 3))
+    clip = lambda c: np.clip(c + 0.5, 0, 255).astype(np.uint8)  # noqa: E731
+    return clip(y), clip(sub(cb)), clip(sub(cr))

@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from chess_vision_tpu.fen import assemble_fens_batch
+from chess_vision_tpu_torch.fen import assemble_fens_batch
 from chess_vision_tpu_torch.config import get_data_config
 from chess_vision_tpu_torch.convert.jax_params import (
     int8_pack_from_jax,
@@ -37,7 +37,7 @@ from chess_vision_tpu_torch.models import build_model
 from chess_vision_tpu_torch.ops import preprocess as preprocess_ops
 from chess_vision_tpu_torch.ops import quant as quant_ops
 from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
-from chess_vision_tpu_torch.utils.device import cuda_device
+from chess_vision_tpu_torch.utils.device import resolve_device
 
 
 def make_infer_fn(model, mean, std):
@@ -108,7 +108,7 @@ class Predictor:
                 f"mode={mode!r} is not ported yet (ROADMAP Queue A item 5)")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant {quant!r}; expected None or 'int8'")
-        self.device = cuda_device() if device is None else torch.device(device)
+        self.device = resolve_device(device)
         if isinstance(checkpoint, (str, os.PathLike)):
             ckpt = load_checkpoint(os.fspath(checkpoint))
             cfg, params = ckpt["config"], ckpt["params"]
@@ -155,7 +155,7 @@ class Predictor:
         self._submitted = 0
 
     def _decode(self, path: str) -> np.ndarray:
-        from chess_vision_tpu import native
+        from chess_vision_tpu_torch import native
 
         out = native.decode_file(path, self.input_size)
         if out is not None:

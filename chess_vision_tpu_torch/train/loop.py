@@ -1,0 +1,199 @@
+"""Train and eval steps and the epoch runners
+(``chess_vision_tpu/train/loop.py``, streaming loader, one device).
+
+One train step does everything on the device: unpack -> augment -> normalize
+-> forward in the compute dtype -> loss -> backward -> clip -> AdamW -> metric
+sums. Metric sums stay device scalars until the epoch ends; the loop reads
+one loss per logging interval. The loader's numpy batches are staged through
+a small ring of pinned host buffers and copied to the device without
+blocking, so the next batch's copy overlaps the current step.
+
+Randomness: one generator for the augmentation draws and the device's default
+generator for dropout and drop path, both re-seeded from the run's seed and
+the step at every step, so a resumed run continues the same streams.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from chess_vision_tpu_torch.augment import (
+    draw_params,
+    preprocess_eval_batch,
+    preprocess_train_batch,
+)
+from chess_vision_tpu_torch.train.losses import total_loss
+from chess_vision_tpu_torch.train.metrics import (
+    accumulate,
+    batch_metric_sums,
+    finalize,
+)
+from chess_vision_tpu_torch.utils.device import default_generator
+
+LOG_EVERY = 20  # steps between progress lines (each reads one loss back)
+
+
+def unpack_batch(batch: dict, input_size: int) -> dict:
+    """Unpack the 'packed' loader transport (``data.BatchLoader``): one uint8
+    pixel buffer (flattened YCbCr 4:2:0 planes) and one f32 label buffer back
+    into the standard batch dict, on the device."""
+    if "pixels" not in batch:
+        return batch
+    B = batch["pixels"].shape[0]
+    s, h = input_size, input_size // 2
+    n_y, n_c = s * s, h * h
+    pixels, labels = batch["pixels"], batch["labels"]
+    return {
+        "y": pixels[:, :n_y].reshape(B, s, s),
+        "cb": pixels[:, n_y:n_y + n_c].reshape(B, h, h),
+        "cr": pixels[:, n_y + n_c:].reshape(B, h, h),
+        "squares": labels[:, :64].to(torch.int32),
+        "turn": labels[:, 64:65],
+        "castling": labels[:, 65:69],
+        "legal": labels[:, 69:70],
+        "mask": labels[:, 70],
+    }
+
+
+class BatchStager:
+    """Loader batch (numpy) -> tensors on ``device``. On a CUDA device each
+    array is copied into a pinned host buffer of a ring of ``slots`` and sent
+    with a non-blocking copy; a slot is reused only after its copies have
+    finished."""
+
+    def __init__(self, device: torch.device, slots: int = 2):
+        self.device = device
+        self._slots = [{} for _ in range(slots)]
+        self._events: list[torch.cuda.Event | None] = [None] * slots
+        self._next = 0
+
+    def __call__(self, batch: dict) -> dict:
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)
+                  and k != "indices"}
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v) for k, v in arrays.items()}
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        out = {}
+        for name, array in arrays.items():
+            pinned = self._slots[i].get(name)
+            if (pinned is None or pinned.shape != array.shape
+                    or pinned.numpy().dtype != array.dtype):
+                pinned = torch.from_numpy(np.empty_like(array)).pin_memory()
+                self._slots[i][name] = pinned
+            pinned.numpy()[...] = array
+            out[name] = pinned.to(self.device, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+        return out
+
+
+def _stream_seed(seed: int, step: int, stream: int) -> int:
+    return (seed * 1_000_003 + step * 2 + stream) % (2**63 - 1)
+
+
+def make_steps(state, cfg: dict, class_weights, mean, std, seed: int = 0):
+    """Build ``(train_step, eval_step)`` over ``state`` (a ``TrainState``).
+
+    ``train_step(batch, aug_params=None)`` takes one optimizer step on a
+    device batch and returns the batch's metric sums plus ``step_loss`` and
+    ``step_piece_loss``; ``aug_params`` replaces the step's own augmentation
+    draws (``augment.draw_params``) when given. ``eval_step(batch)`` returns
+    the metric sums."""
+    tcfg = cfg["training"]
+    model = state.model
+    device = next(model.parameters()).device
+    input_size = cfg["model"].get("input_size") or 224
+    smoothing = tcfg.get("label_smoothing", 0.0)
+    turn_w = float(tcfg.get("turn_loss_weight", 1.0))
+    castling_w = float(tcfg.get("castling_loss_weight", 1.0))
+    channel_perm_p = float(tcfg.get("channel_perm_p", 0.0))
+    invert_p = float(tcfg.get("invert_p", 0.0))
+    if class_weights is not None:
+        class_weights = class_weights.to(device)
+    aug_gen = torch.Generator(device=device)
+    drop_gen = default_generator(device)
+
+    def train_step(batch: dict, aug_params: dict | None = None) -> dict:
+        model.train()
+        batch = unpack_batch(batch, input_size)
+        if aug_params is None:
+            aug_gen.manual_seed(_stream_seed(seed, state.step, 0))
+            aug_params = draw_params(batch["squares"].shape[0], aug_gen)
+        drop_gen.manual_seed(_stream_seed(seed, state.step, 1))
+        images = preprocess_train_batch(batch, aug_params, mean, std,
+                                        channel_perm_p, invert_p)
+        out = model(images)
+        loss, aux = total_loss(out, batch, class_weights, smoothing, turn_w,
+                               castling_w)
+        loss.backward()
+        state.apply_gradients()
+        sums = batch_metric_sums(out, batch, loss)
+        sums["step_loss"] = loss.detach().float()
+        sums["step_piece_loss"] = aux["piece_loss"].detach().float()
+        return sums
+
+    @torch.no_grad()
+    def eval_step(batch: dict) -> dict:
+        model.eval()
+        batch = unpack_batch(batch, input_size)
+        out = model(preprocess_eval_batch(batch, mean, std))
+        loss, _ = total_loss(out, batch, class_weights, smoothing, turn_w,
+                             castling_w)
+        return batch_metric_sums(out, batch, loss)
+
+    return train_step, eval_step
+
+
+def run_train_epoch(train_step, state, loader, stager: BatchStager,
+                    step_log: Callable | None = None,
+                    on_step: Callable | None = None,
+                    profile_stop: tuple | None = None) -> dict:
+    """One training epoch; returns the metrics dict.
+
+    ``step_log(global_step, loss, piece_loss, lr)`` receives device scalars.
+    ``on_step("train", sums)`` is called after every step. ``profile_stop``
+    is ``(n, stop)``: after ``n`` steps the device is synchronized and
+    ``stop()`` called once."""
+    total = None
+    t0 = time.time()
+    n_batches = len(loader)
+    for i, batch in enumerate(loader):
+        step = state.step
+        sums = train_step(stager(batch))
+        if step_log is not None:
+            step_log(step, sums["step_loss"], sums["step_piece_loss"],
+                     state.schedule(step))
+        if on_step is not None:
+            on_step("train", sums)
+        if i == 0 or (i + 1) % LOG_EVERY == 0:
+            loss = sums["step_loss"].item()  # the interval's one device read
+            rate = (i + 1) / max(time.time() - t0, 1e-9)
+            print(f"    step {i + 1}/{n_batches} loss {loss:.4f} "
+                  f"({rate:.2f} it/s)", file=sys.stderr, flush=True)
+        total = accumulate(
+            total, {k: v for k, v in sums.items() if not k.startswith("step_")})
+        if profile_stop is not None and i + 1 >= profile_stop[0]:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            profile_stop[1]()
+            profile_stop = None
+    return finalize(total)
+
+
+def run_eval_epoch(eval_step, loader, stager: BatchStager,
+                   on_step: Callable | None = None) -> dict:
+    total = None
+    for batch in loader:
+        sums = eval_step(stager(batch))
+        if on_step is not None:
+            on_step("eval", sums)
+        total = accumulate(total, sums)
+    return finalize(total)

@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0] [--boards 300] [--bench-boards 1024]
+                          [--profile-train N]
 
 Phases, one line each; any failure exits non-zero before the last line:
   1. device  card name, ``nvidia-smi`` name and power limit; TF32 off.
@@ -40,8 +41,34 @@ Phases, one line each; any failure exits non-zero before the last line:
              the path's own activations; int8-vs-bf16 FEN agreement
              printed; boards/s of int8 kernel, int8 plain and bf16 kernel
              paths at batch 256.
- 10. report  the kernels JSON line, the nvidia-smi line, then
-             {"ok": true, "device": {...}}.
+ 10. K3      attention backward kernel vs ``reference_attention_bwd`` at
+             (256,257,2304) and (64,257,2304) with 12 heads and (3,17,96) with
+             1 head, bf16: dq, dk and dv each within K3_ATOL, a planted fault
+             (dK from the unscaled dS) outside it, two launches bit-identical;
+             ``scaled_dot_product_attention`` forward and backward timed on
+             the same values as the library yardstick of K2 and K3.
+ 11. train   the same ViT-B/16 through the trainer's ``train`` function
+             (``python -m chess_vision_tpu_torch.train`` calls it): the
+             ``configs/vit.yaml`` values, batch 64, an in-memory corpus of 320
+             random boards with labels from random FENs, 2 epochs of 4 steps,
+             each followed by the eval epoch on the held-out 64; every train
+             step must launch K2 12 times and K3 12 times (24 and 12 with
+             remat), every eval step K2 12 times and K3 never; finite losses,
+             the last epoch's mean train loss below the first's; one step
+             with dropout and drop path off and fixed augmentation draws
+             through the kernels and through the plain versions on the card:
+             loss and per-tensor gradients within TRAIN_GRAD_RTOL; train
+             img/s of both, peak device memory with and without remat; the
+             checkpoint written and read back. ``--profile-train N`` also
+             prints a ``torch.profiler`` table of N warm train steps.
+ 12. report  the kernels JSON line (every kernel with its bound and, where
+             one PyTorch call computes the same function, that call's time),
+             the nvidia-smi line, then {"ok": true, "device": {...}}.
+
+Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
+read once, outputs written once) over 3.35 TB/s and its operations over the
+card's peak for their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
+f32), the H100 SXM's published rates at its full 700 W.
 """
 
 from __future__ import annotations
@@ -74,8 +101,26 @@ ATTN_ATOL = 2e-2  # the JAX package's bound for its own kernel
 # wrong softmax scale read 0.119, a dropped residual 2.56). The per-op check
 # of phase 9 (path_op_checks) is the one that fails rounding-level faults.
 INT8_SQUARES_ATOL = 1e-1
+# K3 vs its plain version, per output element: both round dS and pn to bf16
+# and each output once from f32 sums taken in another order, so values near a
+# rounding boundary land one bf16 ulp apart: 3.9e-3 read at |values| up to 2.8
+# (ulp 7.8e-3 in [1, 2), 1.6e-2 in [2, 4)). The planted fault, dK made from
+# the unscaled dS, reads 4.5 to 19.8. The JAX package holds its own kernel to
+# 5e-2 against an f32 reference.
+K3_ATOL = 1.6e-2
+# gradients of one train step, kernel path vs plain path on the card, per
+# parameter tensor: max |difference| over max |plain gradient|. bf16 rounds at
+# other points in the two attentions (K2's unrounded row sums, K3's f32
+# rounding order), and the differences pass back through up to 12 bf16 blocks.
+# Read on the H100 at seed 0: worst tensor 0.018 (the CLS token), median
+# 0.004, losses 2.8e-4 apart.
+TRAIN_GRAD_RTOL = 4e-2
+TRAIN_LOSS_ATOL = 5e-3
 BATCH = 256
 SIZE = 256
+TRAIN_BATCH = 64
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 class SmokeFailure(Exception):
@@ -108,6 +153,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_entry(name: str, source: str, replaces: str, err: float, ms: float,
+                 plain_ms: float, nbytes: float, ops: float, op_type: str,
+                 library_ms: float | None = None) -> dict:
+    """One entry of the kernels line; the bound from this run's shapes."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[op_type] * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "chess_vision_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
 
 
 def bf16_ulps(a, b) -> float:
@@ -160,6 +219,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--boards", type=int, default=300)
     parser.add_argument("--bench-boards", type=int, default=4 * BATCH)
+    parser.add_argument("--profile-train", type=int, default=0,
+                        help="also profile this many warm train steps")
     args = parser.parse_args()
 
     import torch
@@ -212,11 +273,10 @@ def main() -> int:
           f"({ulps} bf16 ulp); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
           flush=True)
     require(ulps <= 1.0, f"K1 is {ulps} bf16 ulp from its plain version")
-    kernels["preprocess_u8"] = {
-        "name": "preprocess_u8", "route": "cuda",
-        "source": "chess_vision_tpu_torch/csrc/preprocess.cu",
-        "replaces": "chess_vision_tpu/ops/preprocess.py:43",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    kernels["preprocess_u8"] = kernel_entry(
+        "preprocess_u8", "preprocess.cu",
+        "chess_vision_tpu/ops/preprocess.py:43", err, ms, plain_ms,
+        nbytes=3 * u8.numel(), ops=2 * u8.numel(), op_type="f32")
 
     # 4. K2
     for B, N, H, Dh in ((BATCH, SIZE // 16 * SIZE // 16 + 1, 12, 64),
@@ -235,11 +295,11 @@ def main() -> int:
         require(finite and err <= ATTN_ATOL,
                 f"K2 at {tuple(qkv.shape)}: max |diff| {err}, finite {finite}")
         if B == BATCH:
-            kernels["fused_qkv_attention"] = {
-                "name": "fused_qkv_attention", "route": "cuda",
-                "source": "chess_vision_tpu_torch/csrc/attention.cu",
-                "replaces": "chess_vision_tpu/ops/attention.py:90",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            kernels["fused_qkv_attention"] = kernel_entry(
+                "fused_qkv_attention", "attention.cu",
+                "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+                nbytes=2 * qkv.numel() * 4 // 3, ops=4 * B * H * N * N * Dh,
+                op_type="bf16")
         del qkv, out_k, out_p
     del u8
 
@@ -319,8 +379,12 @@ def main() -> int:
 
     int8_kernel_phases(dev, kernels)
     int8_path_phase(args, cfg, boards, fens, predictor, kernels, kind, smi)
+    del predictor
+    torch.cuda.empty_cache()
+    attention_bwd_phase(args, dev, kernels)
+    train_path_phase(args, kernels, kind, smi)
 
-    # 10. report
+    # 12. report
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -367,7 +431,6 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(1)
     M = BATCH * (SIZE // 16 * SIZE // 16 + 1)
-    src = "chess_vision_tpu_torch/csrc/"
 
     # 6. row quant (K7 in the path; K6 is the same rows flat)
     for D, mode in ((768, "ln"), (3072, "gelu_sigmoid")):
@@ -380,14 +443,15 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
         err = codes_check(f"[6 K6/K7] row quant ({M}, {D}) {mode}", q, s, rq_, rs)
         ms = cuda_ms(lambda: rq.fused_rowquant(x, mode, g, b), 20)
         plain_ms = cuda_ms(lambda: rq.rowquant_plain(x, mode, g, b), 5)
+        entry = kernel_entry(
+            "fused_rowquant", "rowquant.cu",
+            "chess_vision_tpu/ops/quant.py:159", err, ms, plain_ms,
+            nbytes=3 * M * D + 4 * M + 8 * D, ops=8 * M * D, op_type="f32")
         print(f"[6 K6/K7] row quant ({M}, {D}) {mode}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
+              f"plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})", flush=True)
         if mode == "ln":
-            kernels["fused_rowquant"] = {
-                "name": "fused_rowquant", "route": "cuda",
-                "source": src + "rowquant.cu",
-                "replaces": "chess_vision_tpu/ops/quant.py:159",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            kernels["fused_rowquant"] = entry
         del x, q, s, rq_, rs
 
     # exact ties: with the row's abs-max at 127 each code is its value, so
@@ -438,14 +502,23 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
         ms = cuda_ms(lambda: kernel(*ops, *extra), 20)
         plain_ms = cuda_ms(lambda: plain(*ops, *extra), 5)
         tops = 2 * M * K * O / ms / 1e9
-        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s), plain "
-              f"{plain_ms:.4f} ms", flush=True)
         name = f"int8_matmul_{epi}"
+        # inputs: int8 x, its f32 row scales, the int8 weight, f32 column
+        # scales and bias; outputs and extra inputs by epilogue (bf16 out;
+        # int8 codes + row scales; the bf16 residual, and for res_ln_quant
+        # also the bf16 x' and the LN's gamma and beta)
+        nbytes = M * K + 4 * M + O * K + 8 * O + {
+            "scale_bias": 2 * M * O, "res": 4 * M * O,
+            "gelu_quant": M * O + 4 * M,
+            "res_ln_quant": 5 * M * O + 4 * M + 8 * O}[epi]
         # proj and fc2 share the res_ln_quant kernel: the entry keeps fc2's
-        kernels[name] = {
-            "name": name, "route": "cuda", "source": src + "int8_matmul.cu",
-            "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+        entry = kernels[name] = kernel_entry(
+            name, "int8_matmul.cu", replaces, err, ms, plain_ms,
+            nbytes=nbytes, ops=2 * M * K * O, op_type="int8",
+            library_ms=int_mm_ms(ops[0], ops[2], what))
+        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s), plain "
+              f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})", flush=True)
         del ops, res, out, ref
 
     # 8. quantizing attention
@@ -472,12 +545,29 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
         require(bool(torch.isfinite(os_).all()) and err <= ATTN_ATOL,
                 f"K4 at {tuple(qkv.shape)}, shift {shift}: max |diff| {err}")
         if B == BATCH and shift is not None:
-            kernels["fused_qkv_attention_quant"] = {
-                "name": "fused_qkv_attention_quant", "route": "cuda",
-                "source": src + "attention_quant.cu",
-                "replaces": "chess_vision_tpu/ops/attention.py:486",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            kernels["fused_qkv_attention_quant"] = kernel_entry(
+                "fused_qkv_attention_quant", "attention_quant.cu",
+                "chess_vision_tpu/ops/attention.py:486", err, ms, plain_ms,
+                nbytes=2 * qkv.numel() + B * n * H * 64 + 4 * B * n,
+                ops=4 * B * H * n * n * 64, op_type="bf16")
         del qkv, oq, os_, rq_, rs
+
+
+def int_mm_ms(xq, wq, what: str) -> float | None:
+    """The library yardstick of the int8 GEMMs: ``torch._int_mm`` on the same
+    int8 operands, the product only (s32 out, no scales, no epilogue). The
+    port never calls it; where this PyTorch build refuses the shapes the
+    entry carries null."""
+    import torch
+
+    try:
+        ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()), 10)
+    except RuntimeError as exc:
+        print(f"  {what}: torch._int_mm does not run here "
+              f"({str(exc).splitlines()[0]}): library_ms null", flush=True)
+        return None
+    print(f"  {what}: torch._int_mm (product only) {ms:.4f} ms", flush=True)
+    return ms
 
 
 def reset_counts() -> None:
@@ -487,7 +577,7 @@ def reset_counts() -> None:
     from chess_vision_tpu_torch.ops import rowquant as rq
 
     pre_ops.LAUNCHES = rq.LAUNCHES = 0
-    attn_ops.LAUNCHES = attn_ops.QUANT_LAUNCHES = 0
+    attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = attn_ops.QUANT_LAUNCHES = 0
     for key in mm.LAUNCHES:
         mm.LAUNCHES[key] = 0
 
@@ -757,6 +847,413 @@ def forward_logits(predictor, boards, mean, std) -> dict[str, np.ndarray]:
             outs.append({k: v.cpu().numpy()
                          for k, v in predictor.model(x).items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+def sdpa_ms(qkv, g, H: int) -> tuple[float, float]:
+    """The library yardstick of K2 and K3, which the port never calls:
+    ``scaled_dot_product_attention`` forward, and its backward alone, on
+    contiguous (B, H, N, Dh) copies of the same q, k, v and cotangent (the
+    permute copies that route would also need are not counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, C3 = qkv.shape
+    Dh = C3 // 3 // H
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous().requires_grad_()
+               for t in qkv.reshape(B, N, 3, H, Dh).unbind(2))
+    go = g.reshape(B, N, H, Dh).permute(0, 2, 1, 3).contiguous()
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    out = F.scaled_dot_product_attention(q, k, v)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), go,
+                                              retain_graph=True), 20)
+    return fwd, bwd
+
+
+def attention_bwd_phase(args, dev, kernels: dict) -> None:
+    """Phase 10: K3 vs ``reference_attention_bwd``, and the library
+    yardsticks of K2 and K3."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    N = SIZE // 16 * SIZE // 16 + 1
+    for B, n, H, Dh in ((BATCH, N, 12, 64), (TRAIN_BATCH, N, 12, 64),
+                        (3, 17, 1, 32)):
+        D = H * Dh
+        qkv = torch.randn((B, n, 3 * D), device=dev, generator=gen).bfloat16()
+        g = torch.randn((B, n, D), device=dev, generator=gen).bfloat16()
+        out = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        again = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        ref = attn_ops.reference_attention_bwd(qkv, g, H)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs().reshape(B, n, 3, D)
+        errs = {name: diff[:, :, i].max().item()
+                for i, name in enumerate(("dq", "dk", "dv"))}
+        finite = bool(torch.isfinite(out).all())
+        same = bool((out == again).all())
+        # planted fault: dK made from the unscaled dS
+        bad_dk = ref[..., D:2 * D].float() * math.sqrt(Dh)
+        planted = (out[..., D:2 * D].float() - bad_dk).abs().max().item()
+        del diff, bad_dk, again
+        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 20)
+        plain_ms = cuda_ms(
+            lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
+        print(f"[10 K3] attention backward {tuple(qkv.shape)} H={H}: max |diff| "
+              f"{errs} (atol {K3_ATOL}), planted unscaled dK {planted}, two "
+              f"launches bit-identical {same}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        require(finite and max(errs.values()) <= K3_ATOL,
+                f"K3 at {tuple(qkv.shape)}: {errs}, finite {finite}")
+        require(planted > K3_ATOL, f"the planted fault passes: {planted}")
+        require(same, "K3 is not deterministic")
+        if B != 3:
+            fwd_ms, bwd_ms = sdpa_ms(qkv, g, H)
+            print(f"[10 K3] scaled_dot_product_attention on the same values: "
+                  f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms",
+                  flush=True)
+        if B == BATCH:
+            kernels["fused_qkv_attention"]["library_ms"] = fwd_ms
+            kernels["fused_qkv_attention_bwd"] = kernel_entry(
+                "fused_qkv_attention_bwd", "attention_bwd.cu",
+                "chess_vision_tpu/ops/attention.py:623", max(errs.values()),
+                ms, plain_ms, nbytes=2 * (2 * qkv.numel() + g.numel()),
+                ops=10 * B * H * n * n * Dh, op_type="bf16", library_ms=bwd_ms)
+        del qkv, g, out, ref
+    torch.cuda.empty_cache()
+
+
+class MemoryCorpus:
+    """An in-memory dataset with the interface of ``data.ChessDataset``:
+    random uint8 boards, labels from random legal-looking FENs."""
+
+    def __init__(self, count: int, seed: int):
+        from chess_vision_tpu_torch.fen import parse_full_fen
+
+        rng = np.random.default_rng(seed)
+        self.boards = rng.integers(0, 256, (count, SIZE, SIZE, 3), dtype=np.uint8)
+        self.samples = [{"filename": f"{i:06d}.png", "fen": random_fen(rng),
+                         "legal": "1"} for i in range(count)]
+        self._parse = parse_full_fen
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def labels_for(self, idx: int) -> dict:
+        labels = self._parse(self.samples[idx]["fen"])
+        labels["legal"] = np.ones(1, np.float32)
+        return labels
+
+    def load_image(self, idx: int) -> np.ndarray:
+        return self.boards[idx]
+
+    def load_planes(self, idx: int):
+        from chess_vision_tpu_torch.ops.preprocess import rgb_to_ycbcr420
+
+        return rgb_to_ycbcr420(self.boards[idx])
+
+
+def random_fen(rng) -> str:
+    """Both kings, up to 14 other pieces on random squares, a side to move
+    and castling rights."""
+    squares = ["."] * 64
+    where = rng.permutation(64)
+    pieces = ["K", "k"] + list(rng.choice(list("PPPPNBRQppppnbrq"),
+                                          size=int(rng.integers(2, 15))))
+    for sq, piece in zip(where, pieces):
+        squares[sq] = piece
+    rows = []
+    for r in range(8):
+        row, gap = "", 0
+        for c in squares[8 * r:8 * r + 8]:
+            if c == ".":
+                gap += 1
+                continue
+            row += (str(gap) if gap else "") + c
+            gap = 0
+        rows.append(row + (str(gap) if gap else ""))
+    rights = "".join(c for c in "KQkq" if rng.random() < 0.5) or "-"
+    return f"{'/'.join(rows)} {'wb'[int(rng.integers(2))]} {rights} - 0 1"
+
+
+def train_config(save_dir: str, **model_overrides) -> dict:
+    """The values of ``configs/vit.yaml`` written out (no pretrained weights,
+    no OOD set), for the in-memory corpus: 256 train boards, 64 held out."""
+    model = {"arch": "vit", "name": "vit_base_patch16_224.augreg_in21k",
+             "pretrained": False, "freeze_backbone": False, "input_size": SIZE,
+             "head_dropout": 0.1, "drop_path_rate": 0.1, "embed_dim": 768,
+             "depth": 12, "num_heads": 12, "mlp_ratio": 4.0}
+    model.update(model_overrides)
+    return {
+        "data": {"val_split": 0.2, "num_workers": 4, "max_samples": None},
+        "model": model,
+        "training": {"epochs": 2, "batch_size": TRAIN_BATCH, "lr": 1.0e-4,
+                     "weight_decay": 0.01, "grad_clip_norm": 1.0,
+                     "mixed_precision": True, "label_smoothing": 0.1,
+                     "use_class_weights": True, "turn_loss_weight": 1.0,
+                     "castling_loss_weight": 1.0},
+        "scheduler": {"type": "cosine", "warmup_epochs": 1},
+        "checkpointing": {"save_dir": save_dir, "save_best": True,
+                          "early_stopping_patience": 3},
+        "logging": {"tensorboard_dir": save_dir + "/runs"},
+    }
+
+
+@contextmanager
+def plain_attention():
+    """Route the model's attention, forward and backward, through the plain
+    PyTorch versions on the card."""
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    with mock.patch.object(attn_ops, "fused_qkv_attention_fwd",
+                           attn_ops.reference_attention), \
+            mock.patch.object(attn_ops, "fused_qkv_attention_bwd",
+                              attn_ops.reference_attention_bwd):
+        yield
+
+
+def attention_counts() -> tuple[int, int]:
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    return attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES
+
+
+def make_trainer(cfg: dict, corpus, seed: int, steps_per_epoch: int = 4):
+    """A fresh model, train state and steps from ``cfg``, with the pieces the
+    trainer's ``train`` uses, and device batches of the corpus."""
+    import torch
+
+    from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.data import BatchLoader
+    from chess_vision_tpu_torch.models import build_model, init_weights
+    from chess_vision_tpu_torch.train.loop import BatchStager, make_steps
+    from chess_vision_tpu_torch.train.state import (
+        compute_class_weights,
+        create_train_state,
+    )
+
+    dev = torch.device("cuda")
+    model = init_weights(build_model(cfg), seed=seed).to(dev)
+    state = create_train_state(cfg, model, steps_per_epoch)
+    data_cfg = get_data_config(cfg["model"]["name"])
+    train_step, eval_step = make_steps(
+        state, cfg, compute_class_weights(corpus.samples), data_cfg["mean"],
+        data_cfg["std"], seed=seed)
+    loader = BatchLoader(corpus, np.arange(len(corpus)), TRAIN_BATCH,
+                         num_workers=4, drop_remainder=True)
+    stager = BatchStager(dev, slots=len(loader))
+    batches = [stager(b) for b in loader]
+    return state, train_step, eval_step, batches
+
+
+def train_path_phase(args, kernels: dict, kind: str, smi: str) -> None:
+    """Phase 11: the training path at full width."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from chess_vision_tpu_torch.augment import draw_params
+    from chess_vision_tpu_torch.models import resolve_remat
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.train.__main__ import train
+    from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dev = torch.device("cuda")
+    depth = 12
+    corpus = MemoryCorpus(320, args.seed)
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    print(f"[11 train] resolve_remat(batch {TRAIN_BATCH}) on {total_gib:.1f} GiB "
+          f"-> {resolve_remat(TRAIN_BATCH, dev)}; it turns to full remat at "
+          f"batch {next(b for b in range(64, 1 << 16, 64) if resolve_remat(b, dev))}",
+          flush=True)
+
+    # the main path: the function the CLI calls, 2 epochs of 4 steps
+    save_dir = tempfile.mkdtemp(prefix="cvt_smoke_")
+    per_step = []
+
+    def on_step(step_kind, sums):
+        per_step.append((step_kind, *attention_counts(),
+                         sums.get("step_loss", sums["loss_sum"])))
+        attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = 0
+
+    try:
+        cfg = train_config(save_dir)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = train(cfg, corpus, seed=args.seed, device="cuda",
+                       on_step=on_step)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ckpt = load_checkpoint(save_dir + "/latest.ckpt")
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    history = result["history"]
+    losses = torch.stack([s[3] for s in per_step if s[0] == "train"]).tolist()
+    launches = {"train": sorted({s[1:3] for s in per_step if s[0] == "train"}),
+                "eval": sorted({s[1:3] for s in per_step if s[0] == "eval"})}
+    n_train = sum(s[0] == "train" for s in per_step)
+    n_eval = sum(s[0] == "eval" for s in per_step)
+    print(f"[11 train] ViT-B/16 {SIZE}px bf16 full width, batch {TRAIN_BATCH}, "
+          f"remat {cfg['model']['remat']}: {n_train} train steps and {n_eval} "
+          f"eval steps in {train_s:.1f} s; (K2, K3) launches per step "
+          f"{launches}; step losses {[round(x, 4) for x in losses]}; epoch "
+          f"train losses {[h['train']['loss'] for h in history]}, val "
+          f"{[h['val']['loss'] for h in history]}; train img/s by epoch "
+          f"{[round(h['train_img_per_s'], 1) for h in history]} (loader and "
+          f"first-step warm-up included); peak device memory {peak_gib:.2f} "
+          f"GiB", flush=True)
+    require(n_train == 8 and n_eval == 2, f"{n_train} train, {n_eval} eval steps")
+    require(launches == {"train": [(depth, depth)], "eval": [(depth, 0)]},
+            f"attention launches per step {launches}")
+    require(all(math.isfinite(x) for x in losses), f"step losses {losses}")
+    require(all(math.isfinite(h["val"]["loss"]) for h in history), "val loss")
+    require(history[-1]["train"]["loss"] < history[0]["train"]["loss"],
+            "the mean train loss did not fall")
+    kernels["fused_qkv_attention"]["train_launches"] = depth * (n_train + n_eval)
+    kernels["fused_qkv_attention_bwd"]["launches"] = depth * n_train
+    require(ckpt["step"] == n_train and ckpt["epoch"] == 1
+            and ckpt["params"]["backbone"]["block11"]["mlp"]["fc1"]["kernel"].shape
+            == (768, 3072)
+            and ckpt["opt_state"]["1"]["0"]["mu"]["type_head"]["kernel"].shape
+            == (768, 7), "the checkpoint read back")
+    print(f"[11 train] latest.ckpt written with msgpack and read back: step "
+          f"{ckpt['step']}, epoch {ckpt['epoch']}", flush=True)
+    del result, ckpt
+
+    # one remat step: the forward of every block runs again in the backward
+    state, train_step, _, batches = make_trainer(
+        train_config("", remat=True), corpus, args.seed)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(batches[0])
+    torch.cuda.synchronize()
+    remat_counts = attention_counts()
+    remat_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[11 train] one step with remat: (K2, K3) launches {remat_counts}, "
+          f"peak device memory {remat_peak:.2f} GiB", flush=True)
+    require(remat_counts == (2 * depth, depth), f"remat launches {remat_counts}")
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+
+    # kernel path vs plain path: one step from the same state, dropout and
+    # drop path off, the same augmentation draws
+    quiet = train_config("", head_dropout=0.0, drop_path_rate=0.0, remat=False)
+    quiet["scheduler"]["warmup_epochs"] = 0  # lr(0) is the base rate
+    state_k, step_k, _, batches = make_trainer(quiet, corpus, args.seed)
+    state_p, step_p, _, _ = make_trainer(quiet, corpus, args.seed)
+    before = {n: p.detach().clone() for n, p in state_k.model.named_parameters()}
+    aug = draw_params(TRAIN_BATCH, torch.Generator(device=dev).manual_seed(args.seed))
+    grads_k, loss_k = step_with_grads(state_k, step_k, batches[0], aug)
+    with plain_attention():
+        counts = attention_counts()
+        grads_p, loss_p = step_with_grads(state_p, step_p, batches[0], aug)
+        require(attention_counts() == counts, "the plain step launched a kernel")
+    rel = {n: ((grads_k[n] - grads_p[n]).abs().max()
+               / grads_p[n].abs().max().clamp_min(1e-30)).item() for n in grads_p}
+    worst = max(rel, key=rel.get)
+    moved = sum(bool((p != before[n]).any())
+                for n, p in state_k.model.named_parameters())
+    print(f"[11 train] one step, kernels vs plain attention on the card: loss "
+          f"{loss_k} vs {loss_p} (atol {TRAIN_LOSS_ATOL}); per-tensor max "
+          f"|grad diff| / max |grad|: worst {rel[worst]:.4f} at {worst}, "
+          f"median {float(np.median(list(rel.values()))):.4f} (bound "
+          f"{TRAIN_GRAD_RTOL}); {moved} of {len(before)} parameter tensors "
+          f"changed", flush=True)
+    require(math.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
+            f"losses {loss_k} vs {loss_p}")
+    require(all(torch.isfinite(g).all() for g in grads_k.values()),
+            "a kernel-path gradient is not finite")
+    require(rel[worst] <= TRAIN_GRAD_RTOL, f"gradient of {worst}: {rel[worst]}")
+    require(moved == len(before), f"only {moved} of {len(before)} tensors changed")
+    del grads_k, grads_p, before, state_k, state_p, step_k, step_p
+    torch.cuda.empty_cache()
+
+    # throughput of the step alone (batches already on the card), and peak
+    # memory without remat
+    def steps_per_s(step, n=6):
+        step(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    noisy = train_config("", remat=False)
+    state_k, step_k, _, _ = make_trainer(noisy, corpus, args.seed)
+    rates = {"kernel": [], "plain": []}
+    torch.cuda.reset_peak_memory_stats()
+    rates["kernel"].append(steps_per_s(step_k) * TRAIN_BATCH)
+    noremat_peak = torch.cuda.max_memory_allocated() / 2**30
+    with plain_attention():  # the same state: only the ops differ
+        rates["plain"].append(steps_per_s(step_k) * TRAIN_BATCH)
+        rates["plain"].append(steps_per_s(step_k) * TRAIN_BATCH)
+    rates["kernel"].append(steps_per_s(step_k) * TRAIN_BATCH)
+    print(f"[11 train] train step img/s at batch {TRAIN_BATCH}, dropout and "
+          f"drop path on, no remat, 6 steps per run on batches already on the "
+          f"card (kernel, plain, plain, kernel): kernel {rates['kernel']}, "
+          f"plain {rates['plain']}; peak device memory of the kernel path "
+          f"{noremat_peak:.2f} GiB (remat: {remat_peak:.2f}); {kind}, {smi}",
+          flush=True)
+    if args.profile_train:
+        profile_train_steps(step_k, batches, args.profile_train,
+                            TRAIN_BATCH / rates["kernel"][-1] * 1e3)
+
+
+def step_with_grads(state, train_step, batch, aug):
+    """One train step; returns the gradients it applied and its loss."""
+    grads = {}
+    apply = state.apply_gradients
+
+    def capture():
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in zip(state.names, state.params)})
+        return apply()
+
+    state.apply_gradients = capture
+    try:
+        sums = train_step(batch, aug)
+    finally:
+        del state.apply_gradients  # the class's method again, no cycle
+    return grads, sums["step_loss"].item()
+
+
+def profile_train_steps(train_step, batches, steps: int, step_ms: float) -> None:
+    """``torch.profiler`` over warm train steps: kernels by device time, and
+    the device's idle share of an unprofiled step of ``step_ms``; the
+    augmentation alone, by CUDA events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chess_vision_tpu_torch.augment import draw_params, preprocess_train_batch
+
+    aug = draw_params(TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(0))
+    half = (0.5, 0.5, 0.5)
+    aug_ms = cuda_ms(
+        lambda: preprocess_train_batch(batches[0], aug, half, half), 5)
+    train_step(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    print(f"[11 train] profile of {steps} train steps: device {device_ms:.2f} ms "
+          f"per step; a step takes {step_ms:.2f} ms unprofiled (idle share "
+          f"{1 - device_ms / step_ms:.3f}) and {wall_ms:.1f} ms under the "
+          f"profiler; augmentation + normalize alone {aug_ms:.3f} ms",
+          flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=45,
+                       max_name_column_width=60), flush=True)
 
 
 if __name__ == "__main__":
