@@ -53,7 +53,22 @@ _SIGNATURES = {
     "cvt_attention_quant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_float, ctypes.c_int, _P],
+    "cvt_attention_quant_flat": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                 _P],
+    "cvt_attention_variant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],
+    "cvt_fused_block": [*[_P] * 23, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_float, _P, _P],
+    "cvt_fused_block_scratch_bytes": [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int],
 }
+# Entry points that return something else than a cudaError_t.
+_RESTYPES = {"cvt_fused_block_scratch_bytes": ctypes.c_longlong}
 
 
 def _sources() -> list[str]:
@@ -136,7 +151,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
         return lib
 

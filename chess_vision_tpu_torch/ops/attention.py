@@ -12,9 +12,15 @@ differentiable through a ``torch.autograd.Function`` that saves only ``qkv``
 package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
-package's function of that name): attention, then per-token int8
+package's function of that name, K4): attention, then per-token int8
 quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu``;
 ``reference_attention_quant`` is its plain version.
+``fused_qkv_attention_quant_flat`` (K5) is the same on the ``"flat"`` int8
+layout's (images * NP, 3*H*Dh) stream, whose token axis is padded to NP rows
+per image: keys at token index >= ``n_real`` are masked out of the softmax.
+It runs the same kernel through its second entry point, which keeps the rows
+per image and the valid keys apart; ``reference_attention_quant_flat`` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -27,11 +33,12 @@ from chess_vision_tpu_torch.ops import _build
 from chess_vision_tpu_torch.ops.rowquant import quantize_rows
 
 # Kernel launches since the last reset, of the attention forward kernel, of
-# the backward one and of the quantizing one (chip_smoke.py proves the main
-# path went through the kernels with them).
+# the backward one, of the quantizing one and of its flat form (chip_smoke.py
+# proves the main path went through the kernels with them).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 QUANT_LAUNCHES = 0
+FLAT_LAUNCHES = 0
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
 _MAX_GRID_YZ = 65535
@@ -208,13 +215,15 @@ def _fixed_shift(softmax_shift: float | None, head_dim: int) -> bool:
     return softmax_shift is not None and _pow2(1.0 / math.sqrt(head_dim))
 
 
-def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
-                              softmax_shift: float | None = None):
-    """Plain PyTorch version of the quantizing attention: (B, N, 3*H*Dh) ->
-    (int8 (B, N, H*Dh), f32 (B, N, 1)).
+def _attention_quant_plain(qkv: torch.Tensor, n_real: int, num_heads: int,
+                           softmax_shift: float | None):
+    """(B, N, 3*H*Dh) -> (int8 (B, N, H*Dh), f32 (B, N, 1)), keys at token
+    index >= n_real masked: the arithmetic shared by the plain versions of
+    K4 (n_real = N) and K5.
 
-    f32 scores; p = exp(s - shift) rounded to the input dtype feeds both P V
-    and the row sum (the JAX kernel's ones column of V); the output is
+    f32 scores; a masked key's score is -1e30, so its p is exactly 0;
+    p = exp(s - shift) rounded to the input dtype feeds both P V and the row
+    sum (the JAX kernel's ones column of V); the output is
     P V / max(rowsum, 1e-30) in f32, then quantized per token over all
     heads. The shift is ``softmax_shift`` where the JAX kernel takes it as a
     fixed shift, else the exact row max."""
@@ -224,6 +233,8 @@ def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
     q, k, v = qkv.reshape(B, N, 3, num_heads, head_dim).unbind(2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     s = s * (1.0 / math.sqrt(head_dim))
+    if n_real < N:
+        s[..., n_real:] = -1e30
     if _fixed_shift(softmax_shift, head_dim):
         shift = float(softmax_shift)
     else:
@@ -233,6 +244,18 @@ def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o = o / rowsum.clamp_min(1e-30)
     return quantize_rows(o.reshape(B, N, D))
+
+
+def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
+                              softmax_shift: float | None = None):
+    """Plain PyTorch version of the quantizing attention: (B, N, 3*H*Dh) ->
+    (int8 (B, N, H*Dh), f32 (B, N, 1)); see ``_attention_quant_plain``."""
+    return _attention_quant_plain(qkv, qkv.shape[1], num_heads, softmax_shift)
+
+
+def _check_quant_width(D: int) -> None:
+    if D % 8 or D > 4096:
+        raise ValueError(f"model width {D} must be a multiple of 8 up to 4096")
 
 
 def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
@@ -248,8 +271,7 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     head_dim = _check_kernel_input(qkv, num_heads)
     B, N, C3 = qkv.shape
     D = C3 // 3
-    if D % 8 or D > 4096:
-        raise ValueError(f"model width {D} must be a multiple of 8 up to 4096")
+    _check_quant_width(D)
     fixed = _fixed_shift(softmax_shift, head_dim)
     scratch = torch.empty((B, N, D), dtype=torch.float32, device=qkv.device)
     oq = torch.empty((B, N, D), dtype=torch.int8, device=qkv.device)
@@ -266,4 +288,70 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     _build.check(rc, "quantizing attention")
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
+    return oq, os_
+
+
+def _flat_images(qkv: torch.Tensor, images: int, n_real: int) -> int:
+    """Check the flat stream's shape; returns NP, the rows per image."""
+    if qkv.dim() != 2 or images < 1 or qkv.shape[0] % images:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not {images} images of "
+                         "equally many rows")
+    NP = qkv.shape[0] // images
+    if not 1 <= n_real <= NP:
+        raise ValueError(f"n_real {n_real} outside 1..{NP} rows per image")
+    return NP
+
+
+def reference_attention_quant_flat(qkv: torch.Tensor, images: int,
+                                   n_real: int, num_heads: int,
+                                   softmax_shift: float | None = None):
+    """Plain PyTorch version of the flat quantizing attention: (images * NP,
+    3*H*Dh) -> (int8 (images * NP, H*Dh), f32 (images * NP, 1)), keys at
+    token index >= n_real masked; see ``_attention_quant_plain``. A padded
+    query row attends to the real keys like any other row: what it holds
+    stays in its own output row."""
+    NP = _flat_images(qkv, images, n_real)
+    oq, os_ = _attention_quant_plain(qkv.reshape(images, NP, -1), n_real,
+                                     num_heads, softmax_shift)
+    return oq.reshape(images * NP, -1), os_.reshape(images * NP, 1)
+
+
+def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
+                                   n_real: int, num_heads: int,
+                                   softmax_shift: float | None = None):
+    """(images * NP, 3*H*Dh) flat packed qkv -> (int8 (images * NP, H*Dh),
+    f32 (images * NP, 1)): the quantizing attention of the ``"flat"`` int8
+    layout. Each image holds NP rows of which the first ``n_real`` are
+    tokens; keys at index >= n_real take no part in any row's softmax.
+
+    softmax_shift as for ``fused_qkv_attention_quant``. A CPU tensor takes
+    ``reference_attention_quant_flat``; a CUDA tensor launches the kernel
+    (bf16, head dim 16, 32 or 64) or raises."""
+    if qkv.device.type == "cpu":
+        return reference_attention_quant_flat(qkv, images, n_real, num_heads,
+                                              softmax_shift)
+    NP = _flat_images(qkv, images, n_real)
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    head_dim = _check_kernel_input(qkv.view(images, NP, -1), num_heads)
+    M, C3 = qkv.shape
+    D = C3 // 3
+    _check_quant_width(D)
+    fixed = _fixed_shift(softmax_shift, head_dim)
+    scratch = torch.empty((M, D), dtype=torch.float32, device=qkv.device)
+    oq = torch.empty((M, D), dtype=torch.int8, device=qkv.device)
+    os_ = torch.empty((M, 1), dtype=torch.float32, device=qkv.device)
+    if oq.numel() == 0:
+        return oq, os_
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        rc = lib.cvt_attention_quant_flat(
+            qkv.data_ptr(), scratch.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+            images, NP, n_real, num_heads, head_dim,
+            1.0 / math.sqrt(head_dim),
+            float(softmax_shift) if fixed else 0.0, int(fixed),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flat quantizing attention")
+    global FLAT_LAUNCHES
+    FLAT_LAUNCHES += 1
     return oq, os_

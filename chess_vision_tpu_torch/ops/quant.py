@@ -1,13 +1,15 @@
 """Int8 (W8A8 dynamic) ChessViT serving: pack, forward and calibration.
 
-Counterpart of ``chess_vision_tpu/ops/quant.py``, its default ``"block"``
-layout. The four large products of each block (qkv, proj, fc1, fc2) run as
+Counterpart of ``chess_vision_tpu/ops/quant.py`` and its three kernel
+layouts, which ``chessvit_int8_apply`` takes as ``layout`` (the JAX package
+reads ``CHESS_VISION_INT8_LAYOUT``; here the Predictor reads it, once).
+The four large products of each block (qkv, proj, fc1, fc2) run as
 int8 x int8 -> int32 with per-output-channel weight scales (quantized once,
 ``quantize_chessvit``) and per-token activation scales (quantized where the
 previous op ends); the residual stream stays bf16; the patch embed and, after
 the final LayerNorm in f32, the pool and heads stay bf16 / f32.
 
-Per block (``block_int8``, the JAX ``_block_tpu``):
+``"block"``, the default. Per block (``block_int8``, the JAX ``_block_tpu``):
 
     qkv = bf16(xq @ wq_qkv)              ops/int8_matmul  scale_bias
     aq, as = attention + requant         ops/attention    fused_qkv_attention_quant
@@ -15,9 +17,20 @@ Per block (``block_int8``, the JAX ``_block_tpu``):
     gq, gs = GELU(fc1), requant          ops/int8_matmul  gelu_quant
     x, xq, xs = x + fc2, next LN1, requant  (last block: x + fc2)
 
-with block 0's LN1 quantized by ``ops/rowquant.fused_rowquant``. Each op
-launches its CUDA kernel on a CUDA tensor and runs its plain PyTorch version
-on a CPU tensor.
+with block 0's LN1 quantized by ``ops/rowquant.fused_rowquant``.
+
+``"flat"`` (``block_int8_flat``, the JAX ``_block_tpu_flat``): the token axis
+padded to a multiple of 32 rows and every tensor a flat (B * NP, D) stream;
+the same ops on rows, with the attention of
+``ops/attention.fused_qkv_attention_quant_flat`` (K5), which masks the
+padded keys.
+
+``"fused"``: every block but the last is ONE kernel launch
+(``ops/fused_block.fused_vit_block``, K14); the last block, which has no
+next LayerNorm to quantize for, runs as ``block_int8``.
+
+Each op launches its CUDA kernel on a CUDA tensor and runs its plain PyTorch
+version on a CPU tensor.
 
 ``calibrate_attn_shifts`` measures per-layer fixed softmax shifts on the XLA
 form of the block (``_block``), as the JAX package does; its attention runs
@@ -37,8 +50,34 @@ from chess_vision_tpu_torch.convert.jax_params import HEADS, int8_pack_from_jax
 from chess_vision_tpu_torch.models.common import combine_type_color
 from chess_vision_tpu_torch.models.layers import adaptive_avg_pool_nhwc
 from chess_vision_tpu_torch.ops import attention as attn_ops
+from chess_vision_tpu_torch.ops import fused_block as fused_ops
 from chess_vision_tpu_torch.ops import int8_matmul as int8_ops
 from chess_vision_tpu_torch.ops import rowquant as rowquant_ops
+
+
+LAYOUTS = ("block", "flat", "fused")
+# The JAX package's other two values of CHESS_VISION_INT8_LAYOUT.
+_TPU_ONLY_LAYOUTS = ("xla", "hybrid")
+_FLAT_ROWS = 32  # the flat layout pads each image to a multiple of this
+
+
+def int8_layout() -> str:
+    """``CHESS_VISION_INT8_LAYOUT``, the kernel layout of the int8 forward as
+    the JAX package selects it: "block" (default), "flat" or "fused". Read
+    by the caller once (the Predictor, when it is built) and passed down."""
+    return check_layout(os.environ.get("CHESS_VISION_INT8_LAYOUT", "block"))
+
+
+def check_layout(layout: str) -> str:
+    if layout in _TPU_ONLY_LAYOUTS:
+        raise ValueError(
+            f"int8 layout {layout!r} is not ported: in the JAX package it is "
+            "a workaround for a TPU compile helper that rejects the kernel "
+            f"programs, and serves no purpose here; use one of {list(LAYOUTS)}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown int8 layout {layout!r}; expected one of "
+                         f"{list(LAYOUTS)}")
+    return layout
 
 
 def approx_gelu() -> str:
@@ -218,23 +257,88 @@ def block_int8(x, xq, xs, q: dict, next_ln: dict | None, num_heads: int = 12,
         x, next_ln["scale"], next_ln["bias"])
 
 
+def block_int8_flat(x, xq, xs, q: dict, next_ln: dict | None, images: int,
+                    n_real: int, num_heads: int = 12,
+                    softmax_shift: float | None = None, gelu: str = "sigmoid"):
+    """One ViT block on the flat int8 layout (the JAX ``_block_tpu_flat``).
+
+    As ``block_int8`` with every tensor a flat stream: x (M, D) bf16,
+    xq (M, D) int8, xs (M, 1) f32, M = images * NP rows of which the first
+    n_real of each image are tokens. The GEMMs and row passes are row-local;
+    only the attention knows of images, and masks the padded keys. A padded
+    row carries values of its own through the block; nothing reads them."""
+    qkv = int8_ops.int8_matmul_scale_bias(
+        xq, xs, q["qkv"]["wq"], q["qkv"]["scale"], q["qkv"]["bias"])
+    aq, as_ = attn_ops.fused_qkv_attention_quant_flat(
+        qkv, images, n_real, num_heads, softmax_shift)
+    x, hq, hs = int8_ops.int8_matmul_res_ln_quant(
+        aq, as_, q["proj"]["wq"], q["proj"]["scale"], q["proj"]["bias"],
+        x, q["norm2"]["scale"], q["norm2"]["bias"])
+    gq, gs = int8_ops.int8_matmul_gelu_quant(
+        hq, hs, q["fc1"]["wq"], q["fc1"]["scale"], q["fc1"]["bias"], gelu=gelu)
+    if next_ln is None:
+        x = int8_ops.int8_matmul_res(
+            gq, gs, q["fc2"]["wq"], q["fc2"]["scale"], q["fc2"]["bias"], x)
+        return x, None, None
+    return int8_ops.int8_matmul_res_ln_quant(
+        gq, gs, q["fc2"]["wq"], q["fc2"]["scale"], q["fc2"]["bias"],
+        x, next_ln["scale"], next_ln["bias"])
+
+
+def _blocks_flat(x, blocks, shifts, num_heads, gelu):
+    """The block stack on the flat layout: (B, N, D) -> (B, N, D)."""
+    B, N, D = x.shape
+    NP = -(-N // _FLAT_ROWS) * _FLAT_ROWS
+    x = F.pad(x, (0, 0, 0, NP - N)).reshape(B * NP, D)
+    xq, xs = rowquant_ops.fused_rowquant(
+        x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
+    for i, q in enumerate(blocks):
+        nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
+        x, xq, xs = block_int8_flat(x, xq, xs, q, nxt, B, N, num_heads,
+                                    shifts[i], gelu)
+    return x.reshape(B, NP, D)[:, :N]
+
+
+def _blocks_fused(x, blocks, shifts, num_heads, gelu):
+    """The block stack on the fused layout: one launch per block for all but
+    the last, which has no next LayerNorm and runs on the split kernels."""
+    xq, xs = rowquant_ops.fused_rowquant(
+        x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
+    if len(blocks) > 1:
+        x, xq, xs = fused_ops.fused_vit_stack(
+            xq, xs, x, blocks[:-1], [b["norm1"] for b in blocks[1:]],
+            shifts[:-1], num_heads, gelu=gelu)
+    x, _, _ = block_int8(x, xq, xs, blocks[-1], None, num_heads, shifts[-1],
+                         gelu)
+    return x
+
+
 def chessvit_int8_apply(pack: dict, images: torch.Tensor, attn_shifts=None,
-                        gelu: str = "sigmoid", num_heads: int = 12) -> dict:
+                        gelu: str = "sigmoid", num_heads: int = 12,
+                        layout: str = "block") -> dict:
     """images: (B, S, S, 3) normalized -> {"squares" (B, 832), "turn" (B, 1),
     "castling" (B, 4)}, f32, as ``ChessViT.forward``.
 
     pack: the port's tensors (``int8_pack_from_jax``); attn_shifts: per-layer
     calibrated softmax shifts (floats or None); gelu: the fc1 GELU
-    ("sigmoid", "hard" or "erf")."""
+    ("sigmoid", "hard" or "erf"); layout: "block", "flat" or "fused" (see
+    the module docstring)."""
+    check_layout(layout)
     x, G = _embed(pack, images)
     B, _, D = x.shape
     blocks = pack["blocks"]
-    xq, xs = rowquant_ops.fused_rowquant(
-        x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
     shifts = attn_shifts or [None] * len(blocks)
-    for i, q in enumerate(blocks):
-        nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
-        x, xq, xs = block_int8(x, xq, xs, q, nxt, num_heads, shifts[i], gelu)
+    if layout == "flat":
+        x = _blocks_flat(x, blocks, shifts, num_heads, gelu)
+    elif layout == "fused":
+        x = _blocks_fused(x, blocks, shifts, num_heads, gelu)
+    else:
+        xq, xs = rowquant_ops.fused_rowquant(
+            x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
+        for i, q in enumerate(blocks):
+            nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
+            x, xq, xs = block_int8(x, xq, xs, q, nxt, num_heads, shifts[i],
+                                   gelu)
 
     # final LayerNorm, pool and heads in f32 (not cast back to bf16)
     x = _layernorm(x, pack["norm"])

@@ -7,7 +7,8 @@ argmax; only 69 bytes of results per board come back) -> host FEN assembly.
 A bounded window of ``inflight`` batches lets decode, staging and FEN
 assembly on the host overlap the device's work. ``quant="int8"`` serves the
 W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
-attention kernels), with per-layer softmax shifts calibrated on a few inputs.
+attention kernels), with per-layer softmax shifts calibrated on a few inputs;
+``CHESS_VISION_INT8_LAYOUT=block|flat|fused`` picks its kernel layout.
 
     python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob \
         [--quant int8 --calib 8]
@@ -55,17 +56,19 @@ def make_infer_fn(model, mean, std):
 
 
 def make_int8_infer_fn(pack, mean, std, attn_shifts=None,
-                       gelu: str = "sigmoid", num_heads: int = 12):
+                       gelu: str = "sigmoid", num_heads: int = 12,
+                       layout: str = "block"):
     """The int8 (W8A8) counterpart of ``make_infer_fn``: same input and
     outputs, ChessViT run by ``ops/quant.chessvit_int8_apply`` on ``pack``
-    (the port's tensors) with the calibrated ``attn_shifts`` and the fc1
-    ``gelu`` closed in."""
+    (the port's tensors) with the calibrated ``attn_shifts``, the fc1
+    ``gelu`` and the kernel ``layout`` closed in."""
 
     @torch.inference_mode()
     def infer(images_u8: torch.Tensor):
         x = preprocess_ops.preprocess_u8(images_u8, mean, std, torch.bfloat16)
         out = quant_ops.chessvit_int8_apply(pack, x, attn_shifts=attn_shifts,
-                                            gelu=gelu, num_heads=num_heads)
+                                            gelu=gelu, num_heads=num_heads,
+                                            layout=layout)
         preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
         return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
 
@@ -96,8 +99,11 @@ class Predictor:
     ``quant="int8"`` (ViT only) serves the W8A8 form: weights quantized once,
     and, given ``calib_paths``, per-layer softmax shifts calibrated on those
     images. Its fc1 GELU is read from ``CHESS_VISION_GELU`` (default
-    "sigmoid") once, here. Then ``model`` is None and ``pack``,
-    ``attn_shifts`` and ``gelu`` hold what the forward runs on."""
+    "sigmoid") and its kernel layout from ``CHESS_VISION_INT8_LAYOUT``
+    ("block", the default, "flat" or "fused"; the JAX package's "xla" and
+    "hybrid" are not ported and raise), both once, here. Then ``model`` is
+    None and ``pack``, ``attn_shifts``, ``gelu`` and ``layout`` hold what
+    the forward runs on."""
 
     def __init__(self, checkpoint, batch_size: int = 256,
                  decode_workers: int = 8, inflight: int = 4,
@@ -118,10 +124,12 @@ class Predictor:
         self.input_size = cfg["model"].get("input_size") or 224
         data_cfg = get_data_config(cfg["model"].get("name", ""))
         self.model = self.pack = self.attn_shifts = self.gelu = None
+        self.layout = None
         if quant == "int8":
             if cfg["model"].get("arch", "vit") != "vit":
                 raise ValueError("int8 quantization currently supports arch=vit")
             self.gelu = quant_ops.approx_gelu()
+            self.layout = quant_ops.int8_layout()
             num_heads = cfg["model"].get("num_heads", 12)
             calib = None
             if calib_paths:
@@ -139,7 +147,7 @@ class Predictor:
             self.infer = make_int8_infer_fn(
                 self.pack, data_cfg["mean"], data_cfg["std"],
                 attn_shifts=self.attn_shifts, gelu=self.gelu,
-                num_heads=num_heads)
+                num_heads=num_heads, layout=self.layout)
         else:
             self.model = build_model(cfg)
             self.model.load_state_dict(state_dict_from_jax(params, cfg))

@@ -28,6 +28,7 @@ ENTRY_MODULES = (
     "chess_vision_tpu_torch.predict", "chess_vision_tpu_torch.train.__main__",
     "chess_vision_tpu_torch.data", "chess_vision_tpu_torch.native",
     "chess_vision_tpu_torch.augment", "chess_vision_tpu_torch.utils.logging",
+    "chess_vision_tpu_torch.experiments.attn_variants",
 )
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR"
 FENS = [START, "8/8/8/8/8/8/8/8", "k7/8/8/8/8/8/8/7K",
