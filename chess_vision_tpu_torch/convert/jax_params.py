@@ -115,7 +115,8 @@ def int8_pack_from_jax(pack: dict, device=None) -> dict:
     the port's tensors on ``device``, for ``ops/quant.chessvit_int8_apply``.
 
     Each int8 ``wq`` is stored transposed, (O, K) with K contiguous: the
-    B-operand layout of the int8 GEMM (``mma.sync ... row.col``). The patch
+    B-operand layout of the int8 GEMM (K-major, as int8 ``wgmma`` and
+    ``mma.sync ... row.col`` both take it). The patch
     embed kernel (P, P, C, D) becomes a (D, P*P*C) weight over patches
     flattened in (row, column, channel) order, with ``patch_size`` P. Other
     arrays keep their values and dtypes. Calibrated ``attn_shifts`` are not

@@ -20,7 +20,12 @@
 // which is, operation for operation, the chain of the split kernels (K8-K10,
 // K4): the JAX kernel was written so (fused_block.py:26-28), and so is this
 // one, from the same device code (int8_gemm.cuh, attention_quant.cuh,
-// rowquant.cuh). Its outputs equal the split chain's bit for bit.
+// rowquant.cuh). Its outputs equal the split chain's bit for bit. (Its GEMM
+// stages keep the mma.sync main loop, gemm_tile, and fc1's f32 scratch with
+// a row pass; the split kernels have a wgmma loop, and fc1 keeps gelu(y) in
+// shared memory while its blocks exchange the row maxima.
+// int32 sums and the per-element epilogue arithmetic are the same in both,
+// so the bits still agree.)
 //
 // Bound on this card: the four products, 2 * M * D * (3D + D + 2 * O1) int8
 // operations (0.93 TOP at batch 256, ViT-B), against ~0.3 GB of inputs and

@@ -1,8 +1,16 @@
-// Device code of the int8 x int8 -> int32 GEMM with the serving path's
-// epilogues: one 128 x 128 output tile per call. int8_matmul.cu launches it
-// one tile per block; the whole-block kernel (fused_block.cu) walks a block
-// over many tiles of each of its four products. The design, the numerics and
-// the bound are in int8_matmul.cu's header.
+// Device code of the int8 x int8 -> int32 GEMM that the split kernels and
+// the whole-block kernel share: the epilogues' names, the operand struct, the
+// GELUs, and gemm_tile, the mma.sync main loop (one 128 x 128 output tile per
+// call by a 256-thread block).
+//
+// gemm_tile is kept for the whole-block kernel (fused_block.cu) alone, which
+// walks a cooperative 256-thread block, two per SM, over many tiles of each
+// of its four products. The split kernels (int8_matmul.cu) run a wgmma main
+// loop of their own, which wants one 384-thread block per SM and 160 KB of
+// shared memory and does not fit that block shape. Both give the same bits
+// (int32 sums are exact in any order and the epilogue arithmetic is the
+// same), which chip_smoke.py holds them to. The numerics and the bound are
+// in int8_matmul.cu's header.
 
 #pragma once
 

@@ -7,7 +7,10 @@ on chip; ``reference_attention`` is the plain PyTorch version, with the same
 math as the JAX package's ``_reference_attention``. ``fused_qkv_attention`` is
 differentiable through a ``torch.autograd.Function`` that saves only ``qkv``
 (as ``_tpu_attention_fwd`` does); its backward is the kernel
-``csrc/attention_bwd.cu`` (``fused_qkv_attention_bwd``), with
+``csrc/attention_bwd.cu`` (``fused_qkv_attention_bwd``: one block per
+(image, head) holds the head's Q, K, V and g in shared memory, recomputes the
+softmax statistics into registers in a first sweep over the keys and forms
+dQ, dK and dV in a second, with no scratch in device memory), with
 ``reference_attention_bwd`` as the plain version: the arithmetic of the JAX
 package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
@@ -41,6 +44,7 @@ QUANT_LAUNCHES = 0
 FLAT_LAUNCHES = 0
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
+BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
 _MAX_GRID_YZ = 65535
 
 
@@ -129,7 +133,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 class _FusedAttention(torch.autograd.Function):
     """The forward saves only ``qkv``; the backward recomputes the softmax
-    from it (``fused_qkv_attention_bwd``)."""
+    statistics from it inside its one kernel (``fused_qkv_attention_bwd``)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads):
@@ -171,8 +175,9 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     dqkv (B, N, 3*H*Dh).
 
     A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
-    the backward kernel (bf16, head dim 16, 32 or 64) or raises. ``g`` is
-    made contiguous first (autograd may hand a strided one)."""
+    the backward kernel (bf16, head dim 16, 32 or 64, at most
+    ``BWD_MAX_TOKENS`` tokens) or raises. ``g`` is made contiguous first
+    (autograd may hand a strided one)."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -182,18 +187,19 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, g, num_heads)
     head_dim = _check_kernel_input(qkv, num_heads)
+    if N > BWD_MAX_TOKENS:
+        raise ValueError(f"{N} tokens exceed the backward kernel's "
+                         f"{BWD_MAX_TOKENS} (a head stays in shared memory)")
     g = g.contiguous()
     if g.data_ptr() % 16:
         g = g.clone()
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
-    stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32,
-                        device=qkv.device)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         rc = lib.cvt_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "attention backward")

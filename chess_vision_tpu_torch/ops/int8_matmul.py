@@ -33,7 +33,7 @@ GELUS = {"erf": 0, "sigmoid": 1, "hard": 2}
 _EPILOGUES = {"scale_bias": 0, "res": 1, "res_ln_quant": 2, "gelu_quant": 3}
 _GELU_FNS = {"erf": rq.gelu_erf, "sigmoid": rq.gelu_sigmoid_div,
              "hard": rq.gelu_hard}
-_MAX_GRID_Y = 65535 * 128  # rows: 65535 tiles of 128 in csrc/int8_matmul.cu
+_MAX_ROWS = 2**31 - 65  # the kernel's row coordinates are 32-bit
 
 
 def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -90,7 +90,7 @@ def _launch(epilogue: str, xq, xs, wq, ws, bias, res=None, gelu="erf",
                          f"on {dev}")
     if K % 16 or K < 16 or O % 8 or O < 8:
         raise ValueError(f"K={K} must be a multiple of 16, O={O} of 8")
-    if M > _MAX_GRID_Y:
+    if M > _MAX_ROWS:
         raise ValueError(f"{M} rows exceed the kernel's grid")
     if xs.shape != (*xq.shape[:-1], 1) or xs.dtype != torch.float32:
         raise ValueError(f"xs must be f32 {(*xq.shape[:-1], 1)}, got "
@@ -102,14 +102,20 @@ def _launch(epilogue: str, xq, xs, wq, ws, bias, res=None, gelu="erf",
     for name, t in (("xq", xq), ("xs", xs), ("wq", wq), ("res", res)):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    ws = rq.f32_vector(ws, O, dev, "ws")
-    bias = rq.f32_vector(bias, O, dev, "bias")
+    # the kernel reads four columns' scales and biases in one 16-byte load
+    ws, bias = (v.clone() if v.data_ptr() % 16 else v for v in
+                (rq.f32_vector(ws, O, dev, "ws"),
+                 rq.f32_vector(bias, O, dev, "bias")))
     g = b = yq = ys = None
     if epilogue == "res_ln_quant":
         g = rq.f32_vector(ln_scale, O, dev, "ln_scale")
         b = rq.f32_vector(ln_bias, O, dev, "ln_bias")
-    out_dtype = torch.float32 if epilogue == "gelu_quant" else torch.bfloat16
-    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    if epilogue == "gelu_quant":
+        # the kernel's scratch: the rows' max |gelu(y)| and, per 64 rows, a
+        # count of the warps that have added theirs
+        out = torch.empty((M + -(-M // 64),), dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
     if epilogue in ("res_ln_quant", "gelu_quant"):
         yq = torch.empty(out_shape, dtype=torch.int8, device=dev)
         ys = torch.empty((*xq.shape[:-1], 1), dtype=torch.float32, device=dev)
@@ -159,3 +165,21 @@ def int8_matmul_res(xq, xs, wq, ws, bias, res) -> torch.Tensor:
     if xq.device.type == "cpu":
         return int8_matmul_res_plain(xq, xs, wq, ws, bias, res)
     return _launch("res", xq, xs, wq, ws, bias, res=res)[0]
+
+
+def gelu_selftest(n: int, gelu: str = "sigmoid", device="cuda") -> int:
+    """On the card: the GEMM epilogue's four-at-a-time GELU (branch-free
+    division) against the scalar GELU of the other kernels on 4 * n values;
+    returns how many differ in any bit (0 is the contract)."""
+    if gelu not in GELUS:
+        raise ValueError(f"unknown gelu {gelu!r}; expected one of {list(GELUS)}")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.cvt_gelu_selftest(n, GELUS[gelu], bad.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "gelu self-test")
+    return int(bad.item())

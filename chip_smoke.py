@@ -9,7 +9,8 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 Phases, one line each; any failure exits non-zero before the last line:
   1. device  card name, ``nvidia-smi`` name and power limit; TF32 off.
   2. build   nvcc builds ``chess_vision_tpu_torch/csrc/*.cu`` for sm_90a, one
-             process per source, all started together.
+             process per source, all started together; its seconds are
+             printed, and the script's total seconds before the report.
   3. K1      preprocess kernel vs its plain version, (256,256,256,3) u8 -> bf16,
              at most 1 bf16 ulp apart.
   4. K2      attention kernel vs ``reference_attention`` at (256,257,2304) bf16
@@ -24,9 +25,16 @@ Phases, one line each; any failure exits non-zero before the last line:
              (65792, 3072) gelu_sigmoid, bf16 in: int8 codes within one
              level in under 1e-3 of the elements, scales rtol 1e-5; exact
              ties k + 0.5 round half to even.
-  7. K8-K13  int8 GEMM kernel, every epilogue, vs its plain version at
-             (65792, 768) -> 2304 / 768 / 3072 and (65792, 3072) -> 768: codes
-             and scales as in 6, bf16 outputs within one bf16 ulp.
+  7. K8-K13  int8 GEMM kernel (wgmma main loop), every epilogue, vs its plain
+             version at (65792, 768) -> 2304 / 768 / 3072 and (65792, 3072) ->
+             768: codes and scales as in 6, bf16 outputs within one bf16 ulp;
+             each GEMM's share of the int8 peak beside ``torch._int_mm``'s
+             time; K8's time with each GELU beside the bias epilogue's on
+             the same operands; every epilogue at ragged shapes (M not a multiple of the
+             tile's 64 rows, O = 8k not of its 256 columns, K = 16k not of
+             the stage's 128 bytes) with the three GELUs; the epilogue's
+             four-at-a-time GELU against the scalar GELU of the other
+             kernels, bit for bit on 2^28 values per GELU.
   8. K4      quantizing attention vs ``reference_attention_quant`` at
              (256, 257, 2304) with the exact row max and with a fixed shift,
              and at (3, 17, 384): dequantized outputs within ATTN_ATOL.
@@ -40,11 +48,15 @@ Phases, one line each; any failure exits non-zero before the last line:
              criteria of 6-8 against its plain version on the same inputs,
              the path's own activations; int8-vs-bf16 FEN agreement
              printed; boards/s of int8 kernel, int8 plain and bf16 kernel
-             paths at batch 256.
+             paths at batch 256. ``--profile-int8 N`` also prints a
+             ``torch.profiler`` table of N boards through this Predictor.
  10. K3      attention backward kernel vs ``reference_attention_bwd`` at
              (256,257,2304) and (64,257,2304) with 12 heads and (3,17,96) with
              1 head, bf16: dq, dk and dv each within K3_ATOL, a planted fault
              (dK from the unscaled dS) outside it, two launches bit-identical;
+             the same at N = 17, 64, 65, 257, 264 with head dims 16, 32, 64;
+             the products it executes and ptxas's registers and its shared
+             memory per block printed;
              ``scaled_dot_product_attention`` forward and backward timed on
              the same values as the library yardstick of K2 and K3.
  11. train   the same ViT-B/16 through the trainer's ``train`` function
@@ -269,6 +281,9 @@ def main() -> int:
     parser.add_argument("--bench-boards", type=int, default=4 * BATCH)
     parser.add_argument("--profile-train", type=int, default=0,
                         help="also profile this many warm train steps")
+    parser.add_argument("--profile-int8", type=int, default=0,
+                        help="also profile this many boards through the int8 "
+                             "block layout")
     args = parser.parse_args()
 
     import torch
@@ -286,6 +301,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
+    started = time.perf_counter()
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -444,6 +460,8 @@ def main() -> int:
     # 17. report
     idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
+    print(f"[17 report] {time.perf_counter() - started:.1f} s in all, the build "
+          f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -527,12 +545,7 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
 
     # 7. int8 GEMM epilogues (K8-K10 in the path; K11-K13 the same rows)
     def operands(K, O):
-        ri = lambda *shape: torch.randint(  # noqa: E731
-            -127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
-        return (ri(M, K), torch.rand((M, 1), device=dev, generator=gen) * 0.02
-                + 0.002, ri(O, K),
-                torch.rand(O, device=dev, generator=gen) * 0.0004 + 0.0002,
-                torch.randn(O, device=dev, generator=gen) * 0.1)
+        return operands_at(dev, gen, M, K, O)
 
     cases = (("scale_bias", 768, 2304, "chess_vision_tpu/ops/quant.py:251"),
              ("res_ln_quant", 768, 768, "chess_vision_tpu/ops/int8_matmul.py:254"),
@@ -575,10 +588,50 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
             name, "int8_matmul.cu", replaces, err, ms, plain_ms,
             nbytes=nbytes, ops=2 * M * K * O, op_type="int8",
             library_ms=int_mm_ms(ops[0], ops[2], what))
-        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s), plain "
+        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s, "
+              f"{tops * 1e12 / PEAK_OPS['int8']:.3f} of the int8 peak), plain "
               f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']})", flush=True)
+        if epi == "gelu_quant":
+            # what K8's epilogue costs: its two sweeps by GELU, beside the
+            # same product with the bias epilogue (one sweep)
+            by_gelu = {gelu: cuda_ms(
+                lambda: mm.int8_matmul_gelu_quant(*ops, gelu), 20)
+                for gelu in mm.GELUS}
+            bias_ms = cuda_ms(lambda: mm.int8_matmul_scale_bias(*ops), 20)
+            print(f"  {what}: ms by GELU "
+                  f"{ {k: round(v, 4) for k, v in by_gelu.items()} }; the bias "
+                  f"epilogue on the same operands {bias_ms:.4f} ms", flush=True)
         del ops, res, out, ref
+
+    # the main loop's ragged edges: rows, columns and depth that end inside
+    # a tile, a stage or a 16-row group, with every epilogue and GELU
+    for M_, K, O in ((300, 80, 72), (129, 16, 8), (1000, 768, 264),
+                     (64, 128, 256), (4999, 3072, 776)):
+        ops = operands_at(dev, gen, M_, K, O)
+        res = torch.randn((M_, O), device=dev, generator=gen).bfloat16()
+        g = torch.rand(O, device=dev, generator=gen) + 0.5
+        b = torch.randn(O, device=dev, generator=gen) * 0.1
+        what = f"  [7 GEMM] ragged ({M_}, {K}) -> {O}"
+        bf16_check(what + " scale_bias", mm.int8_matmul_scale_bias(*ops),
+                   mm.int8_matmul_scale_bias_plain(*ops))
+        bf16_check(what + " res", mm.int8_matmul_res(*ops, res),
+                   mm.int8_matmul_res_plain(*ops, res))
+        out = mm.int8_matmul_res_ln_quant(*ops, res, g, b)
+        ref = mm.int8_matmul_res_ln_quant_plain(*ops, res, g, b)
+        bf16_check(what + " res_ln_quant x'", out[0], ref[0])
+        codes_check(what + " res_ln_quant", *out[1:], *ref[1:])
+        for gelu in mm.GELUS:
+            codes_check(f"{what} gelu_quant {gelu}",
+                        *mm.int8_matmul_gelu_quant(*ops, gelu),
+                        *mm.int8_matmul_gelu_quant_plain(*ops, gelu))
+        del ops, res, out, ref
+    for gelu in mm.GELUS:
+        bad = mm.gelu_selftest(1 << 26, gelu)
+        print(f"  [7 GEMM] the epilogue's {gelu} GELU, four values a call with "
+              f"a branch-free division, vs the scalar GELU on {4 << 26} values: "
+              f"{bad} differ in a bit", flush=True)
+        require(bad == 0, f"the epilogue's {gelu} GELU differs in {bad} values")
 
     # 8. quantizing attention
     N = SIZE // 16 * SIZE // 16 + 1
@@ -610,6 +663,19 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
                 nbytes=2 * qkv.numel() + B * n * H * 64 + 4 * B * n,
                 ops=4 * B * H * n * n * 64, op_type="bf16")
         del qkv, oq, os_, rq_, rs
+
+
+def operands_at(dev, gen, M: int, K: int, O: int) -> tuple:
+    """Random operands of an int8 GEMM: xq (M, K), xs (M, 1), wq (O, K), ws
+    and bias (O,), at the serving path's scales."""
+    import torch
+
+    ri = lambda *shape: torch.randint(  # noqa: E731
+        -127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
+    return (ri(M, K), torch.rand((M, 1), device=dev, generator=gen) * 0.02
+            + 0.002, ri(O, K),
+            torch.rand(O, device=dev, generator=gen) * 0.0004 + 0.0002,
+            torch.randn(O, device=dev, generator=gen) * 0.1)
 
 
 def int_mm_ms(xq, wq, what: str) -> float | None:
@@ -947,7 +1013,37 @@ def int8_path_phase(args, cfg, boards, fens_bf16, predictor_bf16, kernels,
           f"boards per run; in the order int8 kernel, int8 plain, bf16 kernel, "
           f"bf16 kernel, int8 plain, int8 kernel): {rates}; {kind}, {smi}",
           flush=True)
+    if args.profile_int8:
+        bench = np.concatenate(
+            [boards] * math.ceil(args.profile_int8 / args.boards))
+        profile_int8_batches(predictor, bench[:args.profile_int8],
+                             BATCH / rates["int8 kernel"][-1] * 1e3)
     return {"predictor": predictor, "shifts": shifts, "fens": fens}
+
+
+def profile_int8_batches(predictor, bench, batch_ms: float) -> None:
+    """``torch.profiler`` over ``predict_array`` on the int8 block layout:
+    kernels by device time, and the device's idle share of an unprofiled batch
+    of ``batch_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = math.ceil(len(bench) / BATCH)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        predictor.predict_array(bench)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / batches
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3 / batches
+    print(f"[9 int8] profile of {len(bench)} boards in {batches} batches: device "
+          f"{device_ms:.2f} ms per batch; a batch takes {batch_ms:.2f} ms "
+          f"unprofiled (idle share {1 - device_ms / batch_ms:.3f}) and "
+          f"{wall_ms:.1f} ms under the profiler", flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=30,
+                       max_name_column_width=60), flush=True)
 
 
 def layout_path_phase(number: int, layout: str, args, cfg, boards, int8: dict,
@@ -1304,8 +1400,9 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     N = SIZE // 16 * SIZE // 16 + 1
+    odd = [(2, n, 2, Dh) for n in (17, 64, 65, 257, 264) for Dh in (16, 32, 64)]
     for B, n, H, Dh in ((BATCH, N, 12, 64), (TRAIN_BATCH, N, 12, 64),
-                        (3, 17, 1, 32)):
+                        (3, 17, 1, 32), *odd):
         D = H * Dh
         qkv = torch.randn((B, n, 3 * D), device=dev, generator=gen).bfloat16()
         g = torch.randn((B, n, D), device=dev, generator=gen).bfloat16()
@@ -1328,12 +1425,12 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
         print(f"[10 K3] attention backward {tuple(qkv.shape)} H={H}: max |diff| "
               f"{errs} (atol {K3_ATOL}), planted unscaled dK {planted}, two "
               f"launches bit-identical {same}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms; {k3_work(n, Dh)}", flush=True)
         require(finite and max(errs.values()) <= K3_ATOL,
                 f"K3 at {tuple(qkv.shape)}: {errs}, finite {finite}")
         require(planted > K3_ATOL, f"the planted fault passes: {planted}")
         require(same, "K3 is not deterministic")
-        if B != 3:
+        if B >= TRAIN_BATCH:
             fwd_ms, bwd_ms = sdpa_ms(qkv, g, H)
             print(f"[10 K3] scaled_dot_product_attention on the same values: "
                   f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms",
@@ -1347,6 +1444,28 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
                 ops=10 * B * H * n * n * Dh, op_type="bf16", library_ms=bwd_ms)
         del qkv, g, out, ref
     torch.cuda.empty_cache()
+
+
+def k3_work(n: int, head_dim: int) -> str:
+    """What K3 executes per (image, head) at n tokens: its 7 products (S and
+    dP in both sweeps, dQ, dK, dV) over 16-row and 16-key groups, beside the 5
+    products on n x n the function needs; ptxas's registers for this head dim
+    (from this process's build, if it built) and the block's shared memory."""
+    import re
+
+    from chess_vision_tpu_torch.ops import _build
+
+    padded = -(-n // 16) * 16
+    done = 7 * 2 * padded * padded * head_dim
+    needed = 5 * 2 * n * n * head_dim
+    smem = 2 * padded * (4 * (head_dim + 8) + 2 * 40)
+    found = re.search(
+        rf"attention_bwd_kernelILi{head_dim}E.*?Used (\d+) registers",
+        _build.build_log, re.S)
+    regs = f"{found.group(1)} registers" if found else "registers not in this build's log"
+    return (f"7 products on {padded} x {padded}: {done / 1e6:.2f} MFLOP per head "
+            f"for {needed / 1e6:.2f} needed ({done / needed:.2f}x); {regs}, "
+            f"{smem} bytes of shared memory per block")
 
 
 class MemoryCorpus:

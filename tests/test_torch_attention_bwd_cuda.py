@@ -34,9 +34,15 @@ def _inputs(B, N, H, Dh, device, seed=0):
     return qkv.bfloat16().to(device), g.bfloat16().to(device)
 
 
+# the ragged edges of the kernel's 16-row blocks and 32-key steps: N = 17, 64,
+# 65, 257, 264 (and the largest it takes) with each head dim
+ODD = [(2, N, 2, Dh) for N in (17, 64, 65, 257, 264, attn.BWD_MAX_TOKENS)
+       for Dh in (16, 32, 64)]
+
+
 @pytest.mark.parametrize("B,N,H,Dh", [(64, 257, 12, 64), (3, 17, 1, 32),
                                       (2, 70, 2, 16), (1, 64, 4, 64),
-                                      (2, 129, 3, 32)])
+                                      (2, 129, 3, 32), *ODD])
 def test_kernel_matches_plain(cuda, B, N, H, Dh):
     qkv, g = _inputs(B, N, H, Dh, cuda)
     before = attn.BWD_LAUNCHES
@@ -88,3 +94,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         attn.fused_qkv_attention_bwd(qkv, g.cpu(), 2)
     empty = attn.fused_qkv_attention_bwd(qkv[:0], g[:0], 2)
     assert empty.shape == (0, 17, 96)
+    # a head's operands stay in shared memory: at most BWD_MAX_TOKENS tokens
+    long_qkv, long_g = _inputs(1, attn.BWD_MAX_TOKENS + 1, 1, 16, cuda)
+    with pytest.raises(ValueError, match="tokens"):
+        attn.fused_qkv_attention_bwd(long_qkv, long_g, 1)

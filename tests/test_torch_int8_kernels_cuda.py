@@ -79,8 +79,13 @@ def _gemm_operands(cuda, M, K, O, seed=0):
             torch.randn((M, O), device=cuda, generator=g).bfloat16())
 
 
+# (300, 80, 72) and on: rows, columns and depth that end inside the main
+# loop's 64 x 256 tile, its 128-byte stage of K and the epilogue's 16-row group
 @pytest.mark.parametrize("M,K,O", [(300, 768, 2304), (257, 3072, 768),
-                                   (129, 64, 136), (17, 48, 8)])
+                                   (129, 64, 136), (17, 48, 8),
+                                   (300, 80, 72), (64, 128, 256),
+                                   (1000, 768, 264), (129, 16, 8),
+                                   (4999, 3072, 776)])
 def test_int8_matmul_kernels_match_plain(cuda, M, K, O):
     xq, xs, wq, ws, bias, res = _gemm_operands(cuda, M, K, O)
     g = torch.rand(O, device=cuda) + 0.5
@@ -106,6 +111,34 @@ def test_int8_matmul_kernels_match_plain(cuda, M, K, O):
     torch.cuda.synchronize()
     assert {k: mm.LAUNCHES[k] - before[k] for k in before} == {
         "scale_bias": 1, "res": 1, "res_ln_quant": 1, "gelu_quant": 3}
+
+
+def test_int8_matmul_launches_are_bit_identical(cuda):
+    """Two launches of each epilogue give the same bits (K8's row maxima are
+    folded with an atomic max, which is exact in any order), and the bf16
+    outputs equal the plain version's bit for bit."""
+    xq, xs, wq, ws, bias, res = _gemm_operands(cuda, 1300, 768, 3072)
+    g = torch.rand(3072, device=cuda) + 0.5
+    b = torch.randn(3072, device=cuda) * 0.1
+    runs = [lambda: (mm.int8_matmul_scale_bias(xq, xs, wq, ws, bias),),
+            lambda: (mm.int8_matmul_res(xq, xs, wq, ws, bias, res),),
+            lambda: mm.int8_matmul_res_ln_quant(xq, xs, wq, ws, bias, res, g, b),
+            lambda: mm.int8_matmul_gelu_quant(xq, xs, wq, ws, bias, "sigmoid")]
+    for run in runs:
+        first, second = run(), run()
+        assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert torch.equal(runs[0]()[0],
+                       mm.int8_matmul_scale_bias_plain(xq, xs, wq, ws, bias))
+    assert torch.equal(runs[1]()[0],
+                       mm.int8_matmul_res_plain(xq, xs, wq, ws, bias, res))
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid", "hard"])
+def test_epilogue_gelu_equals_the_scalar_gelu(cuda, gelu):
+    """The GEMM epilogue's GELU (four values a call, a branch-free division)
+    against the scalar GELU of the row-quant and whole-block kernels, bit for
+    bit, on 2^26 values over signs, 40 binades and all mantissas."""
+    assert mm.gelu_selftest(1 << 24, gelu) == 0
 
 
 @pytest.mark.parametrize("calibrated", [False, True])
