@@ -5,28 +5,51 @@
 // softmax(Q K^T / sqrt(Dh)) V, where Q, K and V are the column ranges
 // [h*Dh, (h+1)*Dh) + {0, D, 2D} of qkv (B, N, 3*D), D = H*Dh, and the
 // result lands in out (B, N, D). No (B, N, 3, H, Dh) permute copy is made.
+// Scores, softmax and accumulation in f32, one bf16 rounding of the output.
 //
-// Bound on this card: at the ViT-B serving shape (N = 257, Dh = 64) one
-// (image, head) does 4*N*N*Dh = 16.9 MFLOP on 132 KB of q, k, v and output,
-// about 130 FLOP per byte, below the ~295 FLOP/byte at which the bf16 tensor
-// cores rather than memory become the limit. The softmax's max, exp and sum
-// over the N x N scores run on the CUDA cores, not the tensor cores, and at
-// Dh = 64 they cost about as many instructions as the two products.
+// Bound on this card: at the serving shape (256, 257, 2304) the call reads
+// qkv (303 MB) and writes out (101 MB): 0.1207 ms at 3.35 TB/s; its two
+// products are 52 GFLOP, 0.053 ms at 989 TFLOP/s. Bytes bound it. The
+// softmax's exp over the N x N scores runs on the CUDA cores: 203 M exp2 at
+// 16 a clock per SM, about 0.05 ms more that the tensor cores cannot hide.
 //
-// Design (flash-attention-2 form, mma.sync tensor-core tiles):
-//  - one block of 4 warps per (query tile of 64 rows, head, image); each warp
-//    owns 16 query rows and keeps its Q fragments in registers;
-//  - the block walks the keys in tiles of 64: K is staged in shared memory
-//    row-major and V transposed, so both operands of m16n8k16 are read as
-//    aligned 32-bit pairs; rows are padded by 8 bf16 to keep those reads free
-//    of bank conflicts;
-//  - scores stay in registers: an online max-shifted softmax in f32
-//    (exp2 with the 1/sqrt(Dh) scale and log2(e) folded into one FMA per
-//    score), P re-packed in registers as bf16 A fragments for P V, f32
-//    accumulation, one bf16 rounding of the output;
-//  - the ragged key tail is masked to -inf and zero-filled in shared memory;
-//    query rows past N compute on zeros and are not stored.
-// Not yet done (later work): wgmma, TMA, double buffering, persistent blocks.
+// Design: the loop of attention_loop.cuh (what it does and why is there):
+// one block of 3 warps per (chunk of up to 96 query rows, head, image), two
+// 16-row blocks a warp, 16-row and 16-key edges (272 x 272 for 257 tokens,
+// where the earlier 64-row tiles did 320 x 320), Q and a 2-stage ring of
+// 64-key K/V tiles copied by cp.async, every operand by ldmatrix, V by
+// ldmatrix.trans as it lies, S computed twice a 64-key step to keep the
+// registers under 168. Any N: the keys go through the ring, so no sequence
+// length is too long for shared memory. The three chunks of a head (6, 6
+// and 5 row blocks at 257 tokens) run side by side, so K and V come from
+// device memory once and from L2 after. The output is staged in the chunk's
+// Q rows and stored 16 bytes a lane.
+//
+// Bits: each score, exponential, row sum and product is the earlier kernel's
+// (one block of 4 warps per 64-row tile, 64-key tiles, K and V through 32-bit
+// loads): the online max is rescaled at the same 64-key steps, p is
+// exp2f(fmaf(s, scale log2 e, -m scale log2 e)), the per-thread partial row
+// sums and their final shuffles are taken in the same order, and mma.sync
+// gets the same fragments in the same key order. Sub-steps past the last
+// key, whose p were exact zeros, are skipped. So the output equals the
+// earlier kernel's bit for bit (experiments/kernel_ab.py checks it: 0.0 max
+// |difference| on the H100 at both path shapes).
+//
+// Shape: 3 warps a block, 4 blocks an SM (12 warps, so ptxas may give a
+// thread 168 registers), 50,688 bytes of shared memory a block at Dh = 64.
+// ptxas (CUDA 12.8, sm_90a): 168 registers at Dh = 64 with 116 bytes
+// spilled, 168 at Dh = 32, 160 at Dh = 16; chip_smoke.py phase 4 prints the
+// counts of its own build. Of the shapes tried, 2 warps x 4 blocks and 4 x 3
+// were slower and 4 x 4 spilled.
+//
+// What bounds it now: not bytes. At the serving shape it takes about 3.3x
+// its byte bound, while its products and exponentials each need under 0.1
+// ms at the card's rates, so the 12 warps an SM wait on the softmax's chain
+// (S, the row max, two shuffles, the exponentials) with too little else to
+// issue; computing S twice adds half the tensor work again. Overlapping one
+// step's softmax with the next step's products (a wgmma S, or warps
+// specialized into producer and consumers) is the next design. Its timings
+// are in PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,199 +57,85 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention_loop.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kQTile = 16 * kWarps;  // query rows per block
-constexpr int kKTile = 64;           // keys per shared-memory tile
-constexpr int kPad = 8;              // bf16 padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kWarps = 3;      // warps a block, 32 query rows each
+constexpr int kMinBlocks = 4;  // blocks an SM: 12 warps, 168 registers a thread
+constexpr int kStages = 2;     // K/V tiles in the ring (4 blocks fit 228 KB)
 
 template <int Dh>
-__global__ void __launch_bounds__(32 * kWarps)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out, int n, int heads,
-                     float scale_log2) {
-  static_assert(Dh % 16 == 0 && Dh <= 128, "head dim must be 16..128, x16");
-  __shared__ __align__(16) __nv_bfloat16 ks[kKTile][Dh + kPad];
-  __shared__ __align__(16) __nv_bfloat16 vt[Dh][kKTile + kPad];
-
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+                     int n, int heads, float scale_log2) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int kLd = Dh + cvt::kFlashPad;
   const int d_model = heads * Dh;
   const long long row_stride = 3LL * d_model;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  // q of this head at q_base, k at +d_model, v at +2*d_model
+  const int chunk = blockIdx.x;
+  const int cb = cvt::flash_chunk_blocks(n, gridDim.x);  // row blocks of a chunk
+  const int row0 = chunk * cb * 16;
+  const int cblocks = min(cb, (n + 15) / 16 - chunk * cb);
   const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * Dh;
 
+  float o[2][Dh / 8][4];
+  float l[2][2];
+  bool has[2];
+  cvt::flash_attention_rows<Dh, kWarps, kStages, false>(q_base, row_stride, d_model, row0, cblocks, n,
+                                               n, scale_log2, 0.f, false, smem, o, l, has);
+
+  // the warp's rows, rounded to bf16, into its own rows of the Q tile, then
+  // to device memory 16 bytes a lane
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-  const int r0 = blockIdx.x * kQTile + warp * 16 + g;  // rows r0 and r0 + 8
-
-  // Q as m16n8k16 A fragments: Dh/16 k-steps of 16 x 16.
-  uint32_t qa[Dh / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < Dh / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    const __nv_bfloat16* lo = q_base + (long long)r0 * row_stride + c;
-    const __nv_bfloat16* hi = lo + 8 * row_stride;
-    const bool lo_ok = r0 < n, hi_ok = r0 + 8 < n;
-    qa[kk][0] = lo_ok ? load_pair(lo) : 0u;
-    qa[kk][1] = hi_ok ? load_pair(hi) : 0u;
-    qa[kk][2] = lo_ok ? load_pair(lo + 8) : 0u;
-    qa[kk][3] = hi_ok ? load_pair(hi + 8) : 0u;
-  }
-
-  float o[Dh / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < Dh / 8; ++nb) {
-    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
-  }
-  // Running max (in raw score units) and per-thread partial row sums for
-  // rows r0 (index 0) and r0 + 8 (index 1).
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  constexpr int kChunks = Dh / 8;  // 16-byte chunks per K/V row
-  for (int k0 = 0; k0 < n; k0 += kKTile) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = threadIdx.x; idx < kKTile * kChunks; idx += blockDim.x) {
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < n) {
-        const __nv_bfloat16* src = q_base + (long long)(k0 + r) * row_stride + c;
-        kv = *reinterpret_cast<const uint4*>(src + d_model);
-        vv = *reinterpret_cast<const uint4*>(src + 2 * d_model);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[c + j][r] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows: kKTile/8 n-blocks of 8 keys.
-    float s[kKTile / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kKTile / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < Dh / 16; ++kk) {
-        const __nv_bfloat16* kr = &ks[nb * 8 + g][kk * 16 + t * 2];
-        mma_bf16_16816(s[nb], qa[kk], load_pair(kr), load_pair(kr + 8));
-      }
-    }
-    if (k0 + kKTile > n) {
-#pragma unroll
-      for (int nb = 0; nb < kKTile / 8; ++nb) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k0 + nb * 8 + t * 2 + (j & 1) >= n) s[nb][j] = -INFINITY;
-        }
-      }
-    }
-
-    // Online softmax. Rows are spread over the 4 threads of a group, so the
-    // max is reduced across them; the sums stay per thread until the end.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nb = 0; nb < kKTile / 8; ++nb) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
-    }
-    float alpha[2], shift[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // every tile holds a valid key, so mx is finite; exp2(-inf) = 0
-      alpha[i] = exp2f((m[i] - mx[i]) * scale_log2);
-      m[i] = mx[i];
-      shift[i] = mx[i] * scale_log2;
-    }
-
-    // P = exp(scale * (S - max)) as A fragments of P V: n-blocks 2kk and
-    // 2kk+1 of S are the left and right halves of k-step kk.
-    uint32_t pa[kKTile / 16][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nb = 0; nb < kKTile / 8; ++nb) {
-      const float p0 = exp2f(fmaf(s[nb][0], scale_log2, -shift[0]));
-      const float p1 = exp2f(fmaf(s[nb][1], scale_log2, -shift[0]));
-      const float p2 = exp2f(fmaf(s[nb][2], scale_log2, -shift[1]));
-      const float p3 = exp2f(fmaf(s[nb][3], scale_log2, -shift[1]));
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16x2(p0, p1);
-      pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16x2(p2, p3);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int nb = 0; nb < Dh / 8; ++nb) {
-      o[nb][0] *= alpha[0];
-      o[nb][1] *= alpha[0];
-      o[nb][2] *= alpha[1];
-      o[nb][3] *= alpha[1];
-#pragma unroll
-      for (int kk = 0; kk < kKTile / 16; ++kk) {
-        const __nv_bfloat16* vr = &vt[nb * 8 + g][kk * 16 + t * 2];
-        mma_bf16_16816(o[nb], pa[kk], load_pair(vr), load_pair(vr + 8));
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
-  }
+  const int g = lane / 4;
+  const int t = lane % 4;
+  __nv_bfloat16* stage = smem + cvt::flash_q_offset<Dh, kStages>();
   __nv_bfloat16* o_base = out + (long long)b * n * d_model + h * Dh;
 #pragma unroll
-  for (int nb = 0; nb < Dh / 8; ++nb) {
-    const int c = nb * 8 + t * 2;
-    if (r0 < n) {
-      *reinterpret_cast<uint32_t*>(o_base + (long long)r0 * d_model + c) =
-          pack_bf16x2(o[nb][0] * inv[0], o[nb][1] * inv[0]);
+  for (int j = 0; j < 2; ++j) {
+    if (!has[j]) continue;
+    const int rb = warp + j * kWarps;
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) inv[i] = 1.f / l[j][i];
+#pragma unroll
+    for (int nb = 0; nb < Dh / 8; ++nb) {
+      __nv_bfloat16* at = stage + (rb * 16 + g) * kLd + nb * 8 + t * 2;
+      *reinterpret_cast<uint32_t*>(at) =
+          cvt::flash_pack(o[j][nb][0] * inv[0], o[j][nb][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(at + 8 * kLd) =
+          cvt::flash_pack(o[j][nb][2] * inv[1], o[j][nb][3] * inv[1]);
     }
-    if (r0 + 8 < n) {
-      *reinterpret_cast<uint32_t*>(o_base + (long long)(r0 + 8) * d_model + c) =
-          pack_bf16x2(o[nb][2] * inv[1], o[nb][3] * inv[1]);
+    __syncwarp();
+    constexpr int kChunks = Dh / 8;
+    for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+      const int r = rb * 16 + idx / kChunks;
+      const int c = (idx % kChunks) * 8;
+      if (row0 + r < n) {
+        *reinterpret_cast<uint4*>(o_base + (long long)(row0 + r) * d_model + c) =
+            *reinterpret_cast<const uint4*>(stage + r * kLd + c);
+      }
     }
   }
 }
 
 template <int Dh>
-void launch(const void* qkv, void* out, int batch, int n, int heads,
-            float scale_log2, cudaStream_t stream) {
-  const dim3 grid((n + kQTile - 1) / kQTile, heads, batch);
-  attention_fwd_kernel<Dh><<<grid, 32 * kWarps, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      n, heads, scale_log2);
+cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads, float scale_log2,
+                   cudaStream_t stream) {
+  const int bytes = 2 * cvt::flash_smem_elems<Dh, kWarps, kStages>();
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<Dh>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cvt::flash_chunks(n, kWarps), heads, batch);
+  attention_fwd_kernel<Dh><<<grid, 32 * kWarps, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, heads,
+      scale_log2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -235,19 +144,17 @@ void launch(const void* qkv, void* out, int batch, int n, int heads,
 // out: bf16 (batch, n, heads * head_dim). scale: the softmax temperature
 // (1 / sqrt(head_dim) for standard attention). Returns the launch's
 // cudaError_t.
-extern "C" int cvt_attention_fwd(const void* qkv, void* out, int batch, int n,
-                                 int heads, int head_dim, float scale,
-                                 void* stream) {
+extern "C" int cvt_attention_fwd(const void* qkv, void* out, int batch, int n, int heads,
+                                 int head_dim, float scale, void* stream) {
   if (batch < 1 || n < 1 || heads < 1 || batch > 65535 || heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: launch<16>(qkv, out, batch, n, heads, scale_log2, s); break;
-    case 32: launch<32>(qkv, out, batch, n, heads, scale_log2, s); break;
-    case 64: launch<64>(qkv, out, batch, n, heads, scale_log2, s); break;
+    case 16: return (int)launch<16>(qkv, out, batch, n, heads, scale_log2, s);
+    case 32: return (int)launch<32>(qkv, out, batch, n, heads, scale_log2, s);
+    case 64: return (int)launch<64>(qkv, out, batch, n, heads, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

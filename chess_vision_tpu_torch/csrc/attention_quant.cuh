@@ -1,11 +1,13 @@
-// Device code of the quantizing attention: one (64-query tile, head, image)
-// work item of K4 / K5, run by a group of 4 warps.
+// Device code of the quantizing attention as the whole-block kernel runs it:
+// one (64-query tile, head, image) work item, run by a group of 4 warps.
 //
-// attention_quant.cu launches it one item per 128-thread block; the
-// whole-block kernel (fused_block.cu) runs two groups side by side in one
+// The whole-block kernel (fused_block.cu) runs two groups side by side in one
 // 256-thread block, each on its own shared-memory tile and its own named
-// barrier. attention_variants.cu shares the fragment helpers. What the loop
-// computes, its numerics and its bound are in attention_quant.cu's header.
+// barrier, and writes the f32 tile for its row-pass stage. K4 / K5
+// (attention_quant.cu) compute the same values with the loop of
+// attention_loop.cuh; attention_variants.cu and that loop share the fragment
+// helpers. What the loop computes and its numerics are in attention_quant.cu's
+// header.
 
 #pragma once
 

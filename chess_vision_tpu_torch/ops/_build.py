@@ -45,19 +45,22 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_float, _P],
     "cvt_attention_bwd": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "cvt_attention_bwd_long": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
     "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_gelu_selftest": [ctypes.c_longlong, ctypes.c_int, _P, _P],
-    "cvt_attention_quant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "cvt_attention_quant": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_float, ctypes.c_int, _P],
-    "cvt_attention_quant_flat": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "cvt_attention_quant_flat": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                  _P],
+    "cvt_attention_quant_max_clusters": [ctypes.c_int, ctypes.c_int],
     "cvt_attention_variant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],

@@ -10,13 +10,16 @@ differentiable through a ``torch.autograd.Function`` that saves only ``qkv``
 ``csrc/attention_bwd.cu`` (``fused_qkv_attention_bwd``: one block per
 (image, head) holds the head's Q, K, V and g in shared memory, recomputes the
 softmax statistics into registers in a first sweep over the keys and forms
-dQ, dK and dV in a second, with no scratch in device memory), with
+dQ, dK and dV in a second, with no scratch in device memory; above
+``BWD_MAX_TOKENS`` tokens the two kernels of ``csrc/attention_bwd_long.cu``), with
 ``reference_attention_bwd`` as the plain version: the arithmetic of the JAX
 package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
 package's function of that name, K4): attention, then per-token int8
-quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu``;
+quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu`` (one
+launch: the blocks of a row chunk's heads form a thread-block cluster and
+exchange their row maxima on chip, so at most ``QUANT_MAX_HEADS`` heads);
 ``reference_attention_quant`` is its plain version.
 ``fused_qkv_attention_quant_flat`` (K5) is the same on the ``"flat"`` int8
 layout's (images * NP, 3*H*Dh) stream, whose token axis is padded to NP rows
@@ -40,11 +43,13 @@ from chess_vision_tpu_torch.ops.rowquant import quantize_rows
 # proves the main path went through the kernels with them).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_LONG_LAUNCHES = 0  # of BWD_LAUNCHES, those of the long route
 QUANT_LAUNCHES = 0
 FLAT_LAUNCHES = 0
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
+QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
 _MAX_GRID_YZ = 65535
 
 
@@ -169,15 +174,26 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
+def bwd_route(n: int) -> str:
+    """The backward kernel that takes ``n`` tokens: ``"short"``
+    (``csrc/attention_bwd.cu``, a head in shared memory) up to
+    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_long.cu``) above."""
+    return "short" if n <= BWD_MAX_TOKENS else "long"
+
+
 def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
                             num_heads: int) -> torch.Tensor:
     """Saved qkv (B, N, 3*H*Dh) and the output's cotangent g (B, N, H*Dh) ->
     dqkv (B, N, 3*H*Dh).
 
     A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
-    the backward kernel (bf16, head dim 16, 32 or 64, at most
-    ``BWD_MAX_TOKENS`` tokens) or raises. ``g`` is made contiguous first
-    (autograd may hand a strided one)."""
+    a backward kernel (bf16, head dim 16, 32 or 64) or raises. Both kernels
+    are hand-written and give the same function; the shape picks one
+    (``bwd_route``): up to ``BWD_MAX_TOKENS`` tokens the one-block-per-head
+    kernel of ``csrc/attention_bwd.cu``, above it the two kernels of
+    ``csrc/attention_bwd_long.cu`` (dQ per 64-query tile, then dK/dV per
+    64-key tile, through an f32 (B, H, 3, N) statistics scratch). ``g`` is
+    made contiguous first (autograd may hand a strided one)."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -187,9 +203,6 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, g, num_heads)
     head_dim = _check_kernel_input(qkv, num_heads)
-    if N > BWD_MAX_TOKENS:
-        raise ValueError(f"{N} tokens exceed the backward kernel's "
-                         f"{BWD_MAX_TOKENS} (a head stays in shared memory)")
     g = g.contiguous()
     if g.data_ptr() % 16:
         g = g.clone()
@@ -197,14 +210,20 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if dqkv.numel() == 0:
         return dqkv
     lib = _build.library()
+    long = bwd_route(N) == "long"
+    # the long route's row statistics (max, 1/l, r) per (image, head, row)
+    stats = (torch.empty((B, num_heads, 3, N), dtype=torch.float32,
+                         device=qkv.device) if long else None)
+    scratch = [stats.data_ptr()] if long else []
+    entry = lib.cvt_attention_bwd_long if long else lib.cvt_attention_bwd
     with torch.cuda.device(qkv.device):
-        rc = lib.cvt_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-            B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
-            torch.cuda.current_stream().cuda_stream)
+        rc = entry(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), *scratch,
+                   B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
+                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "attention backward")
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_LONG_LAUNCHES
     BWD_LAUNCHES += 1
+    BWD_LONG_LAUNCHES += long
     return dqkv
 
 
@@ -259,9 +278,13 @@ def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
     return _attention_quant_plain(qkv, qkv.shape[1], num_heads, softmax_shift)
 
 
-def _check_quant_width(D: int) -> None:
+def _check_quant_shape(D: int, num_heads: int) -> None:
     if D % 8 or D > 4096:
         raise ValueError(f"model width {D} must be a multiple of 8 up to 4096")
+    if num_heads > QUANT_MAX_HEADS:
+        raise ValueError(f"{num_heads} heads exceed the quantizing attention's "
+                         f"{QUANT_MAX_HEADS} (one thread-block cluster holds "
+                         "every head of a row chunk)")
 
 
 def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
@@ -277,9 +300,8 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     head_dim = _check_kernel_input(qkv, num_heads)
     B, N, C3 = qkv.shape
     D = C3 // 3
-    _check_quant_width(D)
+    _check_quant_shape(D, num_heads)
     fixed = _fixed_shift(softmax_shift, head_dim)
-    scratch = torch.empty((B, N, D), dtype=torch.float32, device=qkv.device)
     oq = torch.empty((B, N, D), dtype=torch.int8, device=qkv.device)
     os_ = torch.empty((B, N, 1), dtype=torch.float32, device=qkv.device)
     if oq.numel() == 0:
@@ -287,7 +309,7 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         rc = lib.cvt_attention_quant(
-            qkv.data_ptr(), scratch.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
             B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
             float(softmax_shift) if fixed else 0.0, int(fixed),
             torch.cuda.current_stream().cuda_stream)
@@ -342,9 +364,8 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     head_dim = _check_kernel_input(qkv.view(images, NP, -1), num_heads)
     M, C3 = qkv.shape
     D = C3 // 3
-    _check_quant_width(D)
+    _check_quant_shape(D, num_heads)
     fixed = _fixed_shift(softmax_shift, head_dim)
-    scratch = torch.empty((M, D), dtype=torch.float32, device=qkv.device)
     oq = torch.empty((M, D), dtype=torch.int8, device=qkv.device)
     os_ = torch.empty((M, 1), dtype=torch.float32, device=qkv.device)
     if oq.numel() == 0:
@@ -352,7 +373,7 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         rc = lib.cvt_attention_quant_flat(
-            qkv.data_ptr(), scratch.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
             images, NP, n_real, num_heads, head_dim,
             1.0 / math.sqrt(head_dim),
             float(softmax_shift) if fixed else 0.0, int(fixed),

@@ -84,7 +84,7 @@ def maybe_load_pretrained(model, cfg: dict) -> bool:
     return True
 
 
-def _check_supported(cfg: dict) -> None:
+def _check_supported(cfg: dict, n_samples: int = 0) -> None:
     arch = cfg["model"].get("arch", "vit")
     if arch != "vit":
         raise NotImplementedError(
@@ -97,13 +97,30 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             "training.tensor_parallel and training.fsdp are not ported to "
             "PyTorch yet (ROADMAP Queue A item 11, multi-device)")
-    dc = cfg["data"].get("device_cache", False)
-    if isinstance(dc, str):
-        dc = dc.lower() not in ("false", "0", "no")
-    if dc:
+    if device_cache_engages(cfg, n_samples):
         raise NotImplementedError(
             "data.device_cache is not ported to PyTorch yet (ROADMAP Queue A "
-            "item 9, device-resident corpus); set data.device_cache=false")
+            "item 9, device-resident corpus); set data.device_cache=false or "
+            "use the rgb transport")
+
+
+def device_cache_engages(cfg: dict, n_samples: int) -> bool:
+    """Whether the reference trainer (``train.py``) would hold a corpus of
+    ``n_samples`` boards on the device: ``data.device_cache`` true, or
+    ``auto`` on the ycbcr420 and packed transports when the corpus fits
+    ``data.device_cache_budget_gb`` (the reference's estimate: 4:2:0 planes
+    and 70 f32 labels a board). ``auto`` on the rgb transport streams, as
+    there. An absent key streams: the port holds no corpus on the device."""
+    dc = cfg["data"].get("device_cache", False)
+    if isinstance(dc, str) and dc.lower() != "auto":
+        dc = dc.lower() in ("true", "1", "yes")
+    if dc != "auto":
+        return bool(dc)
+    size = int(cfg["model"]["input_size"])
+    est = n_samples * (size * size * 3 // 2 + 70 * 4)
+    budget = float(cfg["data"].get("device_cache_budget_gb", 6.0))
+    return (cfg["data"].get("transport", "rgb") in ("ycbcr420", "packed")
+            and est <= budget * 2**30)
 
 
 def train(cfg: dict, dataset, ood_dataset=None, *, seed: int = 0,
@@ -114,7 +131,7 @@ def train(cfg: dict, dataset, ood_dataset=None, *, seed: int = 0,
     ``data.ChessDataset``). Runs on the CUDA device unless ``device`` says
     otherwise. Returns the final state, the per-epoch metrics and the train
     images per second of each epoch."""
-    _check_supported(cfg)
+    _check_supported(cfg, len(dataset) + (len(ood_dataset) if ood_dataset else 0))
     device = resolve_device(device)
     if torch.cuda.device_count() > 1 and device.type == "cuda":
         print(f"Devices: using {device} of {torch.cuda.device_count()} "

@@ -14,7 +14,11 @@ Phases, one line each; any failure exits non-zero before the last line:
   3. K1      preprocess kernel vs its plain version, (256,256,256,3) u8 -> bf16,
              at most 1 bf16 ulp apart.
   4. K2      attention kernel vs ``reference_attention`` at (256,257,2304) bf16
-             with 12 heads and at (3,17,96) with 1 head, atol 2e-2.
+             with 12 heads, at (3,17,96) with 1 head, and at N = 17, 64, 65,
+             264, 577 and 1025 with head dims 16, 32 and 64 (the 16-row and
+             64-key edges, and sequences longer than any shared-memory
+             tile), atol 2e-2; the scores it computes, ptxas's registers and
+             spills and its shared memory per block printed.
   5. path    ViT-B/16 at 256 px, full width (embed 768, depth 12, 12 heads),
              bf16, weights drawn from --seed in the JAX layout and carried
              through the weight bridge; ``Predictor.predict_array`` on --boards
@@ -37,7 +41,10 @@ Phases, one line each; any failure exits non-zero before the last line:
              kernels, bit for bit on 2^28 values per GELU.
   8. K4      quantizing attention vs ``reference_attention_quant`` at
              (256, 257, 2304) with the exact row max and with a fixed shift,
-             and at (3, 17, 384): dequantized outputs within ATTN_ATOL.
+             at (3, 17, 384) and at the ragged (2, 65, 2304) with 12 heads
+             both ways: dequantized outputs within ATTN_ATOL; ptxas's
+             registers and spills, its shared memory per block and how many
+             clusters of 12 blocks (one per head) the card holds printed.
   9. int8    the same ViT-B/16 through ``Predictor(quant="int8")``, its
              softmax shifts calibrated on 8 boards; ``predict_array`` on
              --boards boards must launch, per batch, the row quant once, the
@@ -54,7 +61,11 @@ Phases, one line each; any failure exits non-zero before the last line:
              (256,257,2304) and (64,257,2304) with 12 heads and (3,17,96) with
              1 head, bf16: dq, dk and dv each within K3_ATOL, a planted fault
              (dK from the unscaled dS) outside it, two launches bit-identical;
-             the same at N = 17, 64, 65, 257, 264 with head dims 16, 32, 64;
+             the same at N = 17, 64, 65, 257, 264 with head dims 16, 32, 64,
+             and past 288 tokens, where the long route
+             (``attention_bwd_long.cu``) takes the call, at N = 289 and 577
+             with those head dims and at (64, 577, 2304), whose time goes in
+             the kernels line;
              the products it executes and ptxas's registers and its shared
              memory per block printed;
              ``scaled_dot_product_attention`` forward and backward timed on
@@ -100,7 +111,9 @@ Phases, one line each; any failure exits non-zero before the last line:
              variant vs ``variant_plain`` at (256, 257, 2304) on randn values
              within its stated tolerance, ``bb=2`` bit-identical to ``bb=1``.
  17. report  the kernels JSON line (every kernel with its bound and, where
-             one PyTorch call computes the same function, that call's time),
+             one PyTorch call computes the same function, that call's time;
+             every kernel but K3's long route, which no 257-token path
+             takes, must have been launched by a main path),
              the nvidia-smi line, then {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
@@ -173,6 +186,8 @@ BLOCK_SCALE_RTOL = 2e-2
 # scores, differences and exponentials to bf16, so a last-bit difference in a
 # sum becomes a bf16 step of p
 VARIANT_ATOL = {"bf16s": 4e-2}
+# kernels of the kernels line that no main path launches
+OFF_PATH = ("fused_qkv_attention_bwd_long",)
 BATCH = 256
 SIZE = 256
 TRAIN_BATCH = 64
@@ -342,28 +357,35 @@ def main() -> int:
         "chess_vision_tpu/ops/preprocess.py:43", err, ms, plain_ms,
         nbytes=3 * u8.numel(), ops=2 * u8.numel(), op_type="f32")
 
-    # 4. K2
-    for B, N, H, Dh in ((BATCH, SIZE // 16 * SIZE // 16 + 1, 12, 64),
-                        (3, 17, 1, 32)):
-        qkv = torch.randn((B, N, 3 * H * Dh), device=dev,
+    # 4. K2: the path's shape, then the ragged edges and long sequences
+    N = SIZE // 16 * SIZE // 16 + 1
+    odd = [(2, n, 2, Dh) for n in (17, 64, 65, 264, 577, 1025)
+           for Dh in (16, 32, 64)]
+    for B, n, H, Dh in ((BATCH, N, 12, 64), (3, 17, 1, 32), *odd):
+        qkv = torch.randn((B, n, 3 * H * Dh), device=dev,
                           generator=gen).to(torch.bfloat16)
         out_k = attn_ops.fused_qkv_attention(qkv, H)
         out_p = attn_ops.reference_attention(qkv, H)
         torch.cuda.synchronize()
         err = (out_k.float() - out_p.float()).abs().max().item()
         finite = bool(torch.isfinite(out_k).all())
-        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention(qkv, H), 20)
-        plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, H), 5)
-        print(f"[4 K2] attention {tuple(qkv.shape)} H={H}: max |diff| {err}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         require(finite and err <= ATTN_ATOL,
                 f"K2 at {tuple(qkv.shape)}: max |diff| {err}, finite {finite}")
-        if B == BATCH:
-            kernels["fused_qkv_attention"] = kernel_entry(
-                "fused_qkv_attention", "attention.cu",
-                "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
-                nbytes=2 * qkv.numel() * 4 // 3, ops=4 * B * H * N * N * Dh,
-                op_type="bf16")
+        if B != BATCH:
+            print(f"  [4 K2] attention {tuple(qkv.shape)} H={H}: max |diff| "
+                  f"{err}", flush=True)
+            continue
+        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention(qkv, H), 20)
+        plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, H), 5)
+        kernels["fused_qkv_attention"] = kernel_entry(
+            "fused_qkv_attention", "attention.cu",
+            "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+            nbytes=2 * qkv.numel() * 4 // 3, ops=4 * B * H * n * n * Dh,
+            op_type="bf16")
+        print(f"[4 K2] attention {tuple(qkv.shape)} H={H}: max |diff| {err}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{kernels['fused_qkv_attention']['bound_ms']:.4f} ms; "
+              f"{flash_work('attention_fwd_kernel', n, Dh)}", flush=True)
         del qkv, out_k, out_p
     del u8
 
@@ -458,7 +480,10 @@ def main() -> int:
     variant_sweep_phase(args, dev, kernels)
 
     # 17. report
-    idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
+    # the long route of K3 takes more than 288 tokens: no main path (257
+    # tokens) runs it, so its entry keeps launches 0; phase 10 checks it
+    idle = [k["name"] for k in kernels.values()
+            if k["launches"] < 1 and k["name"] not in OFF_PATH]
     require(not idle, f"kernels that no path launched: {idle}")
     print(f"[17 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
@@ -502,6 +527,7 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
     version on the same inputs, timed with CUDA events."""
     import torch
 
+    from chess_vision_tpu_torch.ops import _build
     from chess_vision_tpu_torch.ops import attention as attn_ops
     from chess_vision_tpu_torch.ops import int8_matmul as mm
     from chess_vision_tpu_torch.ops import rowquant as rq
@@ -636,7 +662,8 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
     # 8. quantizing attention
     N = SIZE // 16 * SIZE // 16 + 1
     for B, n, H, shift in ((BATCH, N, 12, None), (BATCH, N, 12, "fixed"),
-                           (3, 17, 2, "fixed")):
+                           (3, 17, 2, "fixed"), (2, 65, 12, None),
+                           (2, 65, 12, "fixed")):
         qkv = torch.randn((B, n, 3 * H * 64), device=dev,
                           generator=gen).to(torch.bfloat16)
         if shift == "fixed":  # as calibrate_attn_shifts sets it
@@ -663,6 +690,10 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
                 nbytes=2 * qkv.numel() + B * n * H * 64 + 4 * B * n,
                 ops=4 * B * H * n * n * 64, op_type="bf16")
         del qkv, oq, os_, rq_, rs
+    lib = _build.library()
+    print(f"  [8 K4] {flash_work('attention_quant_kernel', N, 64, 2 * 96 * 4)}; "
+          f"clusters of 12 blocks the card holds at once: "
+          f"{lib.cvt_attention_quant_max_clusters(12, 64)}", flush=True)
 
 
 def operands_at(dev, gen, M: int, K: int, O: int) -> tuple:
@@ -1400,9 +1431,12 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     N = SIZE // 16 * SIZE // 16 + 1
-    odd = [(2, n, 2, Dh) for n in (17, 64, 65, 257, 264) for Dh in (16, 32, 64)]
+    # 289 and 577 tokens (a 384 px ViT) take the long route
+    odd = [(2, n, 2, Dh) for n in (17, 64, 65, 257, 264, 289, 577)
+           for Dh in (16, 32, 64)]
+    long_n = (384 // 16) ** 2 + 1
     for B, n, H, Dh in ((BATCH, N, 12, 64), (TRAIN_BATCH, N, 12, 64),
-                        (3, 17, 1, 32), *odd):
+                        (3, 17, 1, 32), *odd, (TRAIN_BATCH, long_n, 12, 64)):
         D = H * Dh
         qkv = torch.randn((B, n, 3 * D), device=dev, generator=gen).bfloat16()
         g = torch.randn((B, n, D), device=dev, generator=gen).bfloat16()
@@ -1422,10 +1456,12 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
         ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 20)
         plain_ms = cuda_ms(
             lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
+        route = attn_ops.bwd_route(n)
+        work = k3_work(n, Dh) if route == "short" else "the two-kernel long route"
         print(f"[10 K3] attention backward {tuple(qkv.shape)} H={H}: max |diff| "
               f"{errs} (atol {K3_ATOL}), planted unscaled dK {planted}, two "
               f"launches bit-identical {same}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; {k3_work(n, Dh)}", flush=True)
+              f"{plain_ms:.4f} ms; {work}", flush=True)
         require(finite and max(errs.values()) <= K3_ATOL,
                 f"K3 at {tuple(qkv.shape)}: {errs}, finite {finite}")
         require(planted > K3_ATOL, f"the planted fault passes: {planted}")
@@ -1435,10 +1471,14 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
             print(f"[10 K3] scaled_dot_product_attention on the same values: "
                   f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms",
                   flush=True)
-        if B == BATCH:
-            kernels["fused_qkv_attention"]["library_ms"] = fwd_ms
-            kernels["fused_qkv_attention_bwd"] = kernel_entry(
-                "fused_qkv_attention_bwd", "attention_bwd.cu",
+        if B == BATCH or n == long_n:
+            if B == BATCH:
+                kernels["fused_qkv_attention"]["library_ms"] = fwd_ms
+            name = ("fused_qkv_attention_bwd" if route == "short"
+                    else "fused_qkv_attention_bwd_long")
+            kernels[name] = kernel_entry(
+                name, "attention_bwd.cu" if route == "short"
+                else "attention_bwd_long.cu",
                 "chess_vision_tpu/ops/attention.py:623", max(errs.values()),
                 ms, plain_ms, nbytes=2 * (2 * qkv.numel() + g.numel()),
                 ops=10 * B * H * n * n * Dh, op_type="bf16", library_ms=bwd_ms)
@@ -1466,6 +1506,37 @@ def k3_work(n: int, head_dim: int) -> str:
     return (f"7 products on {padded} x {padded}: {done / 1e6:.2f} MFLOP per head "
             f"for {needed / 1e6:.2f} needed ({done / needed:.2f}x); {regs}, "
             f"{smem} bytes of shared memory per block")
+
+
+def ptxas_counts(kernel: str, head_dim: int) -> str:
+    """ptxas's registers and spills of one instantiation of a kernel, from
+    this process's build (empty when an up-to-date library was reused)."""
+    import re
+
+    from chess_vision_tpu_torch.ops import _build
+
+    found = re.search(
+        rf"Compiling entry function '[^']*{kernel}ILi{head_dim}E[^']*'.*?"
+        rf"(\d+) bytes spill stores.*?Used (\d+) registers", _build.build_log,
+        re.S)
+    if not found:
+        return "registers not in this build's log"
+    return f"{found.group(2)} registers, {found.group(1)} bytes spilled"
+
+
+def flash_work(kernel: str, n: int, head_dim: int, extra_smem: int = 0) -> str:
+    """What the forward loop (csrc/attention_loop.cuh) executes at n tokens:
+    16-row and 16-key edges, row chunks of 3 warps (96 rows), a 2-stage K/V
+    ring; ptxas's counts and the block's shared memory (the ring and the Q
+    rows, plus ``extra_smem`` bytes of the kernel's own)."""
+    padded = -(-n // 16) * 16
+    blocks = -(-n // 16)
+    chunks = -(-blocks // 6)
+    smem = 2 * (2 * 2 * 64 + 96) * (head_dim + 8) + extra_smem
+    return (f"{padded} x {padded} scores per head ({padded * padded / n / n:.2f}x"
+            f" the needed), {chunks} row chunks per head; "
+            f"{ptxas_counts(kernel, head_dim)}, {smem} bytes of shared memory "
+            f"per block")
 
 
 class MemoryCorpus:

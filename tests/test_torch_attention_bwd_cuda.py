@@ -1,4 +1,5 @@
-"""The attention backward kernel (csrc/attention_bwd.cu) against its plain
+"""The attention backward kernels (csrc/attention_bwd.cu, and above
+BWD_MAX_TOKENS tokens csrc/attention_bwd_long.cu) against their plain
 PyTorch version on the card. Skips without a CUDA device. On a GPU machine
 without JAX, run without the JAX test configuration:
 
@@ -35,8 +36,10 @@ def _inputs(B, N, H, Dh, device, seed=0):
 
 
 # the ragged edges of the kernel's 16-row blocks and 32-key steps: N = 17, 64,
-# 65, 257, 264 (and the largest it takes) with each head dim
-ODD = [(2, N, 2, Dh) for N in (17, 64, 65, 257, 264, attn.BWD_MAX_TOKENS)
+# 65, 257, 264 (and the largest it takes) with each head dim; past that the
+# long route's 64-row tiles at N = 289 and 577 (a 384 px ViT)
+ODD = [(2, N, 2, Dh) for N in (17, 64, 65, 257, 264, attn.BWD_MAX_TOKENS,
+                               attn.BWD_MAX_TOKENS + 1, 577)
        for Dh in (16, 32, 64)]
 
 
@@ -94,7 +97,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         attn.fused_qkv_attention_bwd(qkv, g.cpu(), 2)
     empty = attn.fused_qkv_attention_bwd(qkv[:0], g[:0], 2)
     assert empty.shape == (0, 17, 96)
-    # a head's operands stay in shared memory: at most BWD_MAX_TOKENS tokens
+    # past BWD_MAX_TOKENS tokens the long route takes the call, counted as such
     long_qkv, long_g = _inputs(1, attn.BWD_MAX_TOKENS + 1, 1, 16, cuda)
-    with pytest.raises(ValueError, match="tokens"):
-        attn.fused_qkv_attention_bwd(long_qkv, long_g, 1)
+    before = attn.BWD_LONG_LAUNCHES
+    out = attn.fused_qkv_attention_bwd(long_qkv, long_g, 1)
+    assert attn.BWD_LONG_LAUNCHES == before + 1
+    torch.testing.assert_close(
+        out.float(), attn.reference_attention_bwd(long_qkv, long_g, 1).float(),
+        atol=ATOL, rtol=0)

@@ -144,7 +144,7 @@ def test_epilogue_gelu_equals_the_scalar_gelu(cuda, gelu):
 @pytest.mark.parametrize("calibrated", [False, True])
 def test_attention_quant_kernel_matches_plain(cuda, calibrated):
     for B, N, H, Dh in [(2, 257, 12, 64), (3, 17, 1, 32), (1, 64, 4, 16),
-                        (2, 300, 2, 64)]:
+                        (2, 300, 2, 64), (2, 65, 12, 64), (1, 40, 16, 16)]:
         qkv = torch.from_numpy(
             np.random.default_rng(0).normal(size=(B, N, 3 * H * Dh))
             .astype(np.float32)).to(cuda, torch.bfloat16)
@@ -186,3 +186,6 @@ def test_int8_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         attn.fused_qkv_attention_quant(
             torch.zeros((1, 5, 3 * 2 * 48), device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="heads"):  # one cluster holds at most 16
+        attn.fused_qkv_attention_quant(
+            torch.zeros((1, 5, 3 * 17 * 16), device=cuda, dtype=torch.bfloat16), 17)

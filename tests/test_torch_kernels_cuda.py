@@ -65,7 +65,8 @@ def test_preprocess_kernel_unaligned_view(cuda):
 
 @pytest.mark.parametrize("B,N,H,Dh", [(2, 257, 12, 64), (3, 17, 1, 32),
                                       (1, 64, 4, 16), (2, 300, 2, 64),
-                                      (2, 5, 3, 64)])
+                                      (2, 5, 3, 64), (2, 577, 2, 64),
+                                      (1, 1025, 2, 16)])
 def test_attention_kernel_matches_plain(cuda, B, N, H, Dh):
     qkv = torch.from_numpy(
         np.random.default_rng(0).normal(size=(B, N, 3 * H * Dh)).astype(np.float32)
