@@ -26,7 +26,10 @@
 //    leaves every bit as it was.
 //  - Rows past the image's rows load zeros and are not stored; keys past
 //    n_keys are zero-filled, masked to -inf, and give p = 0.
-// The f32 accumulators come back to the caller, which writes them.
+// The f32 accumulators come back to the caller, which writes them. The loop
+// runs on a block of 32 W threads, or on one group of 32 W threads of a
+// larger block (the whole-block kernel, fused_block.cu, runs four), which
+// then names its thread index within the group and a barrier of its own.
 
 #pragma once
 
@@ -37,11 +40,23 @@
 #include <cstdint>
 
 #include "attention_quant.cuh"  // mma_bf16_16816, round_pair
+#include "rowquant.cuh"         // quant1
 
 namespace cvt {
 
 constexpr int kFlashKTile = 64;  // keys per step (the online max's rescaling step)
 constexpr int kFlashPad = 8;     // bf16 padding per shared-memory row
+
+// Barrier of the 32 W threads that run the loop: the block's (bar 0), or
+// named barrier `bar` of their group.
+template <int W>
+__device__ __forceinline__ void flash_sync(int bar) {
+  if (bar == 0) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(32 * W) : "memory");
+  }
+}
 
 // Bf16 elements from the start of shared memory to the chunk's Q rows, for
 // a ring of `Stages` K/V tiles.
@@ -287,18 +302,19 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
 // m the fixed shift when `fixed`, else the running max. On return o holds
 // P V and l the full row sums of warp row block j (j = 0, 1: blocks w and
 // w + W of the chunk) for rows g (index 0) and g + 8 (index 1); has[j] says
-// whether the block lies in the chunk.
+// whether the block lies in the chunk. tid: the thread's index among the 32 W
+// that run the loop; bar: their barrier (flash_sync).
 template <int Dh, int W, int Stages, bool kQuant>
 __device__ __forceinline__ void flash_attention_rows(
     const __nv_bfloat16* __restrict__ q_base, long long row_stride, int d_model, int row0,
     int cblocks, int n, int n_keys, float scale, float fixed_shift, bool fixed,
-    __nv_bfloat16* smem, float (&o)[2][Dh / 8][4], float (&l)[2][2], bool (&has)[2]) {
+    __nv_bfloat16* smem, float (&o)[2][Dh / 8][4], float (&l)[2][2], bool (&has)[2], int tid,
+    int bar) {
   static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
   constexpr int kLd = Dh + kFlashPad;
   constexpr int kChunks = Dh / 8;
   constexpr int kStages = Stages;
   static_assert(kStages >= 2, "the ring needs two stages");
-  const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   __nv_bfloat16* qs = smem + flash_q_offset<Dh, Stages>();
@@ -337,7 +353,7 @@ __device__ __forceinline__ void flash_attention_rows(
 
   for (int tile = 0; tile < ntiles; ++tile) {
     flash_wait<kStages - 2>();
-    __syncthreads();  // tile `tile` has landed; every warp is done with tile - 1
+    flash_sync<W>(bar);  // tile `tile` has landed; every warp is done with tile - 1
     if (tile == 0) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -387,6 +403,78 @@ __device__ __forceinline__ void flash_attention_rows(
       } else {
         l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 1);
         l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 2);
+      }
+    }
+  }
+}
+
+// K4's epilogue, first half: o / max(rowsum, 1e-30) in place, and the max
+// |o| over the head's Dh columns of each of the warp's rows into part[row]
+// (row = its index in the chunk).
+template <int Dh, int W>
+__device__ __forceinline__ void flash_quant_normalize(float (&o)[2][Dh / 8][4],
+                                                      const float (&l)[2][2],
+                                                      const bool (&has)[2], float* part,
+                                                      int warp, int lane) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!has[j]) continue;
+    const int rb = warp + j * W;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float den = fmaxf(l[j][i], 1e-30f);  // rowsum floor: an underflowed row -> 0
+      float mx = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < Dh / 8; ++nb) {
+        o[j][nb][2 * i] = __fdiv_rn(o[j][nb][2 * i], den);
+        o[j][nb][2 * i + 1] = __fdiv_rn(o[j][nb][2 * i + 1], den);
+        mx = fmaxf(mx, fmaxf(fabsf(o[j][nb][2 * i]), fabsf(o[j][nb][2 * i + 1])));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (t == 0) part[rb * 16 + g + 8 * i] = mx;
+    }
+  }
+}
+
+// K4's epilogue, second half: the head's codes of the warp's rows, with
+// amax_s[row] the row's max |o| over all heads (floored at 1e-8), staged in
+// the warp's own rows of `stage` (the chunk's Q tile) and stored 16 bytes a
+// lane to q_out (this head's first column of the chunk's image; rows d_model
+// bytes apart), rows past n left alone.
+template <int Dh, int W>
+__device__ __forceinline__ void flash_quant_store(const float (&o)[2][Dh / 8][4],
+                                                  const bool (&has)[2], const float* amax_s,
+                                                  int8_t* stage, int8_t* q_out, int d_model,
+                                                  int row0, int n, int warp, int lane) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!has[j]) continue;
+    const int rb = warp + j * W;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = rb * 16 + g + 8 * i;
+      const float inv = __fdiv_rn(127.f, amax_s[row]);
+#pragma unroll
+      for (int nb = 0; nb < Dh / 8; ++nb) {
+        const uint32_t lo = (uint8_t)quant1(o[j][nb][2 * i], inv);
+        const uint32_t hi = (uint8_t)quant1(o[j][nb][2 * i + 1], inv);
+        *reinterpret_cast<uint16_t*>(stage + row * Dh + nb * 8 + t * 2) =
+            (uint16_t)(lo | (hi << 8));
+      }
+    }
+    __syncwarp();
+    constexpr int kChunks = Dh / 16;  // 16-byte chunks of a row's codes
+    for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+      const int row = rb * 16 + idx / kChunks;
+      const int c = (idx % kChunks) * 16;
+      if (row0 + row < n) {
+        *reinterpret_cast<uint4*>(q_out + (long long)(row0 + row) * d_model + c) =
+            *reinterpret_cast<const uint4*>(stage + row * Dh + c);
       }
     }
   }

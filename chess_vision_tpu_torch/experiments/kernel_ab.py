@@ -3,10 +3,11 @@ revision's, in turns on one card, and compare their outputs.
 
 Two revisions compare only inside one process on one card (rates move by
 ~10% between machines), so this builds the other revision's
-``attention.cu``, ``attention_quant.cu``, ``attention_bwd.cu`` and
-``int8_matmul.cu`` (with the headers beside them) into a second library in a
-temporary directory and calls both libraries through the same C interface on
-the same inputs, at the ViT-B/16 shapes of the serving and training paths:
+``attention.cu``, ``attention_quant.cu``, ``attention_bwd.cu``,
+``int8_matmul.cu`` and ``fused_block.cu`` (with the headers beside them) into
+a second library in a temporary directory and calls both libraries through
+the same C interface on the same inputs, at the ViT-B/16 shapes of the
+serving and training paths:
 
   K2   attention forward, (batch, 257, 2304) and (64, 257, 2304), 12 heads:
        ms in the order other, this, this, other; whether the two outputs are
@@ -24,6 +25,11 @@ the same inputs, at the ViT-B/16 shapes of the serving and training paths:
        the same order, and whether every output equals the other's bit for bit
        (int32 sums are exact in any order, so a main loop may change and the
        bits may not)
+  K14  the whole block at (batch, 257, 768), 12 heads, MLP 3072, random int8
+       weights, with the exact row max and with a fixed shift: ms in the same
+       order, beside this checkout's chain of split kernels
+       (``quant.block_int8``) timed after them, and whether x_new, yq and ys
+       equal the other's bit for bit
 
 Usage, from the repository root on a machine with a Hopper GPU:
   git archive REV chess_vision_tpu_torch/csrc | tar -x -C DIR
@@ -50,6 +56,9 @@ import torch
 
 from chess_vision_tpu_torch.ops import _build
 from chess_vision_tpu_torch.ops import attention as attn
+from chess_vision_tpu_torch.ops import int8_matmul as mm
+from chess_vision_tpu_torch.ops import quant
+from chess_vision_tpu_torch.ops import rowquant as rq
 
 _P = ctypes.c_void_p
 _ORDER = ("other", "this", "this", "other")
@@ -68,16 +77,25 @@ def _param_count(source: str, name: str) -> int:
 
 
 def build_other(csrc: str, out_dir: str) -> tuple[ctypes.CDLL, dict]:
-    """The other revision's four sources as one library; which older
-    interfaces it has (``k3_stats``: K3 takes the statistics scratch;
-    ``k4_scratch``: K4 and K5 take the f32 scratch)."""
+    """The other revision's five sources as one library, one nvcc process
+    each, all started together; which older interfaces it has
+    (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
+    take the f32 scratch)."""
     lib_path = os.path.join(out_dir, "libother.so")
     names = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
-             "int8_matmul.cu")
+             "int8_matmul.cu", "fused_block.cu")
     sources = {name: os.path.join(csrc, name) for name in names}
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    lib_path, *sources.values()], check=True,
-                   capture_output=True, text=True)
+    nvcc = _build.find_nvcc()
+    objs = [os.path.join(out_dir, name + ".o") for name in names]
+    steps = _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj, src]
+                             for obj, src in zip(objs, sources.values())])
+    if all(step.returncode == 0 for step in steps):
+        steps += _build._run_all([[nvcc, *_build._ARCH, "-shared", "-o",
+                                   lib_path, *objs]])
+    for step in steps:
+        if step.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(step.args)}\n"
+                               f"{step.stdout}\n{step.stderr}")
     old = {"k3_stats": _param_count(sources["attention_bwd.cu"],
                                     "cvt_attention_bwd") == 10,
            "k4_scratch": _param_count(sources["attention_quant.cu"],
@@ -91,6 +109,9 @@ def build_other(csrc: str, out_dir: str) -> tuple[ctypes.CDLL, dict]:
     extra = [_P] if old["k4_scratch"] else []
     for name in ("cvt_attention_quant", "cvt_attention_quant_flat"):
         getattr(lib, name).argtypes = [*extra, *_build._SIGNATURES[name]]
+    for name in ("cvt_fused_block", "cvt_fused_block_scratch_bytes"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = _build._RESTYPES.get(name, ctypes.c_int)
     return lib, old
 
 
@@ -238,6 +259,66 @@ def gemm_ab(libs: dict, case: tuple, rows: int, gen) -> dict:
             "bit_identical": same}
 
 
+def k14_ab(libs: dict, batch: int, fixed: bool, gen) -> dict:
+    """The whole block on the same values in both libraries, and this
+    checkout's split chain on them."""
+    n, heads, dh, o1 = 257, 12, 64, 3072
+    D = heads * dh
+    dev = gen.device
+
+    def dense(k, o):
+        return {"wq": torch.randint(-127, 128, (o, k), device=dev, generator=gen,
+                                    dtype=torch.int8),
+                "scale": torch.rand(o, device=dev, generator=gen) * 4e-4 + 2e-4,
+                "bias": torch.randn(o, device=dev, generator=gen) * 0.1}
+
+    def norm():
+        return {"scale": torch.rand(D, device=dev, generator=gen) + 0.5,
+                "bias": torch.randn(D, device=dev, generator=gen) * 0.1}
+
+    q = {"norm1": norm(), "norm2": norm(), "qkv": dense(D, 3 * D),
+         "proj": dense(D, D), "fc1": dense(D, o1), "fc2": dense(o1, D)}
+    nxt = norm()
+    x = (torch.randn((batch, n, D), device=dev, generator=gen) * 0.5).bfloat16()
+    xq, xs = rq.fused_rowquant(x, "ln", q["norm1"]["scale"], q["norm1"]["bias"])
+    shift = 0.0
+    if fixed:  # as calibrate_attn_shifts sets it, from this block's own qkv
+        qkv = mm.int8_matmul_scale_bias(xq, xs, q["qkv"]["wq"], q["qkv"]["scale"],
+                                        q["qkv"]["bias"])
+        qh, kh = qkv[:8].float().reshape(8, n, 3, heads, dh)[:, :, :2].unbind(2)
+        shift = torch.einsum("bqhd,bkhd->bhqk", qh, kh).max().item() / 8 - 40
+        del qkv, qh, kh
+    operands = [t.data_ptr() for t in (
+        q["qkv"]["wq"], q["qkv"]["scale"], q["qkv"]["bias"], q["proj"]["wq"],
+        q["proj"]["scale"], q["proj"]["bias"], q["norm2"]["scale"],
+        q["norm2"]["bias"], q["fc1"]["wq"], q["fc1"]["scale"], q["fc1"]["bias"],
+        q["fc2"]["wq"], q["fc2"]["scale"], q["fc2"]["bias"], nxt["scale"],
+        nxt["bias"])]
+    outs = {name: (torch.empty_like(x), torch.empty_like(xq),
+                   torch.empty_like(xs)) for name in libs}
+    scratch = {name: torch.empty(
+        lib.cvt_fused_block_scratch_bytes(batch * n, D, o1), device=dev,
+        dtype=torch.uint8) for name, lib in libs.items()}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name):
+        xn, yq, ys = outs[name]
+        rc = libs[name].cvt_fused_block(
+            xq.data_ptr(), xs.data_ptr(), x.data_ptr(), *operands,
+            scratch[name].data_ptr(), xn.data_ptr(), yq.data_ptr(),
+            ys.data_ptr(), batch, n, heads, dh, o1, dh ** -0.5, shift,
+            int(fixed), 1, 1e-6, None, stream)  # gelu 1: sigmoid
+        _build.check(rc, f"{name}'s whole-block kernel")
+
+    times = in_turns({name: (lambda name=name: run(name)) for name in libs})
+    split = [cuda_ms(lambda: quant.block_int8(x, xq, xs, q, nxt, heads,
+                                              shift if fixed else None))
+             for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"]))
+    return {"shape": [batch, n, D], "fixed_shift": fixed, "ms": times,
+            "split_chain_ms": split, "bit_identical": same}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other-csrc", required=True,
@@ -253,7 +334,7 @@ def main() -> int:
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     report = {"card": smi, "order": list(_ORDER), "k2": [], "k4": [], "k3": [],
-              "gemm": []}
+              "gemm": [], "k14": []}
     with tempfile.TemporaryDirectory() as tmp:
         other, old = build_other(args.other_csrc, tmp)
         libs = {"other": other, "this": _build.library()}
@@ -270,6 +351,9 @@ def main() -> int:
         for case in _GEMMS:
             report["gemm"].append(gemm_ab(libs, case, args.batch * 257, gen))
             print("GEMM", json.dumps(report["gemm"][-1]), flush=True)
+        for fixed in (False, True):
+            report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
+            print("K14", json.dumps(report["k14"][-1]), flush=True)
     print(json.dumps(report))
     return 0
 

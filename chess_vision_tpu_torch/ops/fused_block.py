@@ -15,8 +15,10 @@ already quantized (``xq``, ``xs``), and the bf16 residual stream ``res``:
 
 operation for operation the chain of the split ops (``quant.block_int8``), as
 the JAX kernel is written against ``_block_tpu``. On a CUDA tensor
-``fused_vit_block`` is one cooperative launch of ``csrc/fused_block.cu``; on
-a CPU tensor it runs ``fused_vit_block_plain``, the same steps in PyTorch.
+``fused_vit_block`` is one cooperative launch of ``csrc/fused_block.cu``,
+whose stages run the split kernels' device code (the ``wgmma`` GEMM of
+``csrc/int8_gemm.cuh``, the attention loop of ``csrc/attention_loop.cuh``);
+on a CPU tensor it runs ``fused_vit_block_plain``, the same steps in PyTorch.
 
 The JAX kernel requires a power-of-two softmax scale and a token count of
 128 k + 1..2 (TPU lane rules) and ``quant.py`` falls back to the block layout
@@ -83,9 +85,10 @@ def _weight(p: dict, O: int, K: int, dev, what: str):
             rq.f32_vector(p["bias"], O, dev, f"{what} bias"))
 
 
-STAGES = ("qkv gemm", "attention", "attention row quant", "proj gemm",
-          "ln2 row quant", "fc1 gemm", "fc1 row quant", "fc2 gemm",
-          "next ln1 row quant")
+# The kernel's stages in order (csrc/fused_block.cu); stage_ns has one slot
+# more, the start.
+STAGES = ("qkv gemm", "attention + row quant", "proj gemm", "ln2 row quant",
+          "fc1 gemm + gelu + row quant", "fc2 gemm", "next ln1 row quant")
 
 
 def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
@@ -112,6 +115,12 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
     if gelu not in int8_ops.GELUS:
         raise ValueError(f"unknown gelu {gelu!r}; expected one of "
                          f"{list(int8_ops.GELUS)}")
+    if stage_ns is not None and (
+            stage_ns.dtype != torch.int64 or stage_ns.device != xq.device
+            or stage_ns.shape != (len(STAGES) + 1,)
+            or not stage_ns.is_contiguous()):
+        raise ValueError(f"stage_ns must be int64 ({len(STAGES) + 1},) on "
+                         f"{xq.device}")
     if xq.device.type == "cpu":
         return fused_vit_block_plain(xq, xs, res, q, next_ln, num_heads,
                                      softmax_shift, eps, gelu)
@@ -147,11 +156,6 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
                 *_weight(q["fc2"], D, O1, dev, "fc2"),
                 rq.f32_vector(next_ln["scale"], D, dev, "next norm1 scale"),
                 rq.f32_vector(next_ln["bias"], D, dev, "next norm1 bias")]
-    if stage_ns is not None and (
-            stage_ns.dtype != torch.int64 or stage_ns.device != dev
-            or stage_ns.shape != (len(STAGES) + 1,)
-            or not stage_ns.is_contiguous()):
-        raise ValueError(f"stage_ns must be int64 ({len(STAGES) + 1},) on {dev}")
     x_new = torch.empty_like(res)
     yq = torch.empty_like(xq)
     ys = torch.empty_like(xs)

@@ -56,7 +56,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              the path's own activations; int8-vs-bf16 FEN agreement
              printed; boards/s of int8 kernel, int8 plain and bf16 kernel
              paths at batch 256. ``--profile-int8 N`` also prints a
-             ``torch.profiler`` table of N boards through this Predictor.
+             ``torch.profiler`` table of N boards through this Predictor
+             (and, after phase 15, through the flat and fused ones).
  10. K3      attention backward kernel vs ``reference_attention_bwd`` at
              (256,257,2304) and (64,257,2304) with 12 heads and (3,17,96) with
              1 head, bf16: dq, dk and dv each within K3_ATOL, a planted fault
@@ -89,13 +90,15 @@ Phases, one line each; any failure exits non-zero before the last line:
              exact row max and with a fixed shift, and at a small ragged
              shape: real rows within ATTN_ATOL; real rows equal K4's on the
              unpadded values bit for bit; padded keys filled with large
-             values change no real row.
+             values change no real row. Then K11-K13, the flat layout's
+             GEMMs, at its own 73,728 rows, checked and timed as in 7.
  13. K14     the whole-block kernel on block 0 of phase 9's pack at
              (256, 257, 768) and on a small shape: bit-identical to the chain
              of split kernels it replaces and to a second launch; against
              ``fused_vit_block_plain`` within BLOCK_BOUNDS, a planted fault
              (the residual not rounded before the LN) outside them; its time
-             beside the split chain's, taken in turns.
+             beside the split chain's, taken in turns; its stages' times by
+             the card's clock (``fused_block.STAGES``).
  14. flat    the ViT-B/16 of phase 9 through ``Predictor(quant="int8")``
              under CHESS_VISION_INT8_LAYOUT=flat: per batch the row quant
              once, the GEMM 12 + 23 + 12 + 1 times, K5 12 times, K4 never;
@@ -297,8 +300,8 @@ def main() -> int:
     parser.add_argument("--profile-train", type=int, default=0,
                         help="also profile this many warm train steps")
     parser.add_argument("--profile-int8", type=int, default=0,
-                        help="also profile this many boards through the int8 "
-                             "block layout")
+                        help="also profile this many boards through each "
+                             "int8 layout")
     args = parser.parse_args()
 
     import torch
@@ -580,44 +583,10 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
              ("res", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:297"))
     for epi, K, O, replaces in cases:
         ops = operands(K, O)
-        res = torch.randn((M, O), device=dev, generator=gen).bfloat16()
-        g = torch.rand(O, device=dev, generator=gen) + 0.5
-        b = torch.randn(O, device=dev, generator=gen) * 0.1
-        kernel = getattr(mm, f"int8_matmul_{epi}")
-        plain = getattr(mm, f"int8_matmul_{epi}_plain")
-        extra = {"scale_bias": (), "res": (res,), "gelu_quant": ("sigmoid",),
-                 "res_ln_quant": (res, g, b)}[epi]
-        out, ref = kernel(*ops, *extra), plain(*ops, *extra)
-        torch.cuda.synchronize()
         what = f"[7 GEMM] {epi} ({M}, {K}) -> {O}"
-        if epi == "gelu_quant":
-            err = codes_check(what, *out, *ref)
-        elif epi == "res_ln_quant":
-            err = max(bf16_check(what + " x'", out[0], ref[0]),
-                      codes_check(what, *out[1:], *ref[1:]))
-        else:
-            err = bf16_check(what, out, ref)
-        ms = cuda_ms(lambda: kernel(*ops, *extra), 20)
-        plain_ms = cuda_ms(lambda: plain(*ops, *extra), 5)
-        tops = 2 * M * K * O / ms / 1e9
-        name = f"int8_matmul_{epi}"
-        # inputs: int8 x, its f32 row scales, the int8 weight, f32 column
-        # scales and bias; outputs and extra inputs by epilogue (bf16 out;
-        # int8 codes + row scales; the bf16 residual, and for res_ln_quant
-        # also the bf16 x' and the LN's gamma and beta)
-        nbytes = M * K + 4 * M + O * K + 8 * O + {
-            "scale_bias": 2 * M * O, "res": 4 * M * O,
-            "gelu_quant": M * O + 4 * M,
-            "res_ln_quant": 5 * M * O + 4 * M + 8 * O}[epi]
         # proj and fc2 share the res_ln_quant kernel: the entry keeps fc2's
-        entry = kernels[name] = kernel_entry(
-            name, "int8_matmul.cu", replaces, err, ms, plain_ms,
-            nbytes=nbytes, ops=2 * M * K * O, op_type="int8",
-            library_ms=int_mm_ms(ops[0], ops[2], what))
-        print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s, "
-              f"{tops * 1e12 / PEAK_OPS['int8']:.3f} of the int8 peak), plain "
-              f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']})", flush=True)
+        kernels[f"int8_matmul_{epi}"] = gemm_case(what, dev, gen, ops, epi,
+                                                  replaces)
         if epi == "gelu_quant":
             # what K8's epilogue costs: its two sweeps by GELU, beside the
             # same product with the bias epilogue (one sweep)
@@ -628,7 +597,7 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
             print(f"  {what}: ms by GELU "
                   f"{ {k: round(v, 4) for k, v in by_gelu.items()} }; the bias "
                   f"epilogue on the same operands {bias_ms:.4f} ms", flush=True)
-        del ops, res, out, ref
+        del ops
 
     # the main loop's ragged edges: rows, columns and depth that end inside
     # a tile, a stage or a 16-row group, with every epilogue and GELU
@@ -694,6 +663,57 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
     print(f"  [8 K4] {flash_work('attention_quant_kernel', N, 64, 2 * 96 * 4)}; "
           f"clusters of 12 blocks the card holds at once: "
           f"{lib.cvt_attention_quant_max_clusters(12, 64)}", flush=True)
+
+
+def gemm_case(what: str, dev, gen, ops, epi: str, replaces: str) -> dict:
+    """One int8 GEMM epilogue on the operands ``ops`` (``operands_at``)
+    against its plain version, as in phase 7; prints its time beside its
+    share of the int8 peak, its bound and ``torch._int_mm``'s time on the same
+    operands, and returns its kernels-line entry."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+
+    M, K = ops[0].shape
+    O = ops[2].shape[0]
+    res = torch.randn((M, O), device=dev, generator=gen).bfloat16()
+    g = torch.rand(O, device=dev, generator=gen) + 0.5
+    b = torch.randn(O, device=dev, generator=gen) * 0.1
+    kernel = getattr(mm, f"int8_matmul_{epi}")
+    plain = getattr(mm, f"int8_matmul_{epi}_plain")
+    extra = {"scale_bias": (), "res": (res,), "gelu_quant": ("sigmoid",),
+             "res_ln_quant": (res, g, b)}[epi]
+    out, ref = kernel(*ops, *extra), plain(*ops, *extra)
+    torch.cuda.synchronize()
+    if epi == "gelu_quant":
+        err = codes_check(what, *out, *ref)
+    elif epi == "res_ln_quant":
+        err = max(bf16_check(what + " x'", out[0], ref[0]),
+                  codes_check(what, *out[1:], *ref[1:]))
+    else:
+        err = bf16_check(what, out, ref)
+    del out, ref
+    ms = cuda_ms(lambda: kernel(*ops, *extra), 20)
+    plain_ms = cuda_ms(lambda: plain(*ops, *extra), 5)
+    tops = 2 * M * K * O / ms / 1e9
+    # inputs: int8 x, its f32 row scales, the int8 weight, f32 column
+    # scales and bias; outputs and extra inputs by epilogue (bf16 out;
+    # int8 codes + row scales; the bf16 residual, and for res_ln_quant
+    # also the bf16 x' and the LN's gamma and beta)
+    nbytes = M * K + 4 * M + O * K + 8 * O + {
+        "scale_bias": 2 * M * O, "res": 4 * M * O,
+        "gelu_quant": M * O + 4 * M,
+        "res_ln_quant": 5 * M * O + 4 * M + 8 * O}[epi]
+    entry = kernel_entry(
+        f"int8_matmul_{epi}", "int8_matmul.cu", replaces, err, ms, plain_ms,
+        nbytes=nbytes, ops=2 * M * K * O, op_type="int8",
+        library_ms=int_mm_ms(ops[0], ops[2], what))
+    print(f"{what}: kernel {ms:.4f} ms ({tops:.0f} TOP/s, "
+          f"{tops * 1e12 / PEAK_OPS['int8']:.3f} of the int8 peak), plain "
+          f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), torch._int_mm {entry['library_ms']} ms",
+          flush=True)
+    return entry
 
 
 def operands_at(dev, gen, M: int, K: int, O: int) -> tuple:
@@ -1047,15 +1067,15 @@ def int8_path_phase(args, cfg, boards, fens_bf16, predictor_bf16, kernels,
     if args.profile_int8:
         bench = np.concatenate(
             [boards] * math.ceil(args.profile_int8 / args.boards))
-        profile_int8_batches(predictor, bench[:args.profile_int8],
+        profile_int8_batches("[9 int8]", predictor, bench[:args.profile_int8],
                              BATCH / rates["int8 kernel"][-1] * 1e3)
     return {"predictor": predictor, "shifts": shifts, "fens": fens}
 
 
-def profile_int8_batches(predictor, bench, batch_ms: float) -> None:
-    """``torch.profiler`` over ``predict_array`` on the int8 block layout:
-    kernels by device time, and the device's idle share of an unprofiled batch
-    of ``batch_ms``."""
+def profile_int8_batches(tag: str, predictor, bench, batch_ms: float) -> None:
+    """``torch.profiler`` over ``predict_array`` of an int8 Predictor (any
+    layout): kernels by device time, and the device's idle share of an
+    unprofiled batch of ``batch_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1069,7 +1089,7 @@ def profile_int8_batches(predictor, bench, batch_ms: float) -> None:
     events = prof.key_averages()
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3 / batches
-    print(f"[9 int8] profile of {len(bench)} boards in {batches} batches: device "
+    print(f"{tag} profile of {len(bench)} boards in {batches} batches: device "
           f"{device_ms:.2f} ms per batch; a batch takes {batch_ms:.2f} ms "
           f"unprofiled (idle share {1 - device_ms / batch_ms:.3f}) and "
           f"{wall_ms:.1f} ms under the profiler", flush=True)
@@ -1098,7 +1118,9 @@ def layout_path_phase(number: int, layout: str, args, cfg, boards, int8: dict,
 
 
 def layout_bench(args, boards, predictors: dict, kind: str, smi: str) -> None:
-    """boards/s of the three int8 layouts' kernel paths, in turns."""
+    """boards/s of the three int8 layouts' kernel paths, in turns; with
+    ``--profile-int8 N``, then a profile of N boards through the flat and the
+    fused layout."""
     bench = np.concatenate([boards] * math.ceil(args.bench_boards / args.boards))
     bench = bench[:args.bench_boards]
     rates = {name: [] for name in predictors}
@@ -1110,6 +1132,13 @@ def layout_bench(args, boards, predictors: dict, kind: str, smi: str) -> None:
     print(f"[15 fused] predict_array boards/s of the int8 layouts at batch "
           f"{BATCH} ({len(bench)} boards per run; in the order "
           f"{', '.join(order)}): {rates}; {kind}, {smi}", flush=True)
+    if args.profile_int8:
+        bench = np.concatenate(
+            [boards] * math.ceil(args.profile_int8 / args.boards))
+        for name in ("flat", "fused"):
+            profile_int8_batches(f"[15 {name}]", predictors[name],
+                                 bench[:args.profile_int8],
+                                 BATCH / rates[name][-1] * 1e3)
 
 
 def layout_kernel_phases(args, dev, int8: dict, kernels: dict) -> None:
@@ -1177,6 +1206,17 @@ def layout_kernel_phases(args, dev, int8: dict, kernels: dict) -> None:
         if B == BATCH and shift is not None:
             kernels["fused_qkv_attention_quant_flat"] = entry
         del qkv, flat, oq, os_, rq_, rs
+
+    # 12. K11-K13: the flat layout's GEMMs at its own rows (BATCH images of NP)
+    for epi, K, O, replaces in (
+            ("gelu_quant", 768, 3072, "chess_vision_tpu/ops/int8_matmul.py:395"),
+            ("res_ln_quant", 768, 768, "chess_vision_tpu/ops/int8_matmul.py:426"),
+            ("res_ln_quant", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:426"),
+            ("res", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:465")):
+        ops = operands_at(dev, gen, BATCH * NP, K, O)
+        gemm_case(f"[12 K11-K13] flat {epi} ({BATCH * NP}, {K}) -> {O}", dev, gen,
+                  ops, epi, replaces)
+        del ops
 
     # 13. K14: block 0 of the served model at the path's shape, and a small
     # block of random int8 weights
