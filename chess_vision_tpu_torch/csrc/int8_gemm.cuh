@@ -3,9 +3,11 @@
 // epilogues' names, the GELUs, and the wgmma main loop with its TMA ring and
 // epilogues, as the device functions wgmma_produce and wgmma_consume, which a
 // kernel's producer warpgroup and consumer warpgroups call once per product
-// (wgmma_product: both, for a kernel of one product). The numerics, the
-// design and the bound are in int8_matmul.cu's header; fused_block.cu's says
-// how it runs four products in one launch.
+// (wgmma_product: both, for a kernel of one product). The residual kernels
+// of int8_matmul.cu (K9 on a cluster, K10) run the same products of a tile
+// (tile_products) with their own epilogue. The numerics, the design and the
+// bound are in int8_matmul.cu's header; fused_block.cu's says how it runs
+// four products in one launch.
 
 #pragma once
 
@@ -55,6 +57,21 @@ constexpr int kSlices = kTileN / kSliceN;
 constexpr int kSliceLd = kSliceN + 8;  // staging row of int32, padded against bank conflicts
 constexpr int kSliceWords = 16 * kSliceLd;  // a warp's 16 rows of one slice
 constexpr uint32_t kSpinLimit = 1u << 24;  // a wait that never ends traps
+
+// Timing-only variants of the residual product (kWgRes), which
+// experiments/kernel_ab.py builds into a library of its own with
+// -DCVT_GEMM_PROBE=1 or 2 to see what bounds the main loop; the port's library
+// is never built with them. 1: the weight tile is loaded into each ring stage
+// once, by the block's first kRing steps, and never again (the products read
+// stale weights: no weight bytes from L2 after the first tile). 2: the
+// epilogue neither loads the residual nor stores x' (its arithmetic stays).
+// 1 and 2 send K9 and K10 to the two-launch route (int8_matmul.cu), whose
+// split kernel they time. 3 keeps K9 on its cluster route and skips the
+// LayerNorm's rows (its barriers stay): what the fold costs.
+#ifndef CVT_GEMM_PROBE
+#define CVT_GEMM_PROBE 0
+#endif
+constexpr int kProbe = CVT_GEMM_PROBE;
 
 enum WgEpilogue : int {
   kWgBias = 0,       // out = bf16(y)
@@ -258,6 +275,10 @@ __device__ __forceinline__ void load_residual(uint2 (&dst)[kSliceIters], const W
   const int col = c0 + (lane % kLanesPerRow) * 4;
 #pragma unroll
   for (int it = 0; it < kSliceIters; ++it) {
+    if (kProbe == 2) {
+      dst[it] = make_uint2(0u, 0u);
+      continue;
+    }
     const long long row = m0 + it * kRowsPerIter + lane / kLanesPerRow;
     // where the tile reaches past the matrix any valid address will do: the
     // value is not stored. volatile: the load is issued here, a slice ahead
@@ -282,15 +303,6 @@ __device__ __forceinline__ void tile_prologue(const WgArgs& p, long long m0, int
   }
   if (Epi == kWgRes) load_residual(res, p, m0, n0, lane);
   __syncwarp();
-}
-
-// clip(rint(x * inv), -127, 127) as the low byte of the result, the bits of
-// rowquant.cuh's quant1: clipping first changes nothing, and adding 1.5 * 2^23
-// rounds to an integer, ties to even, in the sum's low mantissa bits, without
-// the conversion instructions (a quarter of the arithmetic rate).
-__device__ __forceinline__ uint32_t quant1_byte(float x, float inv) {
-  const float q = fminf(fmaxf(__fmul_rn(x, inv), -127.f), 127.f);
-  return __float_as_uint(__fadd_rn(q, 12582912.f)) & 0xFFu;
 }
 
 // Slice sl (columns c0 .. c0 + 63) of the warp's accumulators through `slice`
@@ -381,7 +393,11 @@ __device__ __forceinline__ void tile_epilogue(const WgArgs& p, const int (&acc)[
 #pragma unroll
     for (int it = 0; it < kSliceIters; ++it) {
       const long long row = m0 + r0 + it * kRowsPerIter;
-      if (col_ok && row < p.m) *reinterpret_cast<uint2*>(p.out + row * p.o + col) = out[it];
+      // probe 2 stores only a value no tile holds (a NaN), so that the
+      // arithmetic stays
+      const bool keep = kProbe == 2 && Epi == kWgRes ? out[it].x == 0x7FC17FC1u
+                                                     : col_ok && row < p.m;
+      if (keep) *reinterpret_cast<uint2*>(p.out + row * p.o + col) = out[it];
     }
   }
 }
@@ -608,18 +624,56 @@ __device__ __forceinline__ void wgmma_produce(const CUtensorMap* map_a, const CU
         const uint32_t stage = step % kRing;
         const uint32_t round = (step / kRing) & 1u;
         mbar_wait(r.empty0 + 8 * stage, round ^ 1u);  // passes at once in round 0
-        mbar_expect_tx(r.full0 + 8 * stage, kRingStageBytes);
+        const bool load_b = kProbe != 1 || Epi != kWgRes || step < (uint32_t)kRing;
+        mbar_expect_tx(r.full0 + 8 * stage, load_b ? kRingStageBytes : kABytes);
         const uint32_t dst = r.ring + stage * kRingStageBytes;
         tma_load_2d(dst, map_a, r.full0 + 8 * stage, ks * kStage, m0);
-        tma_load_2d(dst + kABytes, map_b, r.full0 + 8 * stage, ks * kStage, n0);
+        if (load_b) tma_load_2d(dst + kABytes, map_b, r.full0 + 8 * stage, ks * kStage, n0);
       }
     }
   }
   r.step += (uint32_t)(walk.count * ksteps);
 }
 
+// One warpgroup's products of one 64 x 256 tile into acc: ksteps ring steps
+// from `step` on, out of a ring of kStages stages of kStage bytes of K (A
+// first, then B) at shared address `ring`, each waited for on its full
+// barrier (full0 + 8 * stage). release(stage) runs once a stage is read to
+// its end (by every thread of the warpgroup; the caller picks who arrives).
+template <int kStage, int kStages, typename Release>
+__device__ __forceinline__ void tile_products(int (&acc)[128], uint32_t ring, uint32_t full0,
+                                              uint32_t step, int ksteps, Release&& release) {
+  constexpr int kABytes = kTileM * kStage;
+  constexpr int kStageBytes = (kTileM + kTileN) * kStage;
+  for (int ks = 0; ks < ksteps; ++ks, ++step) {
+    const uint32_t stage = step % kStages;
+    mbar_wait(full0 + 8 * stage, (step / kStages) & 1u);
+    const uint64_t da = smem_desc<kStage>(ring + stage * kStageBytes);
+    const uint64_t db = smem_desc<kStage>(ring + stage * kStageBytes + kABytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStage / 32; ++kk) {
+      // 32 bytes of K further: 2 in the descriptor's 16-byte units
+      wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, (ks | kk) != 0);
+    }
+    wgmma_commit();
+    if (ks > 0) {
+      wgmma_wait<1>();  // the stage before is read to its end
+      release((step - 1) % kStages);
+    }
+  }
+  wgmma_wait<0>();
+  release((step - 1) % kStages);
+}
+
 // The consumers' half: called by warpgroups 0 and 1 after their setmaxnreg;
-// they take the block's tiles in turns. Gelu: the fc1 epilogue's GELU, or
+// they take the block's tiles in turns, each tile's products by
+// tile_products, its epilogue from the staged accumulators: bf16(y) for
+// qkv, x' with the residual loaded from device memory a slice ahead (K10 on
+// the two-launch route and in K14), K8's row-maxima exchange. K9 and, off
+// the two-launch route, K10 run int8_matmul.cu's residual kernel instead,
+// whose epilogue takes the residual and leaves x' by TMA and whose K9 folds
+// the LayerNorm in through a cluster. Gelu: the fc1 epilogue's GELU, or
 // kGeluAny to take it from p.gelu. kDrain: the kernel runs another product
 // after this one (fused_block.cu), so the one barrier arrival the ping-pong
 // leaves over is taken and named barriers 1 and 2 end complete. Advances
@@ -628,7 +682,6 @@ template <int Epi, int Gelu, bool kDrain>
 __device__ __forceinline__ void wgmma_consume(const WgArgs& p, const TileWalk& walk, int ksteps,
                                               GemmRing& r) {
   constexpr int kStage = stage_k(Epi);  // bytes of K per stage
-  constexpr int kABytes = kTileM * kStage;
   constexpr int kRingStageBytes = ring_stage_bytes(Epi);
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -647,25 +700,9 @@ __device__ __forceinline__ void wgmma_consume(const WgArgs& p, const TileWalk& w
     uint2 res[kSliceIters];
     tile_prologue<Epi>(p, m0 + warp * 16, n0, lane, rowv, res);
     named_bar_sync(1 + wg, 256);
-    for (int ks = 0; ks < ksteps; ++ks, ++step) {
-      const uint32_t stage = step % kRing;
-      mbar_wait(r.full0 + 8 * stage, (step / kRing) & 1u);
-      const uint64_t da = smem_desc<kStage>(r.ring + stage * kRingStageBytes);
-      const uint64_t db = smem_desc<kStage>(r.ring + stage * kRingStageBytes + kABytes);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kStage / 32; ++kk) {
-        // 32 bytes of K further: 2 in the descriptor's 16-byte units
-        wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, (ks | kk) != 0);
-      }
-      wgmma_commit();
-      if (ks > 0) {
-        wgmma_wait<1>();  // the stage before is read to its end
-        if (lane == 0) mbar_arrive(r.empty0 + 8 * ((step - 1) % kRing));
-      }
-    }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(r.empty0 + 8 * ((step - 1) % kRing));
+    tile_products<kStage, kRing>(acc, r.ring, r.full0, step, ksteps, [&](uint32_t stage) {
+      if (lane == 0) mbar_arrive(r.empty0 + 8 * stage);
+    });
     named_bar_arrive(1 + (wg ^ 1), 256);
     if constexpr (Epi == kWgGeluQuant) {
       unsigned int* arrived = p.arrived + walk.row_tile(i);
@@ -751,6 +788,25 @@ inline bool make_map(CUtensorMap* map, const void* base, long long rows, int k, 
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 box_k == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a bf16 (rows, cols) matrix, row-major (cols * 2 a multiple
+// of 16 bytes), read and written in boxes of box_rows rows x 64 columns laid
+// out in shared memory as 128-byte rows in the 128-byte swizzle (16-byte
+// chunk k of row r at chunk k ^ (r % 8); the box 1024-byte aligned); what a
+// box reaches past the matrix reads as zeros and is not written.
+inline bool make_map_bf16(CUtensorMap* map, const void* base, long long rows, int cols,
+                          int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -5,41 +5,57 @@ Two revisions compare only inside one process on one card (rates move by
 ~10% between machines), so this builds the other revision's
 ``attention.cu``, ``attention_quant.cu``, ``attention_bwd.cu``,
 ``int8_matmul.cu`` and ``fused_block.cu`` (with the headers beside them) into
-a second library in a temporary directory and calls both libraries through
-the same C interface on the same inputs, at the ViT-B/16 shapes of the
-serving and training paths:
+a second library in a temporary directory, one nvcc process per source, all
+started together, and calls both libraries through the same C interface on
+the same inputs, at the ViT-B/16 shapes of the serving and training paths.
+Sections (``--sections``, all by default):
 
-  K2   attention forward, (batch, 257, 2304) and (64, 257, 2304), 12 heads:
-       ms in the order other, this, this, other; whether the two outputs are
-       equal bit for bit, and their max |difference|
-  K4   quantizing attention at (batch, 257, 2304) with the exact row max and
-       with a fixed shift; K5, its flat form, at (batch * 288, 2304) with 257
-       real rows an image: ms in the same order, and whether the codes and
-       scales equal the other's bit for bit
-  K3   attention backward, (batch, 257, 2304) and (64, 257, 2304), 12 heads:
-       ms of each in the order other, this, this, other; max |difference| of
-       the two outputs and of each against ``reference_attention_bwd``
-  GEMM every epilogue of ``cvt_int8_matmul`` at batch * 257 rows (qkv 768 ->
-       2304, proj 768 -> 768 and fc2 3072 -> 768 with residual + LN + requant,
-       fc1 768 -> 3072 with GELU + requant, the last fc2 with residual): ms in
-       the same order, and whether every output equals the other's bit for bit
-       (int32 sums are exact in any order, so a main loop may change and the
-       bits may not)
-  K14  the whole block at (batch, 257, 768), 12 heads, MLP 3072, random int8
-       weights, with the exact row max and with a fixed shift: ms in the same
-       order, beside this checkout's chain of split kernels
-       (``quant.block_int8``) timed after them, and whether x_new, yq and ys
-       equal the other's bit for bit
+  k2       attention forward, (batch, 257, 2304) and (64, 257, 2304), 12
+           heads: ms in the order other, this, this, other; whether the two
+           outputs are equal bit for bit, and their max |difference|
+  k4       quantizing attention at (batch, 257, 2304) with the exact row max
+           and with a fixed shift; K5, its flat form, at (batch * 288, 2304)
+           with 257 real rows an image: ms in the same order, and whether the
+           codes and scales equal the other's bit for bit
+  k3       attention backward, (batch, 257, 2304) and (64, 257, 2304), 12
+           heads: ms in the same order; max |difference| of the two outputs
+           and of each against ``reference_attention_bwd``
+  variants K10 (residual) and K9 (residual + LN + requant) at the proj
+           (768 -> 768) and fc2 (3072 -> 768) shapes at batch * 257 rows,
+           through the other revision, this checkout and this checkout's
+           ``int8_matmul.cu`` built again as timing-only probes
+           (``CVT_GEMM_PROBE``, int8_gemm.cuh), in turns (other, this, each
+           probe, each probe backwards, this, other): for K10
+           ``probe_b_once`` and ``probe_no_epilogue_io`` (the split kernel
+           with its weight tile loaded into each ring stage once, or with no
+           residual loads and no x' stores), for K9 ``probe_ln_skipped`` (the
+           cluster kernel without the LayerNorm's rows); the probes' outputs
+           are not compared, this checkout's must equal the other's bit for
+           bit; K9's and K10's routes and ptxas's registers and spills of each
+           probe build
+  gemm     every epilogue of ``cvt_int8_matmul`` at batch * 257 rows (qkv 768
+           -> 2304, proj 768 -> 768 and fc2 3072 -> 768 with residual + LN +
+           requant, fc1 768 -> 3072 with GELU + requant, the last fc2 with
+           residual): ms in the order other, this, this, other, and whether
+           every output equals the other's bit for bit (int32 sums are exact
+           in any order, so a main loop may change and the bits may not)
+  k14      the whole block at (batch, 257, 768), 12 heads, MLP 3072, random
+           int8 weights, with the exact row max and with a fixed shift: ms in
+           the same order, beside this checkout's chain of split kernels
+           (``quant.block_int8``) timed after them, and whether x_new, yq and
+           ys equal the other's bit for bit
 
 Usage, from the repository root on a machine with a Hopper GPU:
   git archive REV chess_vision_tpu_torch/csrc | tar -x -C DIR
   python -m chess_vision_tpu_torch.experiments.kernel_ab \\
-      --other-csrc DIR/chess_vision_tpu_torch/csrc [--batch 256]
+      --other-csrc DIR/chess_vision_tpu_torch/csrc [--batch 256] \\
+      [--sections variants,gemm]
 
 The other revision may have K3's older interface (a statistics scratch as its
 fourth pointer) and K4's and K5's older one (an f32 (rows, D) scratch as their
 second pointer); its fc1 epilogue gets an f32 (rows, 3072) scratch either way.
-The last line is one JSON object with every number.
+The first line is the card's name and power limit (nvidia-smi); the last is
+one JSON object with every number.
 """
 
 from __future__ import annotations
@@ -76,29 +92,40 @@ def _param_count(source: str, name: str) -> int:
     return len(params.split(","))
 
 
-def build_other(csrc: str, out_dir: str) -> tuple[ctypes.CDLL, dict]:
-    """The other revision's five sources as one library, one nvcc process
-    each, all started together; which older interfaces it has
-    (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
-    take the f32 scratch)."""
-    lib_path = os.path.join(out_dir, "libother.so")
-    names = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
-             "int8_matmul.cu", "fused_block.cu")
-    sources = {name: os.path.join(csrc, name) for name in names}
+def build_libs(jobs: dict, out_dir: str) -> dict:
+    """Build one library per job (name -> (csrc directory, source names,
+    extra nvcc flags)), one nvcc process per source, all started together;
+    returns name -> library path."""
     nvcc = _build.find_nvcc()
-    objs = [os.path.join(out_dir, name + ".o") for name in names]
-    steps = _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj, src]
-                             for obj, src in zip(objs, sources.values())])
+    compiles, links, paths = [], [], {}
+    for name, (csrc, sources, flags) in jobs.items():
+        objs = [os.path.join(out_dir, f"{name}.{src}.o") for src in sources]
+        compiles += [[nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", obj,
+                      os.path.join(csrc, src)] for obj, src in zip(objs, sources)]
+        paths[name] = os.path.join(out_dir, f"lib{name}.so")
+        links.append([nvcc, *_build._ARCH, "-shared", "-o", paths[name], *objs])
+    steps = _build._run_all(compiles)
     if all(step.returncode == 0 for step in steps):
-        steps += _build._run_all([[nvcc, *_build._ARCH, "-shared", "-o",
-                                   lib_path, *objs]])
+        steps += _build._run_all(links)
     for step in steps:
         if step.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(step.args)}\n"
                                f"{step.stdout}\n{step.stderr}")
-    old = {"k3_stats": _param_count(sources["attention_bwd.cu"],
+    for step in steps:  # ptxas's registers, spills and warnings of the variants
+        if "-D" in " ".join(step.args):
+            for line in (step.stdout + step.stderr).splitlines():
+                if re.search(r"int8_wgmma|int8_res|registers|spill|warning", line):
+                    print("  ptxas " + line.strip(), flush=True)
+    return paths
+
+
+def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
+    """The other revision's library; which older interfaces it has
+    (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
+    take the f32 scratch)."""
+    old = {"k3_stats": _param_count(os.path.join(csrc, "attention_bwd.cu"),
                                     "cvt_attention_bwd") == 10,
-           "k4_scratch": _param_count(sources["attention_quant.cu"],
+           "k4_scratch": _param_count(os.path.join(csrc, "attention_quant.cu"),
                                       "cvt_attention_quant") == 12}
     lib = ctypes.CDLL(lib_path)
     ints = [ctypes.c_int] * 4
@@ -115,6 +142,12 @@ def build_other(csrc: str, out_dir: str) -> tuple[ctypes.CDLL, dict]:
     return lib, old
 
 
+def load_gemm_variant(lib_path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(lib_path)
+    lib.cvt_int8_matmul.argtypes = _build._SIGNATURES["cvt_int8_matmul"]
+    return lib
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     for _ in range(2):
         fn()
@@ -129,9 +162,9 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(runs: dict) -> dict:
+def in_turns(runs: dict, order=_ORDER) -> dict:
     times = {name: [] for name in runs}
-    for name in _ORDER:
+    for name in order:
         times[name].append(cuda_ms(runs[name]))
     return times
 
@@ -220,43 +253,97 @@ def k3_ab(libs: dict, with_stats: bool, batch: int, gen) -> dict:
                             for name, out in outs.items()}}
 
 
-def gemm_ab(libs: dict, case: tuple, rows: int, gen) -> dict:
-    name, k, o, epilogue, gelu = case
+def gemm_operands(rows: int, k: int, o: int, gen) -> dict:
     dev = gen.device
     ri = lambda *shape: torch.randint(  # noqa: E731
         -127, 128, shape, device=dev, generator=gen, dtype=torch.int8)
-    xq, wq = ri(rows, k), ri(o, k)
-    xs = torch.rand((rows, 1), device=dev, generator=gen) * 0.02 + 0.002
-    ws = torch.rand(o, device=dev, generator=gen) * 0.0004 + 0.0002
-    bias = torch.randn(o, device=dev, generator=gen) * 0.1
-    res = torch.randn((rows, o), device=dev, generator=gen).bfloat16()
-    ln_g = torch.rand(o, device=dev, generator=gen) + 0.5
-    ln_b = torch.randn(o, device=dev, generator=gen) * 0.1
-    outs = {}
-    for which in libs:
-        # epilogue 3: scratch for either design (f32 per element, or per row)
-        out = torch.zeros((rows, o), device=dev,
-                          dtype=torch.float32 if epilogue == 3 else torch.bfloat16)
-        outs[which] = (out, torch.zeros((rows, o), device=dev, dtype=torch.int8),
-                       torch.zeros((rows, 1), device=dev))
-    stream = torch.cuda.current_stream().cuda_stream
+    return {"xq": ri(rows, k), "wq": ri(o, k),
+            "xs": torch.rand((rows, 1), device=dev, generator=gen) * 0.02 + 0.002,
+            "ws": torch.rand(o, device=dev, generator=gen) * 0.0004 + 0.0002,
+            "bias": torch.randn(o, device=dev, generator=gen) * 0.1,
+            "res": torch.randn((rows, o), device=dev, generator=gen).bfloat16(),
+            "ln_g": torch.rand(o, device=dev, generator=gen) + 0.5,
+            "ln_b": torch.randn(o, device=dev, generator=gen) * 0.1}
 
-    def run(which):
-        out, yq, ys = outs[which]
-        rc = libs[which].cvt_int8_matmul(
-            xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-            bias.data_ptr(), res.data_ptr(), out.data_ptr(), rows, k, o,
-            epilogue, gelu, ln_g.data_ptr(), ln_b.data_ptr(), 1e-6,
-            yq.data_ptr(), ys.data_ptr(), stream)
-        _build.check(rc, f"{which}'s int8 GEMM")
 
-    times = in_turns({which: (lambda which=which: run(which)) for which in libs})
+def gemm_call(lib, ops: dict, outs: tuple, epilogue: int, gelu: int,
+              what: str) -> None:
+    out, yq, ys = outs
+    rows, k = ops["xq"].shape
+    o = ops["wq"].shape[0]
+    rc = lib.cvt_int8_matmul(
+        ops["xq"].data_ptr(), ops["xs"].data_ptr(), ops["wq"].data_ptr(),
+        ops["ws"].data_ptr(), ops["bias"].data_ptr(), ops["res"].data_ptr(),
+        out.data_ptr(), rows, k, o, epilogue, gelu, ops["ln_g"].data_ptr(),
+        ops["ln_b"].data_ptr(), 1e-6, yq.data_ptr(), ys.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, what)
+
+
+def gemm_outputs(rows: int, o: int, epilogue: int, dev) -> tuple:
+    # epilogue 3: scratch for either design (f32 per element, or per row)
+    return (torch.zeros((rows, o), device=dev,
+                        dtype=torch.float32 if epilogue == 3 else torch.bfloat16),
+            torch.zeros((rows, o), device=dev, dtype=torch.int8),
+            torch.zeros((rows, 1), device=dev))
+
+
+def gemm_ab(libs: dict, case: tuple, rows: int, gen) -> dict:
+    name, k, o, epilogue, gelu = case
+    ops = gemm_operands(rows, k, o, gen)
+    outs = {which: gemm_outputs(rows, o, epilogue, gen.device) for which in libs}
+    times = in_turns({which: (lambda which=which: gemm_call(
+        libs[which], ops, outs[which], epilogue, gelu, f"{which}'s int8 GEMM"))
+        for which in libs})
     # the scratch of epilogue 3 is not an output
     compared = slice(1, 3) if epilogue == 3 else slice(0, 1 if epilogue < 2 else 3)
     same = all(torch.equal(a, b) for a, b in
                zip(outs["this"][compared], outs["other"][compared]))
     return {"name": name, "shape": [rows, k, o], "ms": times,
             "bit_identical": same}
+
+
+def variants_ab(libs: dict, variants: dict, rows: int, gen) -> list:
+    """K10 (epilogue 1) and K9 (epilogue 2) at the proj (768 -> 768) and fc2
+    (3072 -> 768) shapes through the other revision, this checkout and its
+    timing-only probe builds (``_PROBES``), in turns: the split-kernel
+    probes on K10, the LayerNorm probe on K9. The probes' outputs are not
+    compared; this checkout's are, against the other revision's; and the
+    routes of this checkout and the cluster probe are printed."""
+    report = []
+    for name, lib in {"this": libs["this"], **variants}.items():
+        if name not in _SPLIT_PROBES:
+            lib.cvt_int8_res_route.argtypes = _build._SIGNATURES["cvt_int8_res_route"]
+            for epilogue in (2, 1):
+                info = (ctypes.c_int * 4)()
+                rc = lib.cvt_int8_res_route(768, epilogue, ctypes.addressof(info))
+                _build.check(rc, f"{name}'s route query")
+                print(f"ROUTE {name} epilogue {epilogue} O=768: "
+                      f"{mm.ROUTES[info[0]]}, clusters of {info[1]} blocks, "
+                      f"{info[2]} clusters (or blocks) at once, {info[3]} bytes "
+                      f"of shared memory a block", flush=True)
+    for k, o, epilogue in ((3072, 768, 1), (768, 768, 1), (768, 768, 2),
+                           (3072, 768, 2)):
+        ops = gemm_operands(rows, k, o, gen)
+        here = {name: lib for name, lib in variants.items()
+                if (name in _SPLIT_PROBES) == (epilogue == 1)
+                or name not in _PROBES}
+        runs = {"other": libs["other"], "this": libs["this"], **here}
+        outs = {which: gemm_outputs(rows, o, epilogue, gen.device)
+                for which in runs}
+        order = ["other", "this", *here, *reversed(here), "this", "other"]
+        times = in_turns({which: (lambda which=which: gemm_call(
+            runs[which], ops, outs[which], epilogue, 0,
+            f"{which}'s int8 GEMM")) for which in runs}, order)
+        compared = slice(0, 1 if epilogue == 1 else 3)
+        same = {which: all(torch.equal(a, b) for a, b in zip(
+                    outs[which][compared], outs["other"][compared]))
+                for which in runs if which not in _PROBES and which != "other"}
+        report.append({"shape": [rows, k, o], "epilogue": epilogue,
+                       "order": order, "ms": times,
+                       "bit_identical_to_other": same})
+        print("VARIANTS", json.dumps(report[-1]), flush=True)
+    return report
 
 
 def k14_ab(libs: dict, batch: int, fixed: bool, gen) -> dict:
@@ -319,13 +406,29 @@ def k14_ab(libs: dict, batch: int, fixed: bool, gen) -> dict:
             "split_chain_ms": split, "bit_identical": same}
 
 
+_SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14")
+_OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
+                  "int8_matmul.cu", "fused_block.cu")
+# this checkout's int8_matmul.cu built with timing-only macros (int8_gemm.cuh)
+_PROBES = {"probe_b_once": ["-DCVT_GEMM_PROBE=1"],
+           "probe_no_epilogue_io": ["-DCVT_GEMM_PROBE=2"],
+           "probe_ln_skipped": ["-DCVT_GEMM_PROBE=3"]}
+# the probes that time the split kernel (K10's shape only)
+_SPLIT_PROBES = ("probe_b_once", "probe_no_epilogue_io")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other-csrc", required=True,
                         help="the csrc directory of the revision to compare with")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sections", default=",".join(_SECTIONS),
+                        help=f"comma-separated subset of {','.join(_SECTIONS)}")
     args = parser.parse_args()
+    sections = args.sections.split(",")
+    if not set(sections) <= set(_SECTIONS):
+        raise SystemExit(f"unknown sections {sections}; expected {_SECTIONS}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
     smi = subprocess.run(
@@ -333,27 +436,41 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    report = {"card": smi, "order": list(_ORDER), "k2": [], "k4": [], "k3": [],
-              "gemm": [], "k14": []}
+    report = {"card": smi, "order": list(_ORDER),
+              **{name: [] for name in _SECTIONS}}
     with tempfile.TemporaryDirectory() as tmp:
-        other, old = build_other(args.other_csrc, tmp)
+        jobs = {"other": (args.other_csrc, _OTHER_SOURCES, [])}
+        if "variants" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("int8_matmul.cu",), flags)
+                         for name, flags in _PROBES.items()})
+        paths = build_libs(jobs, tmp)
+        other, old = load_other(paths.pop("other"), args.other_csrc)
         libs = {"other": other, "this": _build.library()}
-        for batch in (args.batch, 64):
-            report["k2"].append(k2_ab(libs, batch, gen))
-            print("K2", json.dumps(report["k2"][-1]), flush=True)
-        for np_, fixed in ((257, False), (257, True), (288, True)):
-            report["k4"].append(k4_ab(libs, old["k4_scratch"], args.batch, np_,
-                                      fixed, gen))
-            print("K4/K5", json.dumps(report["k4"][-1]), flush=True)
-        for batch in (args.batch, 64):
-            report["k3"].append(k3_ab(libs, old["k3_stats"], batch, gen))
-            print("K3", json.dumps(report["k3"][-1]), flush=True)
-        for case in _GEMMS:
-            report["gemm"].append(gemm_ab(libs, case, args.batch * 257, gen))
-            print("GEMM", json.dumps(report["gemm"][-1]), flush=True)
-        for fixed in (False, True):
-            report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
-            print("K14", json.dumps(report["k14"][-1]), flush=True)
+        variants = {name: load_gemm_variant(path) for name, path in paths.items()}
+        rows = args.batch * 257
+        if "k2" in sections:
+            for batch in (args.batch, 64):
+                report["k2"].append(k2_ab(libs, batch, gen))
+                print("K2", json.dumps(report["k2"][-1]), flush=True)
+        if "k4" in sections:
+            for np_, fixed in ((257, False), (257, True), (288, True)):
+                report["k4"].append(k4_ab(libs, old["k4_scratch"], args.batch,
+                                          np_, fixed, gen))
+                print("K4/K5", json.dumps(report["k4"][-1]), flush=True)
+        if "k3" in sections:
+            for batch in (args.batch, 64):
+                report["k3"].append(k3_ab(libs, old["k3_stats"], batch, gen))
+                print("K3", json.dumps(report["k3"][-1]), flush=True)
+        if "variants" in sections:
+            report["variants"] = variants_ab(libs, variants, rows, gen)
+        if "gemm" in sections:
+            for case in _GEMMS:
+                report["gemm"].append(gemm_ab(libs, case, rows, gen))
+                print("GEMM", json.dumps(report["gemm"][-1]), flush=True)
+        if "k14" in sections:
+            for fixed in (False, True):
+                report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
+                print("K14", json.dumps(report["k14"][-1]), flush=True)
     print(json.dumps(report))
     return 0
 

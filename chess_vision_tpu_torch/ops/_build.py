@@ -53,6 +53,7 @@ _SIGNATURES = {
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_gelu_selftest": [ctypes.c_longlong, ctypes.c_int, _P, _P],
+    "cvt_int8_res_route": [ctypes.c_int, ctypes.c_int, _P],
     "cvt_attention_quant": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_float, ctypes.c_int, _P],

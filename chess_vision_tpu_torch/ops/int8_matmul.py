@@ -16,9 +16,18 @@ contiguous (``convert/jax_params.int8_pack_from_jax``). On a CUDA tensor each
 runs the hand-written kernel ``csrc/int8_matmul.cu``; on a CPU tensor its
 plain version (``*_plain``), the same arithmetic in PyTorch with an exact
 int32 product.
+
+K9 runs on thread-block clusters (``res_cluster_blocks``): the blocks that
+compute one 64-row panel's column tiles form a cluster, in which the
+LayerNorm reads the panel's x' from the blocks' shared memory; rows wider
+than 8 column tiles (2,048 columns) take the two-launch route, the product,
+then the row pass of ``rowquant``. K10 is one kernel of one block per SM
+(``res_route``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -34,6 +43,17 @@ _EPILOGUES = {"scale_bias": 0, "res": 1, "res_ln_quant": 2, "gelu_quant": 3}
 _GELU_FNS = {"erf": rq.gelu_erf, "sigmoid": rq.gelu_sigmoid_div,
              "hard": rq.gelu_hard}
 _MAX_ROWS = 2**31 - 65  # the kernel's row coordinates are 32-bit
+# K9's clusters, as csrc/int8_matmul.cu res_route sets them
+TILE_N = 256      # columns of an output tile (kTileN)
+CLUSTER_MAX = 8   # blocks in the largest portable cluster (kClusterMax)
+
+
+def res_cluster_blocks(o: int) -> int:
+    """Blocks in the cluster that computes an o-wide K9, one column tile
+    each; 0 means the two-launch route (more than CLUSTER_MAX column
+    tiles). K10 needs no cluster: one block per SM walks its tiles."""
+    tiles_n = -(-o // TILE_N)
+    return tiles_n if tiles_n <= CLUSTER_MAX else 0
 
 
 def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -165,6 +185,30 @@ def int8_matmul_res(xq, xs, wq, ws, bias, res) -> torch.Tensor:
     if xq.device.type == "cpu":
         return int8_matmul_res_plain(xq, xs, wq, ws, bias, res)
     return _launch("res", xq, xs, wq, ws, bias, res=res)[0]
+
+
+ROUTES = ("two_launch", "tiles", "cluster")  # csrc/int8_matmul.cu ResRoute
+
+
+def res_route(o: int, epilogue: str = "res_ln_quant", device="cuda") -> dict:
+    """On the card: the route of an o-wide residual product, from the
+    kernel library. ``route``: "cluster" (K9: one kernel on clusters of
+    ``cluster_blocks`` blocks, ``count`` of them on the card at once by
+    ``cudaOccupancyMaxActiveClusters``), "tiles" (K10: one kernel, ``count``
+    blocks, one per SM, no cluster) or "two_launch" (the product, then for
+    K9 the row pass); ``smem_bytes``: a block's dynamic shared memory."""
+    if epilogue not in ("res", "res_ln_quant"):
+        raise ValueError(f"{epilogue!r} is not a residual epilogue")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    info = (ctypes.c_int * 4)()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.cvt_int8_res_route(o, _EPILOGUES[epilogue], ctypes.addressof(info))
+    _build.check(rc, f"int8 matmul route ({epilogue}, o={o})")
+    return {"route": ROUTES[info[0]], "cluster_blocks": info[1],
+            "count": info[2], "smem_bytes": info[3]}
 
 
 def gelu_selftest(n: int, gelu: str = "sigmoid", device="cuda") -> int:

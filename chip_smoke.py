@@ -34,11 +34,15 @@ Phases, one line each; any failure exits non-zero before the last line:
              768: codes and scales as in 6, bf16 outputs within one bf16 ulp;
              each GEMM's share of the int8 peak beside ``torch._int_mm``'s
              time; K8's time with each GELU beside the bias epilogue's on
-             the same operands; every epilogue at ragged shapes (M not a multiple of the
-             tile's 64 rows, O = 8k not of its 256 columns, K = 16k not of
-             the stage's 128 bytes) with the three GELUs; the epilogue's
-             four-at-a-time GELU against the scalar GELU of the other
-             kernels, bit for bit on 2^28 values per GELU.
+             the same operands; K9's and K10's routes (``mm.res_route``: K9's
+             thread-block cluster and how many the card holds at once, K10's
+             grid, ptxas's registers and spills of both kernels); every
+             epilogue at ragged shapes (M not a multiple of the tile's 64
+             rows, O = 8k not of its 256 columns, K = 16k not of the stage's
+             128 bytes, and O = 2304, where K9 takes the two-launch route)
+             with the three GELUs; the epilogue's four-at-a-time GELU against
+             the scalar GELU of the other kernels, bit for bit on 2^28 values
+             per GELU.
   8. K4      quantizing attention vs ``reference_attention_quant`` at
              (256, 257, 2304) with the exact row max and with a fixed shift,
              at (3, 17, 384) and at the ragged (2, 65, 2304) with 12 heads
@@ -57,7 +61,9 @@ Phases, one line each; any failure exits non-zero before the last line:
              printed; boards/s of int8 kernel, int8 plain and bf16 kernel
              paths at batch 256. ``--profile-int8 N`` also prints a
              ``torch.profiler`` table of N boards through this Predictor
-             (and, after phase 15, through the flat and fused ones).
+             (and, after phase 15, through the flat and fused ones) and
+             requires one row-pass kernel a batch (the first LayerNorm's:
+             K9 folds its own into its one launch).
  10. K3      attention backward kernel vs ``reference_attention_bwd`` at
              (256,257,2304) and (64,257,2304) with 12 heads and (3,17,96) with
              1 head, bf16: dq, dk and dv each within K3_ATOL, a planted fault
@@ -91,7 +97,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              shape: real rows within ATTN_ATOL; real rows equal K4's on the
              unpadded values bit for bit; padded keys filled with large
              values change no real row. Then K11-K13, the flat layout's
-             GEMMs, at its own 73,728 rows, checked and timed as in 7.
+             GEMMs, at its own 73,728 rows, checked and timed as in 7, with
+             K9's route printed again.
  13. K14     the whole-block kernel on block 0 of phase 9's pack at
              (256, 257, 768) and on a small shape: bit-identical to the chain
              of split kernels it replaces and to a second launch; against
@@ -581,6 +588,7 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
              ("gelu_quant", 768, 3072, "chess_vision_tpu/ops/int8_matmul.py:219"),
              ("res_ln_quant", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:254"),
              ("res", 3072, 768, "chess_vision_tpu/ops/int8_matmul.py:297"))
+    print(f"  [7 GEMM] {res_route_line(768)}", flush=True)
     for epi, K, O, replaces in cases:
         ops = operands(K, O)
         what = f"[7 GEMM] {epi} ({M}, {K}) -> {O}"
@@ -601,13 +609,15 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
 
     # the main loop's ragged edges: rows, columns and depth that end inside
     # a tile, a stage or a 16-row group, with every epilogue and GELU
+    # (300, 128, 2304): K9 and K10 on the two-launch route (9 column tiles)
     for M_, K, O in ((300, 80, 72), (129, 16, 8), (1000, 768, 264),
-                     (64, 128, 256), (4999, 3072, 776)):
+                     (64, 128, 256), (4999, 3072, 776), (300, 128, 2304)):
         ops = operands_at(dev, gen, M_, K, O)
         res = torch.randn((M_, O), device=dev, generator=gen).bfloat16()
         g = torch.rand(O, device=dev, generator=gen) + 0.5
         b = torch.randn(O, device=dev, generator=gen) * 0.1
         what = f"  [7 GEMM] ragged ({M_}, {K}) -> {O}"
+        print(f"{what}: {res_route_line(O, ptxas=False)}", flush=True)
         bf16_check(what + " scale_bias", mm.int8_matmul_scale_bias(*ops),
                    mm.int8_matmul_scale_bias_plain(*ops))
         bf16_check(what + " res", mm.int8_matmul_res(*ops, res),
@@ -744,6 +754,49 @@ def int_mm_ms(xq, wq, what: str) -> float | None:
         return None
     print(f"  {what}: torch._int_mm (product only) {ms:.4f} ms", flush=True)
     return ms
+
+
+def res_route_line(o: int, ptxas: bool = True) -> str:
+    """K9's and K10's routes at o output columns (``mm.res_route``): K9's
+    cluster and how many the card holds at once, K10's grid, a block's
+    shared memory, and ptxas's registers and spills of the route kernels."""
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+
+    parts = []
+    for epi in ("res_ln_quant", "res"):
+        route = mm.res_route(o, epi)
+        where = {"cluster": f"clusters of {route['cluster_blocks']} blocks, "
+                            f"{route['count']} of them at once",
+                 "tiles": f"one kernel, {route['count']} blocks, no cluster",
+                 "two_launch": "the two-launch route"}
+        parts.append(f"{epi} at O={o}: {where[route['route']]}, "
+                     f"{route['smem_bytes']} bytes of shared memory a block")
+        want = ("tiles" if epi == "res" else
+                "cluster" if mm.res_cluster_blocks(o) else "two_launch")
+        require(route["route"] == want
+                and (route["count"] > 0 or want == "two_launch"),
+                f"{epi} at O={o}: route {route}, expected {want}")
+    if ptxas:
+        tiles = -(-o // mm.TILE_N)  # K9's kernel takes its chunk count from them
+        for kch in (tiles if tiles <= 4 else mm.CLUSTER_MAX, 0):
+            parts.append(f"int8_res_kernel<{kch}>: {res_ptxas(kch)}")
+    return "; ".join(parts)
+
+
+def res_ptxas(kch: int) -> str:
+    """ptxas's registers and spills of one instantiation of the residual
+    kernel (kCh 0: K10's, else K9's), from this process's build."""
+    import re
+
+    from chess_vision_tpu_torch.ops import _build
+
+    found = re.search(
+        rf"Compiling entry function '[^']*int8_res_kernelILi{kch}E[^']*'.*?"
+        rf"(\d+) bytes spill stores.*?Used (\d+) registers", _build.build_log,
+        re.S)
+    if not found:
+        return "registers not in this build's log"
+    return f"{found.group(2)} registers, {found.group(1)} bytes spilled"
 
 
 def reset_counts() -> None:
@@ -1093,6 +1146,14 @@ def profile_int8_batches(tag: str, predictor, bench, batch_ms: float) -> None:
           f"{device_ms:.2f} ms per batch; a batch takes {batch_ms:.2f} ms "
           f"unprofiled (idle share {1 - device_ms / batch_ms:.3f}) and "
           f"{wall_ms:.1f} ms under the profiler", flush=True)
+    # the row pass runs once a batch (the first LayerNorm): K9 folds its own
+    # into the cluster kernel, one launch a call
+    per_batch = {name: sum(e.count for e in events
+                           if e.device_type == DeviceType.CUDA and name in e.key)
+                 / batches for name in ("rowquant_kernel", "int8_res_kernel")}
+    print(f"{tag} kernels per batch in the profile: {per_batch}", flush=True)
+    require(per_batch["rowquant_kernel"] == 1,
+            f"{tag} {per_batch['rowquant_kernel']} row passes a batch")
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60), flush=True)
 
@@ -1208,6 +1269,7 @@ def layout_kernel_phases(args, dev, int8: dict, kernels: dict) -> None:
         del qkv, flat, oq, os_, rq_, rs
 
     # 12. K11-K13: the flat layout's GEMMs at its own rows (BATCH images of NP)
+    print(f"  [12 K11-K13] {res_route_line(768)}", flush=True)
     for epi, K, O, replaces in (
             ("gelu_quant", 768, 3072, "chess_vision_tpu/ops/int8_matmul.py:395"),
             ("res_ln_quant", 768, 768, "chess_vision_tpu/ops/int8_matmul.py:426"),
