@@ -1,9 +1,11 @@
-// The attention forward loop of K2 (attention.cu) and K4 / K5
-// (attention_quant.cu): one block of W warps takes up to 32 * W query rows of
-// one (image, head) and walks that head's keys in steps of 64 through a
-// cp.async ring in shared memory. The two kernels differ only in the softmax
-// arithmetic (kQuant), which each keeps bit for bit from its earlier design;
-// what each computes, its bound and its numbers are in its own source.
+// The attention forward loop of K2 (attention.cu), K4 / K5
+// (attention_quant.cu) and K15 (attention_variants.cu): one block of W warps
+// takes up to 32 * W query rows of one (image, head) and walks that head's
+// keys in steps of 64 through a cp.async ring in shared memory. The kernels
+// differ only in the softmax arithmetic (kQuant for K2 and K4; K15's variants
+// walk with flash_walk and a fixed shift per row, see below), which each
+// keeps bit for bit from its earlier design; what each computes, its bound
+// and its numbers are in its own source.
 //
 // Layout and schedule:
 //  - Query rows are cut into blocks of 16 and keys into sub-steps of 16, so
@@ -26,10 +28,19 @@
 //    leaves every bit as it was.
 //  - Rows past the image's rows load zeros and are not stored; keys past
 //    n_keys are zero-filled, masked to -inf, and give p = 0.
+//  - K15's variants take p against a row statistic known before the walk
+//    (a constant, a bound from a pass over K, or the row max of a first walk
+//    over K alone), so their walk carries no online rescale: flash_walk runs
+//    the ring with a step of the caller's (flash_max_step, flash_fixed_step),
+//    and the row sum adds each rounded pair as it comes, in key order.
 // The f32 accumulators come back to the caller, which writes them. The loop
 // runs on a block of 32 W threads, or on one group of 32 W threads of a
 // larger block (the whole-block kernel, fused_block.cu, runs four), which
 // then names its thread index within the group and a barrier of its own.
+// The quantizing kernels (K4/K5, K15) end in the two halves of the
+// quantizing epilogue, between which the blocks of a row chunk's heads,
+// a thread-block cluster, exchange their row maxima through distributed
+// shared memory (flash_cluster_load; attention_quant.cu's header).
 
 #pragma once
 
@@ -38,6 +49,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_quant.cuh"  // mma_bf16_16816, round_pair
 #include "rowquant.cuh"         // quant1
@@ -46,6 +58,11 @@ namespace cvt {
 
 constexpr int kFlashKTile = 64;  // keys per step (the online max's rescaling step)
 constexpr int kFlashPad = 8;     // bf16 padding per shared-memory row
+
+// What flash_sub_scores does to a score before the mask: nothing (K2, which
+// scales inside its exp2; K15's variants that fold the scale into q),
+// fl(s * scale) (K4, K15's base), or a rounding to bf16 (K15's bf16s).
+enum FlashScore : int { kScoreRaw = 0, kScoreScaled = 1, kScoreBf16 = 2 };
 
 // Barrier of the 32 W threads that run the loop: the block's (bar 0), or
 // named barrier `bar` of their group.
@@ -117,8 +134,9 @@ __host__ __device__ __forceinline__ int flash_chunk_blocks(int n, int chunks) {
   return ((n + 15) / 16 + chunks - 1) / chunks;
 }
 
-// Keys k0 .. k0 + 63 of one head into ring stage `st`; keys >= n_keys are zero.
-template <int Dh, int W>
+// Keys k0 .. k0 + 63 of one head into ring stage `st`; keys >= n_keys are
+// zero. kV: V too (a walk that takes scores alone copies K only).
+template <int Dh, int W, bool kV = true>
 __device__ __forceinline__ void flash_copy_kv(__nv_bfloat16* st, const __nv_bfloat16* q_base,
                                               long long row_stride, int d_model, int k0,
                                               int n_keys, int tid) {
@@ -130,13 +148,49 @@ __device__ __forceinline__ void flash_copy_kv(__nv_bfloat16* st, const __nv_bflo
     const bool ok = k0 + r < n_keys;
     const __nv_bfloat16* src = q_base + (long long)(ok ? k0 + r : 0) * row_stride + c;
     flash_cp16(st + r * kLd + c, src + d_model, ok);
-    flash_cp16(st + (kFlashKTile + r) * kLd + c, src + 2 * d_model, ok);
+    if (kV) flash_cp16(st + (kFlashKTile + r) * kLd + c, src + 2 * d_model, ok);
   }
 }
 
+// The chunk's Q rows row0 .. row0 + 16 cblocks - 1 into qs; rows >= n are zero.
+template <int Dh, int W>
+__device__ __forceinline__ void flash_copy_q(__nv_bfloat16* qs, const __nv_bfloat16* q_base,
+                                             long long row_stride, int row0, int cblocks, int n,
+                                             int tid) {
+  constexpr int kLd = Dh + kFlashPad;
+  constexpr int kChunks = Dh / 8;
+  for (int idx = tid; idx < cblocks * 16 * kChunks; idx += 32 * W) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    const bool ok = row0 + r < n;
+    flash_cp16(qs + r * kLd + c, q_base + (long long)(ok ? row0 + r : 0) * row_stride + c, ok);
+  }
+}
+
+// The A fragments of the warp's row blocks (w and w + W) from the Q rows.
+template <int Dh, int W>
+__device__ __forceinline__ void flash_load_qa(uint32_t (&qa)[2][Dh / 16][4],
+                                              const __nv_bfloat16* qs, const bool (&has)[2],
+                                              int warp, int lane) {
+  constexpr int kLd = Dh + kFlashPad;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const __nv_bfloat16* at = qs + ((warp + j * W) * 16 + lane % 16) * kLd + (lane / 16) * 8;
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      if (has[j]) flash_ldsm_x4(qa[j][kk], at + kk * 16);
+    }
+  }
+}
+
+__device__ __forceinline__ float flash_bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // S for sub-step hs (keys k0 + 16 hs .. + 15) of the NB row blocks: n-blocks
-// of 8 keys from one ldmatrix.x4 each; K4's scale applied, masked keys -inf.
-template <int Dh, bool kQuant, int NB, bool kFull>
+// of 8 keys from one ldmatrix.x4 each; kScore (FlashScore) applied, masked
+// keys -inf.
+template <int Dh, int kScore, int NB, bool kFull>
 __device__ __forceinline__ void flash_sub_scores(float (&s)[NB][2][4], const __nv_bfloat16* ks,
                                                  int hs, int k0, int n_keys, float scale,
                                                  const uint32_t (&qa)[2][Dh / 16][4], int lane) {
@@ -164,12 +218,34 @@ __device__ __forceinline__ void flash_sub_scores(float (&s)[NB][2][4], const __n
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool key_ok = kFull || k0 + hs * 16 + h * 8 + t * 2 + (e & 1) < n_keys;
-        if (kQuant) {
+        if (kScore == kScoreScaled) {
           s[j][h][e] = key_ok ? __fmul_rn(s[j][h][e], scale) : -INFINITY;
+        } else if (kScore == kScoreBf16) {
+          s[j][h][e] = key_ok ? flash_bf16_round(s[j][h][e]) : -INFINITY;
         } else if (!key_ok) {
           s[j][h][e] = -INFINITY;
         }
       }
+}
+
+// o of the NB row blocks += P V for sub-step hs: pa is P's A fragment, V's
+// B fragments come by ldmatrix.x4.trans from the stage's V rows.
+template <int Dh, int NB>
+__device__ __forceinline__ void flash_sub_pv(float (&o)[2][Dh / 8][4], const uint32_t (&pa)[NB][4],
+                                             const __nv_bfloat16* vs, int hs, int lane) {
+  constexpr int kLd = Dh + kFlashPad;
+  const __nv_bfloat16* vr =
+      vs + (hs * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd + (lane / 16) * 8;
+#pragma unroll
+  for (int dp = 0; dp < Dh / 16; ++dp) {
+    uint32_t b[4];
+    flash_ldsm_x4_trans(b, vr + dp * 16);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      mma_bf16_16816(o[j][2 * dp], pa[j], b[0], b[1]);
+      mma_bf16_16816(o[j][2 * dp + 1], pa[j], b[2], b[3]);
+    }
+  }
 }
 
 // One 64-key step for the NB (1 or 2) row blocks of a warp. S is computed
@@ -192,7 +268,7 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
                                                     const uint32_t (&qa)[2][Dh / 16][4],
                                                     float (&m)[2][2], float (&l)[2][2],
                                                     float (&o)[2][Dh / 8][4], int lane) {
-  constexpr int kLd = Dh + kFlashPad;
+  constexpr int kScore = kQuant ? kScoreScaled : kScoreRaw;
   const int nsub = kFull ? 4 : min(4, (n_keys - k0 + 15) / 16);
   float alpha[NB][2], shift[NB][2];
 #pragma unroll
@@ -205,7 +281,7 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
     for (int hs = 0; hs < 4; ++hs) {
       if (!kFull && hs >= nsub) continue;  // its scores are -inf: no effect on the max
       float s[NB][2][4];
-      flash_sub_scores<Dh, kQuant, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+      flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -245,7 +321,7 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
   for (int hs = 0; hs < 4; ++hs) {
     if (!kFull && hs >= nsub) continue;  // p = 0 exactly: nothing to add
     float s[NB][2][4];
-    flash_sub_scores<Dh, kQuant, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
     uint32_t pa[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -269,18 +345,7 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
           pa[j][h * 2 + 1] = flash_pack(p2, p3);
         }
       }
-    const __nv_bfloat16* vr =
-        vs + (hs * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd + (lane / 16) * 8;
-#pragma unroll
-    for (int dp = 0; dp < Dh / 16; ++dp) {
-      uint32_t b[4];
-      flash_ldsm_x4_trans(b, vr + dp * 16);
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        mma_bf16_16816(o[j][2 * dp], pa[j], b[0], b[1]);
-        mma_bf16_16816(o[j][2 * dp + 1], pa[j], b[2], b[3]);
-      }
-    }
+    flash_sub_pv<Dh, NB>(o, pa, vs, hs, lane);
   }
 #pragma unroll
   for (int j = 0; j < NB; ++j)
@@ -292,6 +357,87 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
         l[j][i] = l[j][i] * alpha[j][i] + rs[j][i];
       }
     }
+}
+
+// A 64-key step of a walk over K alone: each row's max score into m (per
+// thread; the caller reduces over the four threads of a row once the walk is
+// done). Sub-steps wholly past n_keys are skipped: their scores are -inf.
+template <int Dh, int kScore, int NB, bool kFull>
+__device__ __forceinline__ void flash_max_step(const __nv_bfloat16* ks, int k0, int n_keys,
+                                               float scale, const uint32_t (&qa)[2][Dh / 16][4],
+                                               float (&m)[2][2], int lane) {
+  const int nsub = kFull ? 4 : min(4, (n_keys - k0 + 15) / 16);
+#pragma unroll
+  for (int hs = 0; hs < 4; ++hs) {
+    if (!kFull && hs >= nsub) continue;
+    float s[NB][2][4];
+    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[j][0] = fmaxf(m[j][0], fmaxf(s[j][h][0], s[j][h][1]));
+        m[j][1] = fmaxf(m[j][1], fmaxf(s[j][h][2], s[j][h][3]));
+      }
+  }
+}
+
+// A 64-key step with a shift per row fixed before the walk (m: rows g and
+// g + 8 of each row block): p = prob(s, m) rounded to bf16 feeds P V and the
+// row sum l, which adds each rounded pair as it comes, in key order, with no
+// rescale. A masked key's p is 0 whatever prob gives for -inf; a full step
+// has none, and leaves out the test (a compare and a select a score, on the
+// chain of arithmetic that sets the walk's pace: 14-19% of the kernel's time).
+template <int Dh, int kScore, int NB, bool kFull, typename Prob>
+__device__ __forceinline__ void flash_fixed_step(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                                 int k0, int n_keys, float scale,
+                                                 const uint32_t (&qa)[2][Dh / 16][4],
+                                                 const float (&m)[2][2], float (&l)[2][2],
+                                                 float (&o)[2][Dh / 8][4], int lane, Prob prob) {
+  const int nsub = kFull ? 4 : min(4, (n_keys - k0 + 15) / 16);
+#pragma unroll
+  for (int hs = 0; hs < 4; ++hs) {
+    if (!kFull && hs >= nsub) continue;  // p = 0 exactly: nothing to add
+    float s[NB][2][4];
+    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+    uint32_t pa[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = !kFull && s[j][h][e] == -INFINITY ? 0.f : prob(s[j][h][e], m[j][e / 2]);
+        }
+        pa[j][h * 2 + 0] = round_pair(p[0], p[1], l[j][0]);
+        pa[j][h * 2 + 1] = round_pair(p[2], p[3], l[j][1]);
+      }
+    flash_sub_pv<Dh, NB>(o, pa, vs, hs, lane);
+  }
+}
+
+// step(nb, full) with nb = std::integral_constant<int, NB>, full =
+// std::bool_constant: the warp's row blocks (NB = 2 when it has both, 1 when
+// only the first) and whether the step is free of masked keys. A warp with no
+// row block in the chunk does nothing.
+template <typename Step>
+__device__ __forceinline__ void flash_for_rows(const bool (&has)[2], bool full, Step&& step) {
+  using One = std::integral_constant<int, 1>;
+  using Two = std::integral_constant<int, 2>;
+  if (has[1]) {
+    if (full) {
+      step(Two{}, std::true_type{});
+    } else {
+      step(Two{}, std::false_type{});
+    }
+  } else if (has[0]) {
+    if (full) {
+      step(One{}, std::true_type{});
+    } else {
+      step(One{}, std::false_type{});
+    }
+  }
 }
 
 // The loop. q_base points at q of this (image, head) (k at + d_model, v at
@@ -312,7 +458,6 @@ __device__ __forceinline__ void flash_attention_rows(
     int bar) {
   static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
   constexpr int kLd = Dh + kFlashPad;
-  constexpr int kChunks = Dh / 8;
   constexpr int kStages = Stages;
   static_assert(kStages >= 2, "the ring needs two stages");
   const int warp = tid / 32;
@@ -320,12 +465,7 @@ __device__ __forceinline__ void flash_attention_rows(
   __nv_bfloat16* qs = smem + flash_q_offset<Dh, Stages>();
 
   // Q of the chunk, then the first tiles of the ring
-  for (int idx = tid; idx < cblocks * 16 * kChunks; idx += 32 * W) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool ok = row0 + r < n;
-    flash_cp16(qs + r * kLd + c, q_base + (long long)(ok ? row0 + r : 0) * row_stride + c, ok);
-  }
+  flash_copy_q<Dh, W>(qs, q_base, row_stride, row0, cblocks, n, tid);
   const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -354,16 +494,7 @@ __device__ __forceinline__ void flash_attention_rows(
   for (int tile = 0; tile < ntiles; ++tile) {
     flash_wait<kStages - 2>();
     flash_sync<W>(bar);  // tile `tile` has landed; every warp is done with tile - 1
-    if (tile == 0) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat16* at = qs + ((warp + j * W) * 16 + lane % 16) * kLd + (lane / 16) * 8;
-#pragma unroll
-        for (int kk = 0; kk < Dh / 16; ++kk) {
-          if (has[j]) flash_ldsm_x4(qa[j][kk], at + kk * 16);
-        }
-      }
-    }
+    if (tile == 0) flash_load_qa<Dh, W>(qa, qs, has, warp, lane);
     {
       const int next = tile + kStages - 1;
       if (next < ntiles) {
@@ -408,10 +539,53 @@ __device__ __forceinline__ void flash_attention_rows(
   }
 }
 
-// K4's epilogue, first half: o / max(rowsum, 1e-30) in place, and the max
-// |o| over the head's Dh columns of each of the warp's rows into part[row]
-// (row = its index in the chunk).
-template <int Dh, int W>
+// A walk of K15's over the keys 0 .. n_keys - 1 of one (image, head) through
+// the ring: the 64-key tiles of K (and of V when kV) land in turn, and
+// step(ks, vs, k0, full) runs on each (ks, vs: the tile's K and V rows, vs
+// meaningless without kV; full: no key of the tile is masked). first() runs
+// once, after the first tile's barrier, when everything the caller copied
+// before the walk has landed too (the chunk's Q rows). A walk may follow
+// another on the same ring: it waits first for every thread to be done with
+// the tiles before. Arguments as for flash_attention_rows.
+template <int Dh, int W, int Stages, bool kV, typename First, typename Step>
+__device__ __forceinline__ void flash_walk(const __nv_bfloat16* q_base, long long row_stride,
+                                           int d_model, int n_keys, __nv_bfloat16* smem,
+                                           int tid, int bar, First&& first, Step&& step) {
+  static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
+  static_assert(Stages >= 2, "the ring needs two stages");
+  constexpr int kLd = Dh + kFlashPad;
+  const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;
+  flash_sync<W>(bar);  // every thread is done with the ring's tiles of a walk before
+#pragma unroll
+  for (int st = 0; st < Stages - 1; ++st) {
+    if (st < ntiles) {
+      flash_copy_kv<Dh, W, kV>(smem + st * 2 * kFlashKTile * kLd, q_base, row_stride, d_model,
+                               st * kFlashKTile, n_keys, tid);
+    }
+    flash_commit();
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    flash_wait<Stages - 2>();
+    flash_sync<W>(bar);  // tile `tile` has landed; every warp is done with tile - 1
+    if (tile == 0) first();
+    const int next = tile + Stages - 1;
+    if (next < ntiles) {
+      flash_copy_kv<Dh, W, kV>(smem + (next % Stages) * 2 * kFlashKTile * kLd, q_base,
+                               row_stride, d_model, next * kFlashKTile, n_keys, tid);
+    }
+    flash_commit();
+    const __nv_bfloat16* ks = smem + (tile % Stages) * 2 * kFlashKTile * kLd;
+    const int k0 = tile * kFlashKTile;
+    step(ks, ks + kFlashKTile * kLd, k0, k0 + kFlashKTile <= n_keys);
+  }
+  flash_wait<0>();
+}
+
+// The quantizing epilogue, first half: o / max(rowsum, 1e-30) in place (K4;
+// K15, kFloor false, divides by the row sum as it is), and the max |o| over
+// the head's Dh columns of each of the warp's rows into part[row] (row = its
+// index in the chunk).
+template <int Dh, int W, bool kFloor = true>
 __device__ __forceinline__ void flash_quant_normalize(float (&o)[2][Dh / 8][4],
                                                       const float (&l)[2][2],
                                                       const bool (&has)[2], float* part,
@@ -424,7 +598,8 @@ __device__ __forceinline__ void flash_quant_normalize(float (&o)[2][Dh / 8][4],
     const int rb = warp + j * W;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float den = fmaxf(l[j][i], 1e-30f);  // rowsum floor: an underflowed row -> 0
+      // rowsum floor: an underflowed row -> 0
+      const float den = kFloor ? fmaxf(l[j][i], 1e-30f) : l[j][i];
       float mx = 0.f;
 #pragma unroll
       for (int nb = 0; nb < Dh / 8; ++nb) {
@@ -439,7 +614,7 @@ __device__ __forceinline__ void flash_quant_normalize(float (&o)[2][Dh / 8][4],
   }
 }
 
-// K4's epilogue, second half: the head's codes of the warp's rows, with
+// The quantizing epilogue, second half: the head's codes of the warp's rows, with
 // amax_s[row] the row's max |o| over all heads (floored at 1e-8), staged in
 // the warp's own rows of `stage` (the chunk's Q tile) and stored 16 bytes a
 // lane to q_out (this head's first column of the chunk's image; rows d_model
@@ -478,6 +653,52 @@ __device__ __forceinline__ void flash_quant_store(const float (&o)[2][Dh / 8][4]
       }
     }
   }
+}
+
+// The value at `local` in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ float flash_cluster_load(const float* local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(flash_smem_u32(local)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void flash_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void flash_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The launch of a quantizing kernel of 32 W threads a block on `grid` (row
+// chunks, heads, image groups), the blocks of one row chunk's heads forming a
+// cluster of dims (1, heads, 1): beyond the portable 8 blocks, up to 16.
+// Sets the kernel's attributes; returns their error.
+template <typename Kernel>
+cudaError_t flash_cluster_config(Kernel kernel, dim3 grid, int threads, int smem_bytes,
+                                 cudaStream_t stream, cudaLaunchConfig_t& config,
+                                 cudaLaunchAttribute& attr) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = grid.y;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace cvt

@@ -23,19 +23,37 @@
 // again, as `q * jnp.asarray(fold, q.dtype)` does; the caller passes the
 // rounded factor.
 //
-// Bound on this card: as K4, the exp on the CUDA cores and the two products
-// at ~130 FLOP per byte, below the bf16 ridge; the variants move the CUDA-core
-// share, which is what the sweep reads.
+// Bound on this card: at (256, 257, 2304) the call reads qkv (303 MB) and
+// writes the codes (51 MB) and scales: 0.1057 ms at 3.35 TB/s, above its
+// products' 0.053 ms at 989 TFLOP/s (4 B H N^2 Dh); the exp on the CUDA
+// cores as in K4, and the variants move the CUDA-core share, which is what
+// the sweep reads.
 //
-// Design: one kernel template over (head dim, variant) on K4's loop (4 warps
-// per 64-query tile, head and image; 64-key K and V tiles in shared memory;
-// mma.sync m16n8k16), then the row pass of rowquant.cuh in the same entry
-// point. A variant's p must be taken against its FINAL row statistic to keep
-// its arithmetic (bf16s subtracts in bf16, noexp has no exponential to
-// rescale), so a row-max variant walks the key tiles twice: scores and max
-// first, then scores again, p and P V. The fixed-shift variants and normbound
-// walk them once (normbound after a pass over K alone for max_j |k_j|^2) and
-// carry no online rescale. `bb` images share one block, one after another: it
+// Design: K4's (attention_quant.cu) on the loop of attention_loop.cuh: one
+// block of 3 warps per (chunk of up to 96 query rows, head, group of bb
+// images); rows and keys cut at 16; a 2-stage cp.async ring of 64-key tiles;
+// operands by ldmatrix. A variant is a compile-time policy (VariantPolicy):
+// its score transform, its exponential, and the row statistic it takes p
+// against. That statistic must be FINAL before any p is formed, because the
+// variants round p where the JAX kernel does (bf16s subtracts in bf16, noexp
+// has no exponential to rescale), so no variant runs K4's online rescale;
+// each is a row statistic, then one walk over the keys with that fixed shift
+// per row (flash_fixed_step):
+//   - noshift, fexp_ns: a constant; one walk;
+//   - normbound: a walk over the head's K tiles alone for max_j |k_j|^2,
+//     then the per-row bound from the folded q's norm; then the walk;
+//   - base, foldscale, noexp, fexp, bf16s: walk 1 over K alone takes S and
+//     the row max (flash_max_step: no V tiles, no P V), walk 2 forms p
+//     against that max.
+// The row sum adds the rounded pairs in key order, S and P V come from the
+// same mma.sync on the same fragments, and max is exact in any order, so the
+// codes and scales are those of the earlier design (one 4-warp tile per 64
+// rows, o written to an f32 (B, N, D) scratch, then a row-pass launch) bit
+// for bit. The per-token scale spans all heads: as K4, the blocks of a row
+// chunk's H heads form a thread-block cluster (dims (1, H, 1)) and exchange
+// their row maxima through distributed shared memory (K4's epilogue
+// without its rowsum floor), so at most 16 heads, no scratch and no second
+// launch. `bb` images share a block (and its cluster) one after another: it
 // changes the grouping and nothing else, as in the JAX kernel.
 
 #include <cuda_bf16.h>
@@ -44,7 +62,7 @@
 #include <cmath>
 #include <cstdint>
 
-#include "attention_quant.cuh"
+#include "attention_loop.cuh"
 #include "rowquant.cuh"
 
 using namespace cvt;
@@ -63,9 +81,12 @@ enum Variant : int {
   kVariants = 8,
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kWarps = 3;      // warps a block, 32 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 4;  // blocks an SM, as K4
+constexpr int kStages = 2;     // K/V tiles in the ring
+constexpr int kRows = 32 * kWarps;  // query rows per chunk
+constexpr int kMaxHeads = 16;       // the largest cluster Hopper schedules
 
 // q' = bf16(q * fold) on a packed pair
 __device__ __forceinline__ uint32_t fold_pair(uint32_t raw, float fold) {
@@ -91,242 +112,247 @@ __device__ __forceinline__ float fastexp2(float t) {
   return __fmul_rn(__int_as_float(((int)i + 127) << 23), p);
 }
 
+// A variant's softmax: how its scores are formed (kScore, FlashScore), the
+// row statistic its p is taken against (kRowMax: the row max of walk 1;
+// kShift: a constant; else normbound's bound), and its p before the bf16
+// rounding (prob).
 template <int V>
-constexpr bool kTakesMax = V == kBase || V == kFoldScale || V == kNoExp || V == kFexp ||
-                           V == kBf16s;
+struct VariantPolicy {
+  static constexpr int kScore = V == kBase ? kScoreScaled : V == kBf16s ? kScoreBf16 : kScoreRaw;
+  static constexpr bool kRowMax =
+      V == kBase || V == kFoldScale || V == kNoExp || V == kFexp || V == kBf16s;
+  static constexpr float kShift = V == kFexpNs ? 110.f : 24.f;  // noshift, fexp_ns
+  __device__ __forceinline__ float operator()(float s, float m) const {
+    if (V == kNoExp) return __fsub_rn(s, m);
+    if (V == kFexp || V == kFexpNs) return fastexp2(__fsub_rn(s, m));
+    if (V == kBf16s) return expf(flash_bf16_round(__fsub_rn(s, m)));  // bf16 in, bf16 out
+    return expf(__fsub_rn(s, m));
+  }
+};
 
-// The probability of one score against its row's shift, before it is
-// rounded to bf16.
-template <int V>
-__device__ __forceinline__ float prob(float s, float m) {
-  if (V == kNoExp) return __fsub_rn(s, m);
-  if (V == kFexp || V == kFexpNs) return fastexp2(__fsub_rn(s, m));
-  if (V == kBf16s) return expf(bf16_round(__fsub_rn(s, m)));  // bf16 in, bf16 out
-  return expf(__fsub_rn(s, m));
+template <int Dh>
+constexpr int smem_bytes() {
+  // the ring and the Q rows; part and amax_s (kRows floats each); normbound's
+  // per-warp key-norm maxima
+  return 2 * flash_smem_elems<Dh, kWarps, kStages>() + (2 * kRows + kWarps) * 4;
 }
 
 template <int Dh, int V>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_variant_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ out,
-                         int n, int heads, int bb, float scale, float fold) {
-  __shared__ __align__(16) AttnSmem<Dh> sm;
-  __shared__ float red[kAttnWarps];
-
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+attention_variant_kernel(const __nv_bfloat16* __restrict__ qkv, int8_t* __restrict__ oq,
+                         float* __restrict__ os, int n, int heads, int bb, float scale,
+                         float fold) {
+  using Policy = VariantPolicy<V>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qs = smem + flash_q_offset<Dh, kStages>();
+  float* part = reinterpret_cast<float*>(smem_raw + 2 * flash_smem_elems<Dh, kWarps, kStages>());
+  float* amax_s = part + kRows;
+  float* red = amax_s + kRows;
   const int d_model = heads * Dh;
   const long long row_stride = 3LL * d_model;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y;  // = the block's rank in its cluster
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = blockIdx.x * kAttnQTile + warp * 16 + g;  // rows r0 and r0 + 8
+  const int cb = flash_chunk_blocks(n, gridDim.x);  // row blocks of a chunk
+  const int row0 = blockIdx.x * cb * 16;
+  const int cblocks = min(cb, (n + 15) / 16 - blockIdx.x * cb);
+  const bool has[2] = {warp < cblocks, warp + kWarps < cblocks};
 
   for (int img = 0; img < bb; ++img) {
     const int b = blockIdx.z * bb + img;
     const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * Dh;
-
-    uint32_t qa[Dh / 16][4];
+    flash_sync<kWarps>(0);  // the image before is done with the Q tile (its codes' staging)
+    flash_copy_q<Dh, kWarps>(qs, q_base, row_stride, row0, cblocks, n, tid);
+    flash_commit();
+    // Q's fragments, folded: taken in the image's first walk, once Q has landed
+    uint32_t qa[2][Dh / 16][4];
+    auto take_q = [&] {
+      flash_load_qa<Dh, kWarps>(qa, qs, has, warp, lane);
+      if constexpr (V != kBase) {
 #pragma unroll
-    for (int kk = 0; kk < Dh / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      const __nv_bfloat16* lo = q_base + (long long)r0 * row_stride + c;
-      const __nv_bfloat16* hi = lo + 8 * row_stride;
-      const bool lo_ok = r0 < n, hi_ok = r0 + 8 < n;
-      qa[kk][0] = lo_ok ? load_pair(lo) : 0u;
-      qa[kk][1] = hi_ok ? load_pair(hi) : 0u;
-      qa[kk][2] = lo_ok ? load_pair(lo + 8) : 0u;
-      qa[kk][3] = hi_ok ? load_pair(hi + 8) : 0u;
-      if (V != kBase) {
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) qa[kk][j] = fold_pair(qa[kk][j], fold);
-      }
-    }
-
-    // scores of one key tile against the thread's two rows, as the variant's
-    // softmax reads them; a key past the image is -inf
-    auto scores = [&](float (&s)[kAttnKTile / 8][4], int k0) {
+          for (int kk = 0; kk < Dh / 16; ++kk)
 #pragma unroll
-      for (int nb = 0; nb < kAttnKTile / 8; ++nb) {
-        s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < Dh / 16; ++kk) {
-          const __nv_bfloat16* kr = &sm.ks[nb * 8 + g][kk * 16 + t * 2];
-          mma_bf16_16816(s[nb], qa[kk], load_pair(kr), load_pair(kr + 8));
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = s[nb][j];
-          if (V == kBase) v = __fmul_rn(v, scale);
-          if (V == kBf16s) v = bf16_round(v);
-          s[nb][j] = k0 + nb * 8 + t * 2 + (j & 1) < n ? v : -INFINITY;
-        }
+            for (int e = 0; e < 4; ++e) qa[j][kk][e] = fold_pair(qa[j][kk][e], fold);
       }
     };
 
-    // the shift of rows r0 (0) and r0 + 8 (1)
-    float m[2] = {0.f, 0.f};
-    if (V == kNoShift) m[0] = m[1] = 24.f;
-    if (V == kFexpNs) m[0] = m[1] = 110.f;
-    if (kTakesMax<V>) {
-      m[0] = m[1] = -INFINITY;
-      for (int k0 = 0; k0 < n; k0 += kAttnKTile) {
-        group_sync(0);
-        load_kv_tile<Dh>(sm, q_base, row_stride, d_model, k0, n, tid);
-        group_sync(0);
-        float s[kAttnKTile / 8][4];
-        scores(s, k0);
+    // the shift of rows g (index 0) and g + 8 (1) of the warp's row blocks
+    float m[2][2];
+    if constexpr (Policy::kRowMax) {
+      // walk 1: S and the row max, over K alone
 #pragma unroll
-        for (int nb = 0; nb < kAttnKTile / 8; ++nb) {
-          m[0] = fmaxf(m[0], fmaxf(s[nb][0], s[nb][1]));
-          m[1] = fmaxf(m[1], fmaxf(s[nb][2], s[nb][3]));
+      for (int j = 0; j < 2; ++j) m[j][0] = m[j][1] = -INFINITY;
+      flash_walk<Dh, kWarps, kStages, false>(
+          q_base, row_stride, d_model, n, smem, tid, 0, take_q,
+          [&](const __nv_bfloat16* ks, const __nv_bfloat16*, int k0, bool full) {
+            flash_for_rows(has, full, [&](auto nb, auto whole) {
+              flash_max_step<Dh, Policy::kScore, decltype(nb)::value, decltype(whole)::value>(
+                  ks, k0, n, scale, qa, m, lane);
+            });
+          });
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m[j][i] = fmaxf(m[j][i], __shfl_xor_sync(0xffffffffu, m[j][i], 1));
+          m[j][i] = fmaxf(m[j][i], __shfl_xor_sync(0xffffffffu, m[j][i], 2));
         }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-      }
-    }
-    if (V == kNormBound) {
-      // max_j |k_j|^2 over the image's keys of this head
+    } else if constexpr (V == kNormBound) {
+      // max_j |k_j|^2 over the image's keys of this head: a walk over K alone,
+      // one key a thread, its columns summed in order
       float kmax = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kAttnKTile) {
-        group_sync(0);
-        load_kv_tile<Dh>(sm, q_base, row_stride, d_model, k0, n, tid);
-        group_sync(0);
-        if (tid < kAttnKTile && k0 + tid < n) {
-          float sq = 0.f;
+      flash_walk<Dh, kWarps, kStages, false>(
+          q_base, row_stride, d_model, n, smem, tid, 0, take_q,
+          [&](const __nv_bfloat16* ks, const __nv_bfloat16*, int k0, bool) {
+            if (tid < kFlashKTile && k0 + tid < n) {
+              const __nv_bfloat16* kr = ks + tid * (Dh + kFlashPad);
+              float sq = 0.f;
 #pragma unroll
-          for (int c = 0; c < Dh; c += 2) sq = __fadd_rn(sq, pair_sq(load_pair(&sm.ks[tid][c])));
-          kmax = fmaxf(kmax, sq);
+              for (int c = 0; c < Dh; c += 2) sq = __fadd_rn(sq, pair_sq(load_pair(kr + c)));
+              kmax = fmaxf(kmax, sq);
+            }
+          });
+      kmax = warp_max(kmax);
+      if (lane == 0) red[warp] = kmax;
+      flash_sync<kWarps>(0);
+      kmax = red[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) kmax = fmaxf(kmax, red[w]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!has[j]) continue;  // the same for the whole warp
+        float qn2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < Dh / 16; ++kk) {
+          qn2[0] = __fadd_rn(qn2[0], __fadd_rn(pair_sq(qa[j][kk][0]), pair_sq(qa[j][kk][2])));
+          qn2[1] = __fadd_rn(qn2[1], __fadd_rn(pair_sq(qa[j][kk][1]), pair_sq(qa[j][kk][3])));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 1));
+          qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 2));
+          m[j][i] = __fsub_rn(__fsqrt_rn(__fmul_rn(qn2[i], kmax)), 40.f);
         }
       }
-      kmax = warp_max(kmax);
-      group_sync(0);  // red may still be read for the image before
-      if (lane == 0) red[warp] = kmax;
-      group_sync(0);
-      kmax = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-      float qn2[2] = {0.f, 0.f};
+    } else {
 #pragma unroll
-      for (int kk = 0; kk < Dh / 16; ++kk) {
-        qn2[0] = __fadd_rn(qn2[0], __fadd_rn(pair_sq(qa[kk][0]), pair_sq(qa[kk][2])));
-        qn2[1] = __fadd_rn(qn2[1], __fadd_rn(pair_sq(qa[kk][1]), pair_sq(qa[kk][3])));
-      }
+      for (int j = 0; j < 2; ++j) m[j][0] = m[j][1] = Policy::kShift;
+    }
+
+    // the walk: p against the row's shift, P V and the row sum
+    float o[2][Dh / 8][4];
+    float l[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j][0] = l[j][1] = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < Dh / 8; ++nb) o[j][nb][0] = o[j][nb][1] = o[j][nb][2] = o[j][nb][3] = 0.f;
+    }
+    auto walk = [&](const __nv_bfloat16* ks, const __nv_bfloat16* vs, int k0, bool full) {
+      flash_for_rows(has, full, [&](auto nb, auto whole) {
+        flash_fixed_step<Dh, Policy::kScore, decltype(nb)::value, decltype(whole)::value>(
+            ks, vs, k0, n, scale, qa, m, l, o, lane, Policy{});
+      });
+    };
+    // Q's fragments, unless a walk before this one took them
+    auto first = [&] {
+      if constexpr (!Policy::kRowMax && V != kNormBound) take_q();
+    };
+    flash_walk<Dh, kWarps, kStages, true>(q_base, row_stride, d_model, n, smem, tid, 0, first, walk);
+    // the row sums over the four threads of a row
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 1));
-        qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 2));
-        m[i] = __fsub_rn(__fsqrt_rn(__fmul_rn(qn2[i], kmax)), 40.f);
+        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 1));
+        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 2));
       }
+    // K4's exchange (attention_quant.cu), with no floor on the row sum:
+    // 1. o / rowsum, and this head's share of each row's max |o|
+    flash_quant_normalize<Dh, kWarps, false>(o, l, has, part, warp, lane);
+    flash_cluster_arrive();
+    flash_cluster_wait();
+    // 2. row tid's amax over all heads; rank 0 writes its scale
+    if (tid < cblocks * 16 && row0 + tid < n) {
+      float amax = 0.f;
+      for (int rank = 0; rank < heads; ++rank) {
+        amax = fmaxf(amax, flash_cluster_load(part + tid, rank));
+      }
+      amax = fmaxf(amax, 1e-8f);
+      amax_s[tid] = amax;
+      if (h == 0) os[(long long)b * n + row0 + tid] = __fmul_rn(amax, kInv127);
     }
-
-    float o[Dh / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < Dh / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
-    float l[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < n; k0 += kAttnKTile) {
-      group_sync(0);
-      load_kv_tile<Dh>(sm, q_base, row_stride, d_model, k0, n, tid);
-      group_sync(0);
-      float s[kAttnKTile / 8][4];
-      scores(s, k0);
-      uint32_t pa[kAttnKTile / 16][4];
-#pragma unroll
-      for (int nb = 0; nb < kAttnKTile / 8; ++nb) {
-        float p[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // a key past the image adds nothing, whatever the variant's p of -inf
-          p[j] = s[nb][j] == -INFINITY ? 0.f : prob<V>(s[nb][j], m[j / 2]);
-        }
-        pa[nb / 2][(nb % 2) * 2 + 0] = round_pair(p[0], p[1], l[0]);
-        pa[nb / 2][(nb % 2) * 2 + 1] = round_pair(p[2], p[3], l[1]);
-      }
-#pragma unroll
-      for (int nb = 0; nb < Dh / 8; ++nb) {
-#pragma unroll
-        for (int kk = 0; kk < kAttnKTile / 16; ++kk) {
-          const __nv_bfloat16* vr = &sm.vt[nb * 8 + g][kk * 16 + t * 2];
-          mma_bf16_16816(o[nb], pa[kk], load_pair(vr), load_pair(vr + 8));
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 1));
-      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
-    }
-    float* o_base = out + (long long)b * n * d_model + h * Dh;
-#pragma unroll
-    for (int nb = 0; nb < Dh / 8; ++nb) {
-      const int c = nb * 8 + t * 2;
-      if (r0 < n) {  // the raw row sum: no floor in this kernel
-        *reinterpret_cast<float2*>(o_base + (long long)r0 * d_model + c) =
-            make_float2(__fdiv_rn(o[nb][0], l[0]), __fdiv_rn(o[nb][1], l[0]));
-      }
-      if (r0 + 8 < n) {
-        *reinterpret_cast<float2*>(o_base + (long long)(r0 + 8) * d_model + c) =
-            make_float2(__fdiv_rn(o[nb][2], l[1]), __fdiv_rn(o[nb][3], l[1]));
-      }
-    }
+    // the cluster's wait comes after the store: no block leaves, nor writes
+    // part for its next image, while a peer may still read it
+    flash_cluster_arrive();
+    __syncthreads();
+    // 3. this head's codes, staged in the warp's own rows of the Q tile
+    flash_quant_store<Dh, kWarps>(o, has, amax_s, reinterpret_cast<int8_t*>(qs),
+                                  oq + (long long)b * n * d_model + h * Dh, d_model, row0, n,
+                                  warp, lane);
+    flash_cluster_wait();
   }
 }
 
 template <int Dh, int V>
-cudaError_t launch_variant(const void* qkv, float* out, int batch, int n, int heads, int bb,
-                           float scale, float fold, cudaStream_t stream) {
-  const dim3 grid((n + kAttnQTile - 1) / kAttnQTile, heads, batch / bb);
-  attention_variant_kernel<Dh, V><<<grid, kAttnThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), out, n, heads, bb, scale, fold);
-  return cudaGetLastError();
+cudaError_t launch_variant(const void* qkv, void* oq, void* os, int batch, int n, int heads,
+                           int bb, float scale, float fold, cudaStream_t stream) {
+  auto kernel = attention_variant_kernel<Dh, V>;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      flash_cluster_config(kernel, dim3(flash_chunks(n, kWarps), heads, batch / bb), kThreads,
+                           smem_bytes<Dh>(), stream, config, attr);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const __nv_bfloat16*>(qkv),
+                            static_cast<int8_t*>(oq), static_cast<float*>(os), n, heads, bb,
+                            scale, fold);
 }
 
 template <int Dh>
-cudaError_t launch(int variant, const void* qkv, float* out, int batch, int n, int heads,
-                   int bb, float scale, float fold, cudaStream_t s) {
+cudaError_t launch(int variant, const void* qkv, void* oq, void* os, int batch, int n,
+                   int heads, int bb, float scale, float fold, cudaStream_t s) {
   switch (variant) {
-    case kBase: return launch_variant<Dh, kBase>(qkv, out, batch, n, heads, bb, scale, fold, s);
+    case kBase: return launch_variant<Dh, kBase>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
     case kFoldScale:
-      return launch_variant<Dh, kFoldScale>(qkv, out, batch, n, heads, bb, scale, fold, s);
+      return launch_variant<Dh, kFoldScale>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
     case kNoShift:
-      return launch_variant<Dh, kNoShift>(qkv, out, batch, n, heads, bb, scale, fold, s);
-    case kNoExp: return launch_variant<Dh, kNoExp>(qkv, out, batch, n, heads, bb, scale, fold, s);
-    case kFexp: return launch_variant<Dh, kFexp>(qkv, out, batch, n, heads, bb, scale, fold, s);
+      return launch_variant<Dh, kNoShift>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
+    case kNoExp:
+      return launch_variant<Dh, kNoExp>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
+    case kFexp: return launch_variant<Dh, kFexp>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
     case kFexpNs:
-      return launch_variant<Dh, kFexpNs>(qkv, out, batch, n, heads, bb, scale, fold, s);
-    case kBf16s: return launch_variant<Dh, kBf16s>(qkv, out, batch, n, heads, bb, scale, fold, s);
+      return launch_variant<Dh, kFexpNs>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
+    case kBf16s:
+      return launch_variant<Dh, kBf16s>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
     default:
-      return launch_variant<Dh, kNormBound>(qkv, out, batch, n, heads, bb, scale, fold, s);
+      return launch_variant<Dh, kNormBound>(qkv, oq, os, batch, n, heads, bb, scale, fold, s);
   }
 }
 
 }  // namespace
 
-// qkv: bf16 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned.
-// scratch: f32 (batch, n, heads * head_dim). oq: int8 (batch, n, heads *
-// head_dim); os: f32 (batch, n). variant: the Variant enum's value. bb:
-// images per block, a divisor of batch. scale: the softmax temperature (base
-// multiplies the scores by it); fold: the bf16-rounded factor the other
-// variants multiply q by. Returns the first failing launch's cudaError_t.
-extern "C" int cvt_attention_variant(const void* qkv, void* scratch, void* oq, void* os,
-                                     int variant, int batch, int n, int heads, int head_dim,
-                                     int bb, float scale, float fold, void* stream) {
-  if (batch < 1 || n < 1 || heads < 1 || bb < 1 || batch % bb || batch / bb > 65535 ||
-      heads > 65535 || variant < 0 || variant >= kVariants) {
+// qkv: bf16 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned;
+// heads at most 16 (one cluster holds every head of a row chunk). oq: int8
+// (batch, n, heads * head_dim); os: f32 (batch, n). variant: the Variant
+// enum's value. bb: images per block, a divisor of batch. scale: the softmax
+// temperature (base multiplies the scores by it); fold: the bf16-rounded
+// factor the other variants multiply q by. Returns the launch's cudaError_t.
+extern "C" int cvt_attention_variant(const void* qkv, void* oq, void* os, int variant, int batch,
+                                     int n, int heads, int head_dim, int bb, float scale,
+                                     float fold, void* stream) {
+  if (batch < 1 || n < 1 || heads < 1 || heads > kMaxHeads || bb < 1 || batch % bb ||
+      batch / bb > 65535 || variant < 0 || variant >= kVariants) {
     return (int)cudaErrorInvalidValue;
   }
-  float* out = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (head_dim) {
-    case 32: err = launch<32>(variant, qkv, out, batch, n, heads, bb, scale, fold, s); break;
-    case 64: err = launch<64>(variant, qkv, out, batch, n, heads, bb, scale, fold, s); break;
+    case 32: return (int)launch<32>(variant, qkv, oq, os, batch, n, heads, bb, scale, fold, s);
+    case 64: return (int)launch<64>(variant, qkv, oq, os, batch, n, heads, bb, scale, fold, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_rowquant(static_cast<const float*>(out), (long long)batch * n,
-                              heads * head_dim, kRowNone, nullptr, nullptr, 0.f,
-                              static_cast<int8_t*>(oq), static_cast<float*>(os), s);
 }

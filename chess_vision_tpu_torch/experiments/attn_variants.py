@@ -15,6 +15,12 @@ exponential, each a template instance of ``csrc/attention_variants.cu``:
              and exp in bf16
   normbound  foldscale with the per-row shift sqrt(|q_i|^2 max_j |k_j|^2) - 40
 
+The kernel runs the quantizing attention's loop (``csrc/attention_loop.cuh``)
+with each variant's row statistic fixed before its walk over the keys, and
+its blocks of a row chunk's heads form a thread-block cluster that exchanges
+the per-token row maxima on chip: one launch, no f32 scratch, at most
+``MAX_HEADS`` heads.
+
 ``normbound_bd`` exists in the JAX script but raises ``NameError`` when it
 is traced (it appends to a list that is never defined), so it has nothing to
 be held against and is not ported. ``score_range``, the JAX script's other
@@ -46,6 +52,7 @@ _LOG2E = 1.4426950408889634
 _SHIFT = 24.0       # noshift
 _SHIFT_EXP2 = 110.0  # fexp_ns
 _HEAD_DIMS = (32, 64)  # instantiations in csrc/attention_variants.cu
+MAX_HEADS = 16  # kMaxHeads in csrc/attention_variants.cu: one cluster's blocks
 
 
 def _check_name(name: str) -> None:
@@ -76,45 +83,53 @@ def _fastexp2(t: torch.Tensor) -> torch.Tensor:
     return e.view(torch.float32) * p
 
 
+def plain_softmax(name: str, q: torch.Tensor, k: torch.Tensor):
+    """The softmax of the named variant on bf16 q, k (B, N, H, Dh), with the
+    JAX kernel's rounding points: (s, shift, p) with s (B, H, N, N) f32 the
+    scores as the variant's softmax reads them (its factor folded into q
+    where it has one), shift the float or (B, H, N, 1) tensor each row's p is
+    taken against, and p before its rounding to bf16."""
+    _check_name(name)
+    bf16 = q.dtype
+    head_dim = q.shape[-1]
+    if name != "base":
+        q = (q.float() * _fold(name, head_dim)).to(bf16)  # both bf16, one rounding
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if name == "base":
+        s = s * (1.0 / math.sqrt(head_dim))
+    if name == "bf16s":
+        s = s.to(bf16).float()
+    if name == "noshift":
+        return s, _SHIFT, torch.exp(s - _SHIFT)
+    if name == "fexp_ns":
+        return s, _SHIFT_EXP2, _fastexp2(s - _SHIFT_EXP2)
+    if name == "normbound":
+        qn2 = q.float().square().sum(-1)                    # (B, N, H)
+        kn2max = k.float().square().sum(-1).amax(dim=1)     # (B, H)
+        m = (torch.sqrt(qn2 * kn2max[:, None]) - 40.0).permute(0, 2, 1).unsqueeze(-1)
+        return s, m, torch.exp(s - m)
+    m = s.amax(dim=-1, keepdim=True)
+    if name == "noexp":
+        return s, m, s - m
+    if name == "fexp":
+        return s, m, _fastexp2(s - m)
+    if name == "bf16s":  # subtraction and exp in bf16
+        return s, m, torch.exp((s - m).to(bf16).float())
+    return s, m, torch.exp(s - m)
+
+
 def variant_plain(name: str, num_heads: int, N: int, D: int, bb: int = 1):
     """The plain PyTorch version of ``make_variant``: the JAX kernel's steps
-    with their rounding points. ``bb`` groups images and changes nothing."""
+    with their rounding points (``plain_softmax``, then P V over the row sum
+    of the rounded p, then the row quant). ``bb`` groups images and changes
+    nothing."""
     _check_name(name)
     head_dim = D // num_heads
-    scale = 1.0 / math.sqrt(head_dim)
-    fold = _fold(name, head_dim)
 
     def run(qkv: torch.Tensor):
         B = _check_shape(qkv, N, D, bb)
-        bf16 = qkv.dtype
         q, k, v = qkv.reshape(B, N, 3, num_heads, head_dim).unbind(2)
-        if name != "base":
-            q = (q.float() * fold).to(bf16)  # both factors bf16, one rounding
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        if name == "base":
-            s = s * scale
-        if name == "bf16s":
-            s = s.to(bf16).float()
-        if name == "noshift":
-            p = torch.exp(s - _SHIFT)
-        elif name == "fexp_ns":
-            p = _fastexp2(s - _SHIFT_EXP2)
-        elif name == "normbound":
-            qn2 = q.float().square().sum(-1)                    # (B, N, H)
-            kn2max = k.float().square().sum(-1).amax(dim=1)     # (B, H)
-            m = torch.sqrt(qn2 * kn2max[:, None]) - 40.0
-            p = torch.exp(s - m.permute(0, 2, 1).unsqueeze(-1))
-        else:
-            m = s.amax(dim=-1, keepdim=True)
-            if name == "noexp":
-                p = s - m
-            elif name == "fexp":
-                p = _fastexp2(s - m)
-            elif name == "bf16s":  # subtraction and exp in bf16
-                p = torch.exp((s - m).to(bf16).float())
-            else:
-                p = torch.exp(s - m)
-        p = p.to(bf16).float()
+        p = plain_softmax(name, q, k)[2].to(qkv.dtype).float()
         rowsum = p.sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)   # (B, N, H, 1)
         o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / rowsum  # no floor
         return quantize_rows(o.reshape(B, N, D))
@@ -136,7 +151,8 @@ def make_variant(name: str, num_heads: int, N: int, D: int, bb: int = 1):
     block (a grouping only: the output does not depend on it).
 
     The function runs ``variant_plain`` on a CPU tensor; on a CUDA tensor it
-    launches the kernel (bf16, head dim 32 or 64) or raises."""
+    launches the kernel (bf16, head dim 32 or 64, at most ``MAX_HEADS``
+    heads) or raises."""
     _check_name(name)
     head_dim = D // num_heads
     plain = variant_plain(name, num_heads, N, D, bb)
@@ -154,9 +170,12 @@ def make_variant(name: str, num_heads: int, N: int, D: int, bb: int = 1):
         if D % 8 or D > 4096:
             raise ValueError(f"model width {D} must be a multiple of 8 up to "
                              "4096")
+        if num_heads > MAX_HEADS:
+            raise ValueError(f"{num_heads} heads exceed the variant kernel's "
+                             f"{MAX_HEADS} (one thread-block cluster holds "
+                             "every head of a row chunk)")
         if not qkv.is_contiguous() or qkv.data_ptr() % 16:
             raise ValueError("qkv must be contiguous and 16-byte aligned")
-        scratch = torch.empty((B, N, D), dtype=torch.float32, device=qkv.device)
         oq = torch.empty((B, N, D), dtype=torch.int8, device=qkv.device)
         os_ = torch.empty((B, N, 1), dtype=torch.float32, device=qkv.device)
         if oq.numel() == 0:
@@ -164,8 +183,8 @@ def make_variant(name: str, num_heads: int, N: int, D: int, bb: int = 1):
         lib = _build.library()
         with torch.cuda.device(qkv.device):
             rc = lib.cvt_attention_variant(
-                qkv.data_ptr(), scratch.data_ptr(), oq.data_ptr(),
-                os_.data_ptr(), VARIANTS[name], B, N, num_heads, head_dim, bb,
+                qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+                VARIANTS[name], B, N, num_heads, head_dim, bb,
                 1.0 / math.sqrt(head_dim), _fold(name, head_dim),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(rc, f"attention variant {name}")

@@ -4,7 +4,8 @@ revision's, in turns on one card, and compare their outputs.
 Two revisions compare only inside one process on one card (rates move by
 ~10% between machines), so this builds the other revision's
 ``attention.cu``, ``attention_quant.cu``, ``attention_bwd.cu``,
-``int8_matmul.cu`` and ``fused_block.cu`` (with the headers beside them) into
+``int8_matmul.cu``, ``fused_block.cu`` and ``attention_variants.cu`` (with
+the headers beside them) into
 a second library in a temporary directory, one nvcc process per source, all
 started together, and calls both libraries through the same C interface on
 the same inputs, at the ViT-B/16 shapes of the serving and training paths.
@@ -44,6 +45,12 @@ Sections (``--sections``, all by default):
            the same order, beside this checkout's chain of split kernels
            (``quant.block_int8``) timed after them, and whether x_new, yq and
            ys equal the other's bit for bit
+  k15      the attention-variant sweep's kernel, each of its 8 variants at
+           (batch, 257, 2304) with 12 heads of 64: ms in the order other,
+           this, this, other, and whether the codes and scales equal the
+           other's bit for bit; then bits alone at ragged shapes (17, 65 and
+           300 tokens; 2, 5 and 12 heads; head dims 32 and 64; one and two
+           images a block)
 
 Usage, from the repository root on a machine with a Hopper GPU:
   git archive REV chess_vision_tpu_torch/csrc | tar -x -C DIR
@@ -52,8 +59,9 @@ Usage, from the repository root on a machine with a Hopper GPU:
       [--sections variants,gemm]
 
 The other revision may have K3's older interface (a statistics scratch as its
-fourth pointer) and K4's and K5's older one (an f32 (rows, D) scratch as their
-second pointer); its fc1 epilogue gets an f32 (rows, 3072) scratch either way.
+fourth pointer), K4's and K5's older one (an f32 (rows, D) scratch as their
+second pointer) and K15's (the same scratch as its second pointer); its fc1
+epilogue gets an f32 (rows, 3072) scratch either way.
 The first line is the card's name and power limit (nvidia-smi); the last is
 one JSON object with every number.
 """
@@ -70,6 +78,7 @@ import tempfile
 
 import torch
 
+from chess_vision_tpu_torch.experiments import attn_variants as av
 from chess_vision_tpu_torch.ops import _build
 from chess_vision_tpu_torch.ops import attention as attn
 from chess_vision_tpu_torch.ops import int8_matmul as mm
@@ -92,17 +101,18 @@ def _param_count(source: str, name: str) -> int:
     return len(params.split(","))
 
 
-def build_libs(jobs: dict, out_dir: str) -> dict:
+def build_libs(jobs: dict, out_dir: str) -> tuple[dict, dict]:
     """Build one library per job (name -> (csrc directory, source names,
     extra nvcc flags)), one nvcc process per source, all started together;
-    returns name -> library path."""
+    returns name -> library path, and name -> the compiler's output."""
     nvcc = _build.find_nvcc()
-    compiles, links, paths = [], [], {}
+    compiles, links, paths, logs = [], [], {}, {}
     for name, (csrc, sources, flags) in jobs.items():
         objs = [os.path.join(out_dir, f"{name}.{src}.o") for src in sources]
         compiles += [[nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", obj,
                       os.path.join(csrc, src)] for obj, src in zip(objs, sources)]
         paths[name] = os.path.join(out_dir, f"lib{name}.so")
+        logs[name] = ""
         links.append([nvcc, *_build._ARCH, "-shared", "-o", paths[name], *objs])
     steps = _build._run_all(compiles)
     if all(step.returncode == 0 for step in steps):
@@ -111,22 +121,50 @@ def build_libs(jobs: dict, out_dir: str) -> dict:
         if step.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(step.args)}\n"
                                f"{step.stdout}\n{step.stderr}")
+    for step in steps:
+        name = os.path.basename(step.args[step.args.index("-o") + 1])
+        name = name[3:-3] if name.startswith("lib") else name.split(".")[0]
+        logs[name] += step.stdout + step.stderr
     for step in steps:  # ptxas's registers, spills and warnings of the variants
         if "-D" in " ".join(step.args):
             for line in (step.stdout + step.stderr).splitlines():
                 if re.search(r"int8_wgmma|int8_res|registers|spill|warning", line):
                     print("  ptxas " + line.strip(), flush=True)
-    return paths
+    return paths, logs
+
+
+# the attention kernels whose registers and spills are compared across builds
+_ATTN_KERNELS = ("attention_fwd_kernel", "attention_quant_kernel",
+                 "fused_block_kernel", "attention_variant_kernel")
+
+
+def ptxas_counts(log: str) -> dict:
+    """{kernel<template arguments>: [registers, spill-store bytes]} of the
+    attention kernels in a build's ptxas output (the mangled names carry a
+    hash of the build's paths, which the keys leave out)."""
+    counts = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        found = re.search(rf"({'|'.join(_ATTN_KERNELS)})((?:ILi\d+E)?(?:Li\d+E)?)",
+                          block.split("'")[0])
+        spills = re.search(r"(\d+) bytes spill stores", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        if found and spills and regs:
+            args = ",".join(re.findall(r"Li(\d+)E", found.group(2)))
+            counts[f"{found.group(1)}<{args}>"] = [int(regs.group(1)),
+                                                   int(spills.group(1))]
+    return counts
 
 
 def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
     """The other revision's library; which older interfaces it has
     (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
-    take the f32 scratch)."""
+    take the f32 scratch; ``k15_scratch``: K15 takes it)."""
     old = {"k3_stats": _param_count(os.path.join(csrc, "attention_bwd.cu"),
                                     "cvt_attention_bwd") == 10,
            "k4_scratch": _param_count(os.path.join(csrc, "attention_quant.cu"),
-                                      "cvt_attention_quant") == 12}
+                                      "cvt_attention_quant") == 12,
+           "k15_scratch": _param_count(os.path.join(csrc, "attention_variants.cu"),
+                                       "cvt_attention_variant") == 13}
     lib = ctypes.CDLL(lib_path)
     ints = [ctypes.c_int] * 4
     lib.cvt_attention_bwd.argtypes = [*[_P] * (4 if old["k3_stats"] else 3),
@@ -136,6 +174,9 @@ def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
     extra = [_P] if old["k4_scratch"] else []
     for name in ("cvt_attention_quant", "cvt_attention_quant_flat"):
         getattr(lib, name).argtypes = [*extra, *_build._SIGNATURES[name]]
+    lib.cvt_attention_variant.argtypes = [
+        *([_P] if old["k15_scratch"] else []),
+        *_build._SIGNATURES["cvt_attention_variant"]]
     for name in ("cvt_fused_block", "cvt_fused_block_scratch_bytes"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = _build._RESTYPES.get(name, ctypes.c_int)
@@ -406,9 +447,50 @@ def k14_ab(libs: dict, batch: int, fixed: bool, gen) -> dict:
             "split_chain_ms": split, "bit_identical": same}
 
 
-_SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14")
+def k15_ab(libs: dict, k15_scratch: bool, name: str, case: tuple, gen,
+           timed: bool = True) -> dict:
+    """One variant of the sweep's kernel on the same values in both
+    libraries: case (batch, tokens, heads, head dim, images a block); ms in
+    turns when ``timed``, and whether the codes and scales are equal."""
+    batch, n, heads, dh, bb = case
+    D = heads * dh
+    qkv = torch.randn((batch, n, 3 * D), device=gen.device,
+                      generator=gen).bfloat16()
+    outs = {which: (torch.empty((batch, n, D), device=gen.device,
+                                dtype=torch.int8),
+                    torch.empty((batch, n, 1), device=gen.device))
+            for which in libs}
+    scratch = torch.empty((batch, n, D), device=gen.device) if k15_scratch else None
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(which):
+        oq, os_ = outs[which]
+        extra = [scratch.data_ptr()] if which == "other" and k15_scratch else []
+        rc = libs[which].cvt_attention_variant(
+            qkv.data_ptr(), *extra, oq.data_ptr(), os_.data_ptr(),
+            av.VARIANTS[name], batch, n, heads, dh, bb, dh ** -0.5,
+            av._fold(name, dh), stream)
+        _build.check(rc, f"{which}'s attention variant {name}")
+
+    runs = {which: (lambda which=which: run(which)) for which in libs}
+    if timed:
+        times = in_turns(runs)
+    else:
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        times = None
+    same = all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"]))
+    return {"variant": name, "shape": [batch, n, 3 * D], "heads": heads,
+            "bb": bb, "ms": times, "bit_identical": same}
+
+
+_SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
-                  "int8_matmul.cu", "fused_block.cu")
+                  "int8_matmul.cu", "fused_block.cu", "attention_variants.cu")
+# (batch, tokens, heads, head dim, images a block) of k15's bits-only cases
+_K15_RAGGED = ((2, 17, 2, 32, 1), (4, 65, 5, 64, 2), (2, 300, 12, 64, 2),
+               (3, 257, 2, 32, 1))
 # this checkout's int8_matmul.cu built with timing-only macros (int8_gemm.cuh)
 _PROBES = {"probe_b_once": ["-DCVT_GEMM_PROBE=1"],
            "probe_no_epilogue_io": ["-DCVT_GEMM_PROBE=2"],
@@ -443,9 +525,15 @@ def main() -> int:
         if "variants" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("int8_matmul.cu",), flags)
                          for name, flags in _PROBES.items()})
-        paths = build_libs(jobs, tmp)
+        paths, logs = build_libs(jobs, tmp)
         other, old = load_other(paths.pop("other"), args.other_csrc)
         libs = {"other": other, "this": _build.library()}
+        report["ptxas"] = {"other": ptxas_counts(logs["other"]),
+                           "this": ptxas_counts(_build.build_log)}
+        for name in sorted(set(report["ptxas"]["other"]) | set(report["ptxas"]["this"])):
+            print(f"PTXAS {name}: other {report['ptxas']['other'].get(name)}, "
+                  f"this {report['ptxas']['this'].get(name)} "
+                  "([registers, spill-store bytes])", flush=True)
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
         if "k2" in sections:
@@ -471,6 +559,17 @@ def main() -> int:
             for fixed in (False, True):
                 report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
                 print("K14", json.dumps(report["k14"][-1]), flush=True)
+        if "k15" in sections:
+            for name in av.VARIANTS:
+                report["k15"].append(k15_ab(libs, old["k15_scratch"], name,
+                                            (args.batch, 257, 12, 64, 1), gen))
+                print("K15", json.dumps(report["k15"][-1]), flush=True)
+            for case in _K15_RAGGED:
+                same = {name: k15_ab(libs, old["k15_scratch"], name, case, gen,
+                                     timed=False)["bit_identical"]
+                        for name in av.VARIANTS}
+                report["k15"].append({"shape": list(case), "bit_identical": same})
+                print("K15", json.dumps(report["k15"][-1]), flush=True)
     print(json.dumps(report))
     return 0
 

@@ -62,7 +62,7 @@ _SIGNATURES = {
                                  ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                  _P],
     "cvt_attention_quant_max_clusters": [ctypes.c_int, ctypes.c_int],
-    "cvt_attention_variant": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "cvt_attention_variant": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],
     "cvt_fused_block": [*[_P] * 23, ctypes.c_int, ctypes.c_int, ctypes.c_int,

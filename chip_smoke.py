@@ -117,9 +117,14 @@ Phases, one line each; any failure exits non-zero before the last line:
              1 + 1 + 1 + 1 times and K4 once; checked as 14; boards/s of the
              block, flat and fused layouts at batch 256, in turns.
  16. K15     the attention-variant sweep (``experiments.attn_variants.sweep``)
-             at batch 256, which must launch each of the 8 variants; each
-             variant vs ``variant_plain`` at (256, 257, 2304) on randn values
-             within its stated tolerance, ``bb=2`` bit-identical to ``bb=1``.
+             at batch 256, which must launch each of the 8 variants 17 times
+             and the row-quant kernel never (the kernel quantizes in its one
+             launch; one call of each variant under ``torch.profiler`` must
+             run one kernel and no row pass); each variant vs
+             ``variant_plain`` at (256, 257, 2304) on randn values within its
+             stated tolerance, ``bb=2`` bit-identical to ``bb=1``; its time
+             beside the earlier design's reading (``K15_EARLIER_MS``) and
+             ptxas's registers and spills printed.
  17. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel but K3's long route, which no 257-token path
@@ -196,6 +201,12 @@ BLOCK_SCALE_RTOL = 2e-2
 # scores, differences and exponentials to bf16, so a last-bit difference in a
 # sum becomes a bf16 step of p
 VARIANT_ATOL = {"bf16s": 4e-2}
+# K15's times a call at (256, 257, 2304) in the earlier design (a 4-warp tile
+# per 64 rows, an f32 scratch and a row-pass launch), ms on the H100 80GB
+# HBM3 at 700 W: printed beside this run's for the reader, never compared
+K15_EARLIER_MS = {"base": 1.3138, "foldscale": 1.2960, "noshift": 0.8690,
+                  "noexp": 1.2769, "fexp": 1.3298, "fexp_ns": 1.0049,
+                  "bf16s": 1.3566, "normbound": 1.2766}
 # kernels of the kernels line that no main path launches
 OFF_PATH = ("fused_qkv_attention_bwd_long",)
 BATCH = 256
@@ -1387,14 +1398,19 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
     import torch
 
     from chess_vision_tpu_torch.experiments import attn_variants as av
+    from chess_vision_tpu_torch.ops import rowquant as rq
 
     reset_counts()
     times = av.sweep(BATCH)
     launches = dict(av.LAUNCHES)
-    print(f"[16 K15] sweep at batch {BATCH}: launches {launches}", flush=True)
+    row_passes = rq.LAUNCHES
+    print(f"[16 K15] sweep at batch {BATCH}: launches {launches}, row-quant "
+          f"launches {row_passes}", flush=True)
     require(list(times) == list(av.VARIANTS), f"sweep ran {list(times)}")
     require(all(count == 17 for count in launches.values()),
             f"sweep launch counts {launches}, want 1 + 16 each")
+    require(row_passes == 0, f"the sweep launched the row quant {row_passes} "
+            "times")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
     N, H, Dh = SIZE // 16 * SIZE // 16 + 1, 12, 64
@@ -1414,6 +1430,7 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
         del two, rq_, rs
         ms = cuda_ms(lambda: kernel(qkv), 20)
         plain_ms = cuda_ms(lambda: plain(qkv), 3)
+        device_kernels = profiled_kernels(lambda: kernel(qkv))
         atol = VARIANT_ATOL.get(name, ATTN_ATOL)
         entry = kernels[f"attn_variant_{name}"] = kernel_entry(
             f"attn_variant_{name}", "attention_variants.cu",
@@ -1423,12 +1440,18 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
         entry["launches"] = launches[name]
         print(f"[16 K15] variant {name} {tuple(qkv.shape)}: dequantized max "
               f"|diff| {err} (atol {atol}), {flips:.2e} of codes differ, bb=2 "
-              f"bit-identical {bb_same}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}); sweep {times[name]:.4f} ms/batch",
+              f"bit-identical {bb_same}; kernel {ms:.4f} ms (earlier design "
+              f"{K15_EARLIER_MS[name]:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); sweep "
+              f"{times[name]:.4f} ms/batch; device kernels of one call "
+              f"{device_kernels}; "
+              f"{ptxas_counts('attention_variant_kernel', Dh, av.VARIANTS[name])}",
               flush=True)
         require(finite and err <= atol, f"K15 {name}: max |diff| {err}")
         require(bb_same, f"K15 {name}: bb=2 differs from bb=1")
+        require(len(device_kernels) == 1
+                and "attention_variant_kernel" in device_kernels[0],
+                f"K15 {name}: one call ran the device kernels {device_kernels}")
         del oq, os_
     del qkv
     torch.cuda.empty_cache()
@@ -1610,20 +1633,38 @@ def k3_work(n: int, head_dim: int) -> str:
             f"{smem} bytes of shared memory per block")
 
 
-def ptxas_counts(kernel: str, head_dim: int) -> str:
-    """ptxas's registers and spills of one instantiation of a kernel, from
-    this process's build (empty when an up-to-date library was reused)."""
+def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None) -> str:
+    """ptxas's registers and spills of one instantiation of a kernel (K15's
+    of one variant), from this process's build (empty when an up-to-date
+    library was reused)."""
     import re
 
     from chess_vision_tpu_torch.ops import _build
 
+    args = f"ILi{head_dim}E" if variant is None else f"ILi{head_dim}ELi{variant}E"
     found = re.search(
-        rf"Compiling entry function '[^']*{kernel}ILi{head_dim}E[^']*'.*?"
+        rf"Compiling entry function '[^']*{kernel}{args}[^']*'.*?"
         rf"(\d+) bytes spill stores.*?Used (\d+) registers", _build.build_log,
         re.S)
     if not found:
         return "registers not in this build's log"
     return f"{found.group(2)} registers, {found.group(1)} bytes spilled"
+
+
+def profiled_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of fn runs, by
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memset" not in e.name.lower() and "memcpy" not in e.name.lower()]
 
 
 def flash_work(kernel: str, n: int, head_dim: int, extra_smem: int = 0) -> str:
