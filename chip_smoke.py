@@ -4,7 +4,16 @@
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0] [--boards 300] [--bench-boards 1024]
-                          [--profile-train N]
+                          [--profile-train N] [--profile-int8 N]
+                          [--checkpoint PATH] [--images DIR] [--keep-going]
+
+``--checkpoint`` serves phases 5, 9, 14, 15 and 17's model with a trained
+ViT-B/16 checkpoint's weights instead of random ones from ``--seed``;
+``--images`` takes those phases' boards (and the int8 calibration's) from the
+first images of a directory instead of random uint8; ``--keep-going`` prints
+a failed check and goes on, and the run still fails at its end. Without
+them (as the checks of a commit run it) the weights are random and the first
+failed check ends the run.
 
 Phases, one line each; any failure exits non-zero before the last line:
   1. device  card name, ``nvidia-smi`` name and power limit; TF32 off.
@@ -12,7 +21,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              process per source, all started together; its seconds are
              printed, and the script's total seconds before the report.
   3. K1      preprocess kernel vs its plain version, (256,256,256,3) u8 -> bf16,
-             at most 1 bf16 ulp apart.
+             bit for bit (the multiply and the add rounded apart, as the
+             plain version's; a fused multiply-add was 1 bf16 ulp off).
   4. K2      attention kernel vs ``reference_attention`` at (256,257,2304) bf16
              with 12 heads, at (3,17,96) with 1 head, and at N = 17, 64, 65,
              264, 577 and 1025 with head dims 16, 32 and 64 (the 16-row and
@@ -125,7 +135,21 @@ Phases, one line each; any failure exits non-zero before the last line:
              stated tolerance, ``bb=2`` bit-identical to ``bb=1``; its time
              beside the earlier design's reading (``K15_EARLIER_MS``) and
              ptxas's registers and spills printed.
- 17. report  the kernels JSON line (every kernel with its bound and, where
+ 17. eval    evaluation on the card: 512 random boards with labels from random
+             FENs (every eighth one legal=0) written as JPEGs with a
+             ``manifest.csv`` in the generator's schema; ``evaluate.evaluate``
+             at batch 256 on the model of phase 5 must launch K2 12 times per
+             eval batch, its metrics and device sums must equal those
+             recomputed on the host from the per-sample predictions, and its
+             predictions must equal the plain-attention forward's on every
+             square whose top-2 margin is above 2 * SQUARES_ATOL; then, in
+             subprocesses on phase 11's checkpoint, ``python -m
+             chess_vision_tpu_torch.evaluate`` (its ``eval_results.jsonl``
+             row checked) and ``python -m
+             chess_vision_tpu_torch.experiments.int8_eval --calib 8`` under
+             the block layout (its JSON parsed; agreement printed, not
+             gated on these weights).
+ 18. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel but K3's long route, which no 257-token path
              takes, must have been launched by a main path),
@@ -142,8 +166,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import ExitStack, contextmanager, nullcontext
@@ -220,9 +247,17 @@ class SmokeFailure(Exception):
     pass
 
 
+# failed checks under --keep-going; None: the first failed check raises
+FAILED: list | None = None
+
+
 def require(cond: bool, what: str) -> None:
-    if not cond:
+    if cond:
+        return
+    if FAILED is None:
         raise SmokeFailure(what)
+    FAILED.append(what)
+    print(f"CHECK FAILED: {what}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -310,6 +345,44 @@ def random_jax_params(cfg: dict, seed: int) -> dict:
             "castling_head": dense(D, 4)}
 
 
+FULL_WIDTH = {"arch": "vit", "name": "vit_base_patch16_224.augreg_in21k",
+              "input_size": SIZE, "embed_dim": 768, "depth": 12,
+              "num_heads": 12, "mlp_ratio": 4.0}
+
+
+def path_model(args) -> tuple[dict, dict]:
+    """The config and JAX-layout params of the served ViT-B/16 (phases 5, 9,
+    14, 15 and 17): random from --seed, or --checkpoint's, which must hold
+    the same full-width model."""
+    cfg = {"model": dict(FULL_WIDTH), "training": {"mixed_precision": True}}
+    if args.checkpoint is None:
+        return cfg, random_jax_params(cfg, args.seed)
+    from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(args.checkpoint)
+    model = ckpt["config"]["model"]
+    defaults = {"arch": "vit", "input_size": 224, "embed_dim": 768,
+                "depth": 12, "num_heads": 12, "mlp_ratio": 4.0}
+    other = {k: model.get(k, defaults.get(k)) for k in FULL_WIDTH
+             if model.get(k, defaults.get(k)) != FULL_WIDTH[k]}
+    require(not other, f"--checkpoint is not ViT-B/16 at {SIZE} px: {other}")
+    return cfg, ckpt["params"]
+
+
+def path_boards(args, rng, count: int) -> np.ndarray:
+    """``count`` boards: random uint8 from ``rng``, or the first images of
+    the --images directory (its manifest's order, else by name), decoded as
+    the loader decodes them."""
+    if args.images is None:
+        return rng.integers(0, 256, (count, SIZE, SIZE, 3), dtype=np.uint8)
+    from chess_vision_tpu_torch.data import ChessDataset
+
+    dataset = ChessDataset(args.images, max_samples=count, input_size=SIZE)
+    require(len(dataset) == count, f"{len(dataset)} images in {args.images}, "
+                                   f"want {count}")
+    return np.stack([dataset.load_image(i) for i in range(count)])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -320,7 +393,18 @@ def main() -> int:
     parser.add_argument("--profile-int8", type=int, default=0,
                         help="also profile this many boards through each "
                              "int8 layout")
+    parser.add_argument("--checkpoint", default=None,
+                        help="serve phases 5, 9, 14, 15 and 17 with this "
+                             "ViT-B/16 checkpoint's weights")
+    parser.add_argument("--images", default=None,
+                        help="take those phases' boards from the first "
+                             "images of this directory")
+    parser.add_argument("--keep-going", action="store_true",
+                        help="print a failed check and go on; the run fails "
+                             "at its end")
     args = parser.parse_args()
+    global FAILED
+    FAILED = [] if args.keep_going else None
 
     import torch
 
@@ -329,6 +413,7 @@ def main() -> int:
         return 2
     from chess_vision_tpu_torch import fen_to_labels
     from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.experiments.plain import forward_logits
     from chess_vision_tpu_torch.ops import _build
     from chess_vision_tpu_torch.ops import attention as attn_ops
     from chess_vision_tpu_torch.ops import preprocess as pre_ops
@@ -372,7 +457,8 @@ def main() -> int:
     print(f"[3 K1] preprocess {tuple(u8.shape)} u8->bf16: max |diff| {err} "
           f"({ulps} bf16 ulp); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
           flush=True)
-    require(ulps <= 1.0, f"K1 is {ulps} bf16 ulp from its plain version")
+    require(torch.equal(out_k, out_p),
+            f"K1 is {ulps} bf16 ulp from its plain version")
     kernels["preprocess_u8"] = kernel_entry(
         "preprocess_u8", "preprocess.cu",
         "chess_vision_tpu/ops/preprocess.py:43", err, ms, plain_ms,
@@ -411,16 +497,12 @@ def main() -> int:
     del u8
 
     # 5. full path
-    cfg = {"model": {"arch": "vit", "name": "vit_base_patch16_224.augreg_in21k",
-                     "input_size": SIZE, "embed_dim": 768, "depth": 12,
-                     "num_heads": 12, "mlp_ratio": 4.0},
-           "training": {"mixed_precision": True}}
+    cfg, params = path_model(args)
     depth = cfg["model"]["depth"]
     t0 = time.perf_counter()
-    predictor = Predictor((cfg, random_jax_params(cfg, args.seed)),
-                          batch_size=BATCH, device="cuda")
+    predictor = Predictor((cfg, params), batch_size=BATCH, device="cuda")
     rng = np.random.default_rng(args.seed)
-    boards = rng.integers(0, 256, (args.boards, SIZE, SIZE, 3), dtype=np.uint8)
+    boards = path_boards(args, rng, args.boards)
     predictor.predict_array(boards[:BATCH])  # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -433,7 +515,8 @@ def main() -> int:
     batches = math.ceil(args.boards / BATCH)
     print(f"[5 path] ViT-B/16 {SIZE}px bf16 full width, {args.boards} boards "
           f"in {batches} batches of {BATCH}: launches {launches} "
-          f"(set-up {setup_s:.1f} s)", flush=True)
+          f"(set-up {setup_s:.1f} s); weights {args.checkpoint or 'random'}, "
+          f"boards {args.images or 'random'}", flush=True)
     require(launches == {"preprocess_u8": batches,
                          "fused_qkv_attention": depth * batches},
             f"launch counts {launches} for {batches} batches")
@@ -445,9 +528,9 @@ def main() -> int:
     require(pre_ops.LAUNCHES == batches and attn_ops.LAUNCHES == depth * batches,
             "the plain-ops run launched a kernel")
 
-    logits_k = forward_logits(predictor, boards, mean, std)
+    logits_k = forward_logits(predictor, boards)
     with plain_ops(attn_ops, pre_ops):
-        logits_p = forward_logits(predictor, boards, mean, std)
+        logits_p = forward_logits(predictor, boards)
     sq_k, sq_p = logits_k["squares"], logits_p["squares"]
     require(sq_k.shape == (args.boards, 64 * 13) and np.isfinite(sq_k).all(),
             f"kernel-path logits: shape {sq_k.shape}, finite {np.isfinite(sq_k).all()}")
@@ -485,28 +568,43 @@ def main() -> int:
           flush=True)
 
     int8_kernel_phases(dev, kernels)
-    int8 = int8_path_phase(args, cfg, boards, fens, predictor, kernels, kind,
-                           smi)
+    int8 = int8_path_phase(args, cfg, params, boards, fens, predictor, kernels,
+                           kind, smi)
     del predictor
     torch.cuda.empty_cache()
     attention_bwd_phase(args, dev, kernels)
-    train_path_phase(args, kernels, kind, smi)
-    layout_kernel_phases(args, dev, int8, kernels)
-    flat = layout_path_phase(14, "flat", args, cfg, boards, int8, kernels)
-    fused = layout_path_phase(15, "fused", args, cfg, boards, int8, kernels)
-    layout_bench(args, boards, {"block": int8["predictor"], "flat": flat,
-                                "fused": fused}, kind, smi)
-    del int8, flat, fused
-    torch.cuda.empty_cache()
-    variant_sweep_phase(args, dev, kernels)
+    # phase 11's checkpoint stays in the work directory for phase 17
+    workdir = tempfile.mkdtemp(prefix="cvt_smoke_")
+    try:
+        train_ckpt = train_path_phase(args, kernels, kind, smi, workdir)
+        layout_kernel_phases(args, dev, int8, kernels)
+        flat = layout_path_phase(14, "flat", args, cfg, params, boards, int8,
+                                 kernels)
+        fused = layout_path_phase(15, "fused", args, cfg, params, boards, int8,
+                                  kernels)
+        layout_bench(args, boards, {"block": int8["predictor"], "flat": flat,
+                                    "fused": fused}, kind, smi)
+        del int8, flat, fused
+        torch.cuda.empty_cache()
+        variant_sweep_phase(args, dev, kernels)
+        eval_phase(args, cfg, params, train_ckpt, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return report(kernels, kind, smi, started)
 
-    # 17. report
+
+def report(kernels: dict, kind: str, smi: str, started: float) -> int:
+    """Phase 18: the kernels line, the card and the last line."""
+    import torch
+
     # the long route of K3 takes more than 288 tokens: no main path (257
     # tokens) runs it, so its entry keeps launches 0; phase 10 checks it
     idle = [k["name"] for k in kernels.values()
             if k["launches"] < 1 and k["name"] not in OFF_PATH]
     require(not idle, f"kernels that no path launched: {idle}")
-    print(f"[17 report] {time.perf_counter() - started:.1f} s in all, the build "
+    if FAILED:
+        raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
+    print(f"[18 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -858,7 +956,7 @@ def int8_want(layout: str, depth: int, batches: int) -> dict:
             "int8_matmul_res": batches}
 
 
-def path_op_checks(predictor, boards, mean, std) -> dict:
+def path_op_checks(predictor, boards) -> dict:
     """Run one int8 forward on ``boards`` in which every kernel call is also
     computed by its plain version on the same inputs (the path goes on with
     the kernel's outputs). Returns, per op, the worst over its calls of: max
@@ -866,10 +964,8 @@ def path_op_checks(predictor, boards, mean, std) -> dict:
     difference, dequantized max |difference| and bf16 ulps of bf16 outputs."""
     import torch
 
-    from chess_vision_tpu_torch.ops import attention as attn_ops
-    from chess_vision_tpu_torch.ops import fused_block as fb
-    from chess_vision_tpu_torch.ops import int8_matmul as mm
-    from chess_vision_tpu_torch.ops import rowquant as rq
+    from chess_vision_tpu_torch.experiments.plain import (forward_logits,
+                                                          plain_versions)
 
     worst: dict[str, dict] = {}
 
@@ -921,19 +1017,13 @@ def path_op_checks(predictor, boards, mean, std) -> dict:
             return out
         return run
 
-    hooks = [(rq, "fused_rowquant", rq.rowquant_plain),
-             (attn_ops, "fused_qkv_attention_quant",
-              attn_ops.reference_attention_quant),
-             (attn_ops, "fused_qkv_attention_quant_flat",
-              attn_ops.reference_attention_quant_flat),
-             (fb, "fused_vit_block", fb.fused_vit_block_plain)]
-    hooks += [(mm, f"int8_matmul_{k}", getattr(mm, f"int8_matmul_{k}_plain"))
-              for k in mm.LAUNCHES]
     with ExitStack() as stack:
-        for module, name, plain in hooks:
+        for module, name, plain in plain_versions():
+            if name == "preprocess_u8":  # phase 3 holds K1 bit for bit
+                continue
             stack.enter_context(
                 mock.patch.object(module, name, hook(module, name, plain)))
-        int8_logits(predictor, boards, mean, std)
+        forward_logits(predictor, boards)
     return worst
 
 
@@ -988,18 +1078,17 @@ def require_path_ops(worst: dict, tag: str = "[9 int8]") -> None:
                     f"{tag} {name} on the path: {w}")
 
 
-def build_int8_predictor(args, cfg, layout: str | None = None):
-    """``Predictor(quant="int8")`` on the seed's random weights, its shifts
-    calibrated on 8 random boards, under CHESS_VISION_INT8_LAYOUT=layout
-    (unset for None), warmed up; returns it and the set-up seconds."""
-    import os
-
+def build_int8_predictor(args, cfg, params, layout: str | None = None):
+    """``Predictor(quant="int8")`` on the path's weights (``path_model``),
+    its shifts calibrated on 8 boards (``path_boards``), under
+    CHESS_VISION_INT8_LAYOUT=layout (unset for None), warmed up; returns it
+    and the set-up seconds."""
     import torch
 
     from chess_vision_tpu_torch.serve import Predictor
 
     rng = np.random.default_rng(args.seed + 1)
-    calib = rng.integers(0, 256, (8, SIZE, SIZE, 3), dtype=np.uint8)
+    calib = path_boards(args, rng, 8)
     env = {} if layout is None else {"CHESS_VISION_INT8_LAYOUT": layout}
     t0 = time.perf_counter()
     # the Predictor decodes its calibration files; here they are boards in
@@ -1009,8 +1098,8 @@ def build_int8_predictor(args, cfg, layout: str | None = None):
             mock.patch.dict(os.environ, env):
         if layout is None:
             os.environ.pop("CHESS_VISION_INT8_LAYOUT", None)
-        predictor = Predictor((cfg, random_jax_params(cfg, args.seed)),
-                              batch_size=BATCH, device="cuda", quant="int8",
+        predictor = Predictor((cfg, params), batch_size=BATCH,
+                              device="cuda", quant="int8",
                               calib_paths=[str(i) for i in range(len(calib))])
     predictor.predict_array(
         rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8))  # warm-up
@@ -1027,7 +1116,8 @@ def check_int8_path(tag: str, predictor, args, boards, kernels: dict,
     kernels named in ``count_into`` go into the kernels line. Returns the
     FENs."""
     from chess_vision_tpu_torch import fen_to_labels
-    from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.experiments.plain import (forward_logits,
+                                                          plain_int8_ops)
 
     depth = predictor.cfg["model"]["depth"]
     layout = predictor.layout
@@ -1046,11 +1136,9 @@ def check_int8_path(tag: str, predictor, args, boards, kernels: dict,
     with plain_int8_ops():
         fens_plain = predictor.predict_array(boards)
     require(int8_counts() == want, "the plain-ops run launched a kernel")
-    data_cfg = get_data_config(predictor.cfg["model"]["name"])
-    mean, std = data_cfg["mean"], data_cfg["std"]
-    logits_k = int8_logits(predictor, boards, mean, std)
+    logits_k = forward_logits(predictor, boards)
     with plain_int8_ops():
-        logits_p = int8_logits(predictor, boards, mean, std)
+        logits_p = forward_logits(predictor, boards)
     sq_k, sq_p = logits_k["squares"], logits_p["squares"]
     require(sq_k.shape == (args.boards, 64 * 13) and np.isfinite(sq_k).all(),
             f"int8 logits: shape {sq_k.shape}, finite {np.isfinite(sq_k).all()}")
@@ -1076,7 +1164,7 @@ def check_int8_path(tag: str, predictor, args, boards, kernels: dict,
 
     # each kernel call of one batch against its plain version on the same
     # inputs, at the path's own activations (launches here are not counted)
-    worst = path_op_checks(predictor, boards[:BATCH], mean, std)
+    worst = path_op_checks(predictor, boards[:BATCH])
     print(f"{tag} each kernel call of one batch vs its plain version on "
           f"the same inputs (worst per op): {worst}", flush=True)
     calls = {name: count // batches for name, count in want.items()
@@ -1087,15 +1175,16 @@ def check_int8_path(tag: str, predictor, args, boards, kernels: dict,
     return fens
 
 
-def int8_path_phase(args, cfg, boards, fens_bf16, predictor_bf16, kernels,
-                    kind, smi) -> dict:
+def int8_path_phase(args, cfg, params, boards, fens_bf16, predictor_bf16,
+                    kernels, kind, smi) -> dict:
     """Phase 9: the int8 serving path through ``Predictor(quant="int8")``,
     the default block layout. Returns what the layout phases reuse: the
     Predictor, its shifts and its FENs."""
     from chess_vision_tpu_torch import fen_to_labels
+    from chess_vision_tpu_torch.experiments.plain import plain_int8_ops
 
     depth = cfg["model"]["depth"]
-    predictor, setup_s = build_int8_predictor(args, cfg)
+    predictor, setup_s = build_int8_predictor(args, cfg, params)
     shifts = predictor.attn_shifts
     require(len(shifts) == depth, f"{len(shifts)} calibrated shifts")
     require(predictor.layout == "block", f"layout {predictor.layout}")
@@ -1109,8 +1198,8 @@ def int8_path_phase(args, cfg, boards, fens_bf16, predictor_bf16, kernels,
          "int8_matmul_res_ln_quant", "int8_matmul_res"))
     ids_k = np.stack([fen_to_labels(f.split()[0]) for f in fens])
     ids_bf16 = np.stack([fen_to_labels(f.split()[0]) for f in fens_bf16])
-    print(f"[9 int8] int8 vs bf16 (random weights, near-tied logits; not "
-          f"gated): square agreement {(ids_k == ids_bf16).mean():.4f}, "
+    print(f"[9 int8] int8 vs bf16 (weights {args.checkpoint or 'random, '
+          'near-tied logits'}; not gated): square agreement {(ids_k == ids_bf16).mean():.4f}, "
           f"{sum(a == b for a, b in zip(fens, fens_bf16))}/{args.boards} FEN "
           f"strings identical", flush=True)
 
@@ -1169,12 +1258,12 @@ def profile_int8_batches(tag: str, predictor, bench, batch_ms: float) -> None:
                        max_name_column_width=60), flush=True)
 
 
-def layout_path_phase(number: int, layout: str, args, cfg, boards, int8: dict,
-                      kernels: dict):
+def layout_path_phase(number: int, layout: str, args, cfg, params, boards,
+                      int8: dict, kernels: dict):
     """Phases 14 and 15: the int8 serving path under
     CHESS_VISION_INT8_LAYOUT=flat or fused. Returns the Predictor."""
     tag = f"[{number} {layout}]"
-    predictor, setup_s = build_int8_predictor(args, cfg, layout)
+    predictor, setup_s = build_int8_predictor(args, cfg, params, layout)
     require(predictor.layout == layout, f"{tag} layout {predictor.layout}")
     require(predictor.attn_shifts == int8["shifts"],
             f"{tag} calibrated shifts {predictor.attn_shifts} differ from "
@@ -1458,50 +1547,6 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
 
 
 @contextmanager
-def plain_int8_ops():
-    """Route the int8 forward's kernels and the preprocess through their
-    plain PyTorch versions, on the card."""
-    from chess_vision_tpu_torch.ops import attention as attn_ops
-    from chess_vision_tpu_torch.ops import fused_block as fb
-    from chess_vision_tpu_torch.ops import int8_matmul as mm
-    from chess_vision_tpu_torch.ops import preprocess as pre_ops
-    from chess_vision_tpu_torch.ops import rowquant as rq
-
-    patches = [(rq, "fused_rowquant", rq.rowquant_plain),
-               (attn_ops, "fused_qkv_attention_quant",
-                attn_ops.reference_attention_quant),
-               (attn_ops, "fused_qkv_attention_quant_flat",
-                attn_ops.reference_attention_quant_flat),
-               (fb, "fused_vit_block", fb.fused_vit_block_plain),
-               (pre_ops, "preprocess_u8", pre_ops.preprocess_u8_plain)]
-    patches += [(mm, f"int8_matmul_{k}", getattr(mm, f"int8_matmul_{k}_plain"))
-                for k in mm.LAUNCHES]
-    with ExitStack() as stack:
-        for module, name, plain in patches:
-            stack.enter_context(mock.patch.object(module, name, plain))
-        yield
-
-
-def int8_logits(predictor, boards, mean, std) -> dict[str, np.ndarray]:
-    import torch
-
-    from chess_vision_tpu_torch.ops import preprocess as pre_ops
-    from chess_vision_tpu_torch.ops import quant
-
-    outs = []
-    with torch.inference_mode():
-        for start in range(0, len(boards), BATCH):
-            u8 = torch.from_numpy(boards[start:start + BATCH]).to("cuda")
-            x = pre_ops.preprocess_u8(u8, mean, std, torch.bfloat16)
-            out = quant.chessvit_int8_apply(
-                predictor.pack, x, predictor.attn_shifts, gelu=predictor.gelu,
-                num_heads=predictor.cfg["model"]["num_heads"],
-                layout=predictor.layout)
-            outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-
-
-@contextmanager
 def plain_ops(attn_ops, pre_ops):
     """Route the model's attention and the Predictor's preprocess through the
     plain PyTorch versions, on the card."""
@@ -1511,20 +1556,6 @@ def plain_ops(attn_ops, pre_ops):
                               pre_ops.preprocess_u8_plain):
         yield
 
-
-def forward_logits(predictor, boards, mean, std) -> dict[str, np.ndarray]:
-    import torch
-
-    from chess_vision_tpu_torch.ops import preprocess as pre_ops
-
-    outs = []
-    with torch.inference_mode():
-        for start in range(0, len(boards), BATCH):
-            u8 = torch.from_numpy(boards[start:start + BATCH]).to("cuda")
-            x = pre_ops.preprocess_u8(u8, mean, std, predictor.model.dtype)
-            outs.append({k: v.cpu().numpy()
-                         for k, v in predictor.model(x).items()})
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 def sdpa_ms(qkv, g, H: int) -> tuple[float, float]:
     """The library yardstick of K2 and K3, which the port never calls:
@@ -1805,12 +1836,10 @@ def make_trainer(cfg: dict, corpus, seed: int, steps_per_epoch: int = 4):
     return state, train_step, eval_step, batches
 
 
-def train_path_phase(args, kernels: dict, kind: str, smi: str) -> None:
-    """Phase 11: the training path at full width."""
-    import copy
-    import shutil
-    import tempfile
-
+def train_path_phase(args, kernels: dict, kind: str, smi: str,
+                     workdir: str) -> str:
+    """Phase 11: the training path at full width. Returns the path of its
+    ``latest.ckpt``, moved into ``workdir``."""
     import torch
 
     from chess_vision_tpu_torch.augment import draw_params
@@ -1829,7 +1858,8 @@ def train_path_phase(args, kernels: dict, kind: str, smi: str) -> None:
           flush=True)
 
     # the main path: the function the CLI calls, 2 epochs of 4 steps
-    save_dir = tempfile.mkdtemp(prefix="cvt_smoke_")
+    save_dir = os.path.join(workdir, "train")
+    kept = os.path.join(workdir, "ckpt", "latest.ckpt")
     per_step = []
 
     def on_step(step_kind, sums):
@@ -1847,7 +1877,9 @@ def train_path_phase(args, kernels: dict, kind: str, smi: str) -> None:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        ckpt = load_checkpoint(save_dir + "/latest.ckpt")
+        os.makedirs(os.path.dirname(kept))
+        shutil.move(os.path.join(save_dir, "latest.ckpt"), kept)
+        ckpt = load_checkpoint(kept)
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
     history = result["history"]
@@ -1961,6 +1993,7 @@ def train_path_phase(args, kernels: dict, kind: str, smi: str) -> None:
     if args.profile_train:
         profile_train_steps(step_k, batches, args.profile_train,
                             TRAIN_BATCH / rates["kernel"][-1] * 1e3)
+    return kept
 
 
 def step_with_grads(state, train_step, batch, aug):
@@ -2013,6 +2046,228 @@ def profile_train_steps(train_step, batches, steps: int, step_ms: float) -> None
           flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=45,
                        max_name_column_width=60), flush=True)
+
+
+EVAL_BOARDS = 512
+MANIFEST_HEADER = ["filename", "fen", "legal", "turn", "castling", "en_passant",
+                   "piece_count", "has_highlight", "style", "flipped"]
+
+
+def write_eval_boards(out_dir: str, count: int, seed: int) -> int:
+    """``count`` random uint8 boards as JPEGs, with a ``manifest.csv`` in the
+    generator's schema and labels from ``random_fen``; every eighth board is
+    an illegal one (legal 0, white to move, no castling), as the generator's
+    random positions are. Returns the number of legal boards."""
+    import csv
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 2)
+    os.makedirs(out_dir)
+    rows = []
+    for i in range(count):
+        legal = i % 8 != 7
+        placement, turn, castling, ep = random_fen(rng).split()[:4]
+        if not legal:
+            turn, castling = "w", "-"
+        name = f"{i:06d}.jpg"
+        Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+                        ).save(os.path.join(out_dir, name), quality=90)
+        rows.append([name, f"{placement} {turn} {castling} {ep}", int(legal),
+                     turn, castling, ep, sum(c.isalpha() for c in placement),
+                     0, "noise", 0])
+    with open(os.path.join(out_dir, "manifest.csv"), "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(MANIFEST_HEADER)
+        writer.writerows(rows)
+    return sum(int(r[2]) for r in rows)
+
+
+def eval_phase(args, cfg, params, train_ckpt: str, workdir: str) -> None:
+    """Phase 17: evaluation on the card, in process on the model of phase 5,
+    and its CLIs in subprocesses on phase 11's checkpoint."""
+    import torch
+
+    from chess_vision_tpu_torch import evaluate as ev
+    from chess_vision_tpu_torch.augment import preprocess_eval_batch
+    from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.data import BatchLoader, ChessDataset
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    tag = "[17 eval]"
+    depth = cfg["model"]["depth"]
+    test_dir = os.path.join(workdir, "eval")
+    t0 = time.perf_counter()
+    n_legal = write_eval_boards(test_dir, EVAL_BOARDS, args.seed)
+    write_s = time.perf_counter() - t0
+    model = Predictor((cfg, params), batch_size=BATCH, device="cuda").model
+    data_cfg = get_data_config(cfg["model"]["name"])
+    mean, std = data_cfg["mean"], data_cfg["std"]
+    dataset = ChessDataset(test_dir, input_size=SIZE)
+    require(dataset.use_manifest and len(dataset) == EVAL_BOARDS,
+            f"{tag} {len(dataset)} boards, manifest {dataset.use_manifest}")
+
+    # every eval batch with its outputs and the K2 launches it made
+    seen = []
+    make_eval_batch_fn = ev.make_eval_batch_fn
+
+    def recording(*fn_args):
+        eval_batch = make_eval_batch_fn(*fn_args)
+
+        def run(batch):
+            before = attn_ops.LAUNCHES
+            out = eval_batch(batch)
+            seen.append((batch, out, attn_ops.LAUNCHES - before))
+            return out
+
+        return run
+
+    loader = BatchLoader(dataset, np.arange(len(dataset)), BATCH, num_workers=8)
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(ev, "make_eval_batch_fn", recording):
+        metrics = ev.evaluate(model, dataset, loader, mean, std, verbose=False)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    batches = math.ceil(EVAL_BOARDS / BATCH)
+    launches = [s[2] for s in seen]
+    print(f"{tag} {EVAL_BOARDS} boards ({n_legal} legal) written in "
+          f"{write_s:.1f} s; evaluate at batch {BATCH} on the model of phase 5 "
+          f"in {eval_s:.2f} s (decode included, {EVAL_BOARDS / eval_s:.0f} "
+          f"boards/s): K2 launches per eval batch {launches}; metrics "
+          f"{metrics}", flush=True)
+    require(launches == [depth] * batches,
+            f"{tag} K2 launches per eval batch {launches}")
+    require(attn_ops.LAUNCHES == depth * batches,
+            f"{tag} {attn_ops.LAUNCHES} K2 launches in all")
+
+    # the device sums against the same counts taken on the host from the
+    # per-sample predictions and flags
+    host = dict.fromkeys(("loss_sum", *ev.COUNT_KEYS), 0)
+    conf = np.zeros((13, 13), np.int64)
+    turn_conf = torch.zeros((2, 2), dtype=torch.int64)
+    rights = np.zeros(4, np.int64)
+    device = None
+    for batch, out, _ in seen:
+        res = out["results"].cpu().numpy().astype(np.int64)
+        real = batch["mask"].cpu().numpy() > 0
+        labels = batch["squares"].cpu().numpy()
+        legal = (batch["legal"][:, 0].cpu().numpy() > 0) & real
+        preds = res[:, :64]
+        board_ok, turn_ok, cast_ok = (res[:, 64:67] > 0).T
+        require((res[:, 67] == (preds != labels).sum(1) * real).all()
+                and (board_ok == ((preds == labels).all(1) & real)).all(),
+                f"{tag} per-sample flags differ from the predictions")
+        host["squares_correct"] += int(((preds == labels) & real[:, None]).sum())
+        host["boards_correct"] += int(board_ok.sum())
+        host["turn_correct_legal"] += int((turn_ok & legal).sum())
+        host["castling_all_correct_legal"] += int((cast_ok & legal).sum())
+        host["full_fen_correct_legal"] += int(
+            (board_ok & turn_ok & cast_ok & legal).sum())
+        host["n_legal"] += int(legal.sum())
+        host["n"] += int(real.sum())
+        np.add.at(conf, (labels[real].ravel(), preds[real].ravel()), 1)
+        turn_conf += out["turn_conf"].cpu()
+        rights += out["castling_right_correct_legal"].cpu().numpy()
+        device = out if device is None else {
+            k: v if k == "results" else device[k] + v for k, v in out.items()}
+    sums = {k: int(device[k]) for k in ev.COUNT_KEYS}
+    host["loss_sum"] = float(device["loss_sum"])
+    n = max(host["n"], 1)
+    nl = max(host["n_legal"], 1)
+    recomputed = {
+        "loss": host["loss_sum"] / n,
+        "square_acc": host["squares_correct"] / (n * 64),
+        "board_acc": host["boards_correct"] / n,
+        "turn_acc": host["turn_correct_legal"] / nl,
+        "castling_acc": host["castling_all_correct_legal"] / nl,
+        "full_fen_acc": host["full_fen_correct_legal"] / nl,
+        "total_boards": host["n"], "total_legal": host["n_legal"]}
+    same_conf = bool((device["conf"].cpu().numpy() == conf).all())
+    print(f"{tag} device sums {sums} vs host {dict((k, host[k]) for k in sums)}; "
+          f"13x13 confusion equal {same_conf}; turn confusion "
+          f"{turn_conf.tolist()}, castling rights {rights.tolist()}", flush=True)
+    require(sums == {k: host[k] for k in ev.COUNT_KEYS},
+            f"{tag} device sums {sums} differ from the host's")
+    require(same_conf, f"{tag} the 13x13 confusion differs from the host's")
+    require(int(turn_conf.sum()) == host["n_legal"]
+            and int(turn_conf.trace()) == host["turn_correct_legal"],
+            f"{tag} turn confusion {turn_conf.tolist()}")
+    require(host["n"] == EVAL_BOARDS and host["n_legal"] == n_legal,
+            f"{tag} {host['n']} boards, {host['n_legal']} legal")
+    require(metrics == recomputed,
+            f"{tag} metrics {metrics} differ from the host's {recomputed}")
+
+    # the predictions against the plain-attention forward on the same batches
+    counts = attention_counts()
+    mismatch = confident = 0
+    with torch.no_grad(), plain_attention():
+        for batch, out, _ in seen:
+            logits = model(preprocess_eval_batch(batch, mean, std))["squares"]
+            logits = logits.float().reshape(-1, 64, 13)
+            top2 = logits.topk(2, dim=-1).values
+            sure = ((top2[..., 0] - top2[..., 1] > 2 * SQUARES_ATOL)
+                    & (batch["mask"] > 0)[:, None])
+            preds = out["results"][:, :64].long()
+            confident += int(sure.sum())
+            mismatch += int(((preds != logits.argmax(-1)) & sure).sum())
+    require(attention_counts() == counts, f"{tag} the plain forward launched K2")
+    print(f"{tag} predictions vs the plain-attention forward: {confident} of "
+          f"{EVAL_BOARDS * 64} squares have top-2 margin > {2 * SQUARES_ATOL}, "
+          f"{mismatch} differ", flush=True)
+    require(mismatch == 0, f"{tag} {mismatch} confident squares differ from plain")
+    del seen, model, device
+
+    # the CLIs, in subprocesses, on phase 11's checkpoint
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chess_vision_tpu_torch.evaluate", "--checkpoint",
+         train_ckpt, "--test-dir", test_dir, "--batch-size", str(BATCH)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"{tag} evaluate CLI exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    log = os.path.join(os.path.dirname(train_ckpt), "eval_results.jsonl")
+    with open(log) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    m = row["metrics"]
+    print(f"{tag} python -m chess_vision_tpu_torch.evaluate on phase 11's "
+          f"checkpoint ({cli_s:.1f} s, start-up included): eval_results.jsonl "
+          f"row {row}", flush=True)
+    require(row["num_samples"] == EVAL_BOARDS and m["total_boards"] == EVAL_BOARDS
+            and m["total_legal"] == n_legal and math.isfinite(m["loss"])
+            and all(0.0 <= m[k] <= 1.0 for k in recomputed
+                    if k.endswith("_acc")),
+            f"{tag} eval_results.jsonl row {row}")
+    require("EVALUATION RESULTS" in r.stdout and "GROUPED METRICS" in r.stdout,
+            f"{tag} evaluate CLI report: {r.stdout[-2000:]}")
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chess_vision_tpu_torch.experiments.int8_eval",
+         "--checkpoint", train_ckpt, "--test-dir", test_dir, "--max-samples",
+         str(EVAL_BOARDS), "--calib", "8"],
+        cwd=root, env={**env, "CHESS_VISION_INT8_LAYOUT": "block"},
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"{tag} int8_eval exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    try:
+        out = json.loads(r.stdout)
+    except ValueError:
+        out = None
+    require(isinstance(out, dict) and out.get("layout") == "block"
+            and out["bf16"]["n"] == out["int8"]["n"] == EVAL_BOARDS,
+            f"{tag} int8_eval output {r.stdout[-2000:]}")
+    print(f"{tag} python -m chess_vision_tpu_torch.experiments.int8_eval "
+          f"--calib 8 under the block layout ({cli_s:.1f} s): int8 vs bf16 on "
+          f"phase 11's weights (8 steps of training; not gated): square "
+          f"agreement {out['square_agreement']}, board agreement "
+          f"{out['board_agreement']}; board acc bf16 {out['bf16']['board_acc']}, "
+          f"int8 {out['int8']['board_acc']}", flush=True)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,10 @@ ENTRY_MODULES = (
     "chess_vision_tpu_torch.data", "chess_vision_tpu_torch.native",
     "chess_vision_tpu_torch.augment", "chess_vision_tpu_torch.utils.logging",
     "chess_vision_tpu_torch.experiments.attn_variants",
+    "chess_vision_tpu_torch.evaluate", "chess_vision_tpu_torch.visualize_failures",
+    "chess_vision_tpu_torch.experiments.int8_eval",
+    "chess_vision_tpu_torch.experiments.int8_gate",
+    "chess_vision_tpu_torch.experiments.plain",
 )
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR"
 FENS = [START, "8/8/8/8/8/8/8/8", "k7/8/8/8/8/8/8/7K",
