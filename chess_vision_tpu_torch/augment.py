@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from chess_vision_tpu_torch.ops.preprocess import (
+    constant,
     ycbcr420_to_rgb,
     ycbcr420_to_rgb_planar,
 )
@@ -124,7 +126,7 @@ def _color_jitter(x: torch.Tensor, params: dict) -> torch.Tensor:
     one its order puts there."""
     fb, fc, fs = (_c1(params[k]) for k in ("brightness", "contrast", "saturation"))
     fh = params["hue"][:, None, None]
-    perms = torch.tensor(PERMS, dtype=torch.int64, device=x.device)
+    perms = constant(PERMS, x.device, np.int64)
     order = perms[params["order"].long()]  # (B, 4)
 
     def bright(im):
@@ -202,8 +204,8 @@ def preprocess_train_batch(batch: dict, params: dict, mean, std,
     end."""
     x = apply_augment(_batch_rgb01_planar(batch), params, channel_perm_p,
                       invert_p)
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)[None, :, None, None]
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)[None, :, None, None]
+    mean = constant(mean, x.device)[None, :, None, None]
+    std = constant(std, x.device)[None, :, None, None]
     return ((x - mean) / std).permute(0, 2, 3, 1).contiguous()
 
 
@@ -213,6 +215,6 @@ def preprocess_eval_batch(batch: dict, mean, std) -> torch.Tensor:
         x = batch["image"].float() / 255.0
     else:
         x = ycbcr420_to_rgb(batch["y"], batch["cb"], batch["cr"]) / 255.0
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean = constant(mean, x.device)
+    std = constant(std, x.device)
     return (x - mean) / std

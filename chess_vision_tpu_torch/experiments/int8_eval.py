@@ -9,16 +9,17 @@ the two agree, per square and per board:
 
     python -m chess_vision_tpu_torch.experiments.int8_eval --checkpoint C \\
         --test-dir data/test [--max-samples 4096] [--batch-size 256] \\
-        [--calib 64] [--mode rgb] [--device cpu]
+        [--calib 64] [--mode ycbcr420|rgb] [--device cpu]
 
 The int8 kernel layout is ``CHESS_VISION_INT8_LAYOUT`` (block, flat or
-fused), read by the Predictor: run the script once per layout. Differences
-from the JAX script: the default ``--mode`` is ``rgb``, because the
-Predictor's ``ycbcr420`` mode is not ported (ROADMAP Queue A item 5) and
-raises; ``--calib 0`` means the exact row max in every softmax (the JAX
-package's "adaptive bound" shifts are not ported); the JSON also names the
-layout, the device and the indices of the boards whose placements differ.
-It runs on the CUDA device unless ``--device`` says otherwise.
+fused), read by the Predictor: run the script once per layout. ``--mode``
+is the Predictor's input form, ``ycbcr420`` (the JPEG's 4:2:0 planes, the
+default, as in the JAX script) or ``rgb``. Differences from the JAX script:
+``--calib 0`` means the exact row max in every softmax (the JAX package's
+"adaptive bound" shifts are not ported); the JSON also names the layout,
+the mode, the device, the board agreement on the first 512 boards (the JAX
+package's gate was read on 512) and the indices of the boards whose
+placements differ. It runs on the CUDA device unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -73,9 +74,8 @@ def main(argv=None):
     ap.add_argument("--test-dir", default="data/test")
     ap.add_argument("--max-samples", type=int, default=4096)
     ap.add_argument("--batch-size", type=int, default=256)
-    ap.add_argument("--mode", default="rgb",
-                    help="rgb; ycbcr420 is not ported yet (ROADMAP Queue A "
-                         "item 5)")
+    ap.add_argument("--mode", default="ycbcr420", choices=["ycbcr420", "rgb"],
+                    help="the Predictor's input form")
     ap.add_argument("--calib", type=int, default=0,
                     help="calibrate per-layer softmax shifts on the first N "
                          "images (0 = the exact row max)")
@@ -128,7 +128,10 @@ def main(argv=None):
             results["int8"]["square_acc"] - results["bf16"]["square_acc"], 6),
         "square_agreement": round(agree, 6),
         "board_agreement": round(board_agree, 6),
+        "board_agreement_first_512": round(
+            float(same[:512].all(axis=1).mean()), 6),
         "layout": layout,
+        "mode": args.mode,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else str(device)),
         "disagreeing_boards": np.flatnonzero(~same.all(axis=1)).tolist(),

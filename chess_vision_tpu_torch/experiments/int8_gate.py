@@ -19,13 +19,25 @@ their plain versions give the same classes on the board, the int8 scheme is
 the cause of its disagreement with bf16 ("int8 scheme"); where they do not
 ("kernels differ from plain"), it runs the board alone with each kernel
 alone on the kernels and alone on its plain version (``ablate``), which
-names the kernel that moves it. Prints one JSON object (and writes it to
+names the kernel that moves it.
+
+Then it reads which choice of the int8 scheme moves the boards that
+disagree (``schemes``): the plain versions of the block layout, on the same
+checkpoint, with one choice changed at a time against the serving scheme
+(sigmoid GELU in fc1, shifts calibrated on ``--calib`` boards, RGB input):
+the XLA-form block (``plain.xla_form_blocks``: bf16 attention, then dynamic
+row quantization, the arithmetic of the JAX package's ``xla`` and
+``hybrid`` layouts), the erf GELU, the exact row max (no calibration), and
+4:2:0 input (the files' own planes, held against bf16 on the same planes).
+Every agreement is given on all the boards and on the first 512 (the JAX
+package's gate read 512). Prints one JSON object (and writes it to
 ``--out``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -35,11 +47,19 @@ import numpy as np
 
 BATCH = 256
 LAYOUTS = ("block", "flat", "fused")
+FIRST = 512  # the JAX package's gate was read on 512 boards
+# one choice of the serving scheme changed at a time: (CHESS_VISION_GELU,
+# calibrated, mode, XLA-form blocks)
+SCHEMES = {"serving": ("sigmoid", True, "rgb", False),
+           "xla_form": ("sigmoid", True, "rgb", True),
+           "gelu_erf": ("erf", True, "rgb", False),
+           "calib_0": ("sigmoid", False, "rgb", False),
+           "ycbcr420": ("sigmoid", True, "ycbcr420", False)}
 
 
-def square_logits(predictor, boards: np.ndarray) -> np.ndarray:
+def square_logits(predictor, boards) -> np.ndarray:
     """(N, 64, 13) f32 square logits of ``predictor``'s forward on uint8
-    ``boards``."""
+    ``boards`` (or, in ycbcr420 mode, a tuple of plane stacks)."""
     from chess_vision_tpu_torch.experiments.plain import forward_logits
 
     return forward_logits(predictor, boards, BATCH)["squares"].reshape(-1, 64, 13)
@@ -57,7 +77,8 @@ def compare(bf16: np.ndarray, kernel: np.ndarray, plain: np.ndarray,
     any two of them disagree, square by square."""
     ids = {k: v.argmax(-1) for k, v in
            (("bf16", bf16), ("kernel", kernel), ("plain", plain))}
-    board = lambda a, b: float((ids[a] == ids[b]).all(axis=1).mean())  # noqa: E731
+    board = lambda a, b, n=None: float(  # noqa: E731
+        (ids[a][:n] == ids[b][:n]).all(axis=1).mean())
     marg = {k: margins(v) for k, v in
             (("bf16", bf16), ("kernel", kernel), ("plain", plain))}
     differ = (ids["kernel"] != ids["bf16"]) | (ids["kernel"] != ids["plain"])
@@ -80,6 +101,8 @@ def compare(bf16: np.ndarray, kernel: np.ndarray, plain: np.ndarray,
         "board_agreement_kernel_bf16": board("kernel", "bf16"),
         "board_agreement_plain_bf16": board("plain", "bf16"),
         "board_agreement_kernel_plain": board("kernel", "plain"),
+        f"board_agreement_kernel_bf16_first_{FIRST}": board("kernel", "bf16", FIRST),
+        f"board_agreement_plain_bf16_first_{FIRST}": board("plain", "bf16", FIRST),
         "square_agreement_kernel_bf16": float((ids["kernel"] == ids["bf16"]).mean()),
         "max_abs_logit_kernel_vs_plain": float(np.abs(kernel - plain).max()),
         "disagreeing_boards": boards,
@@ -108,6 +131,57 @@ def ablate(predictor, board: np.ndarray, squares: list[int]) -> dict:
             alone = classes()
         with plain_int8_ops(keep=tuple(w for w in WRAPPERS if w != name)):
             out[name] = {"kernel_alone": alone, "plain_alone": classes()}
+    return out
+
+
+def agreement(reference: np.ndarray, logits: np.ndarray) -> dict:
+    """Board agreement of two forwards' square classes on all the boards
+    and on the first ``FIRST``, and the boards where they differ."""
+    same = (reference.argmax(-1) == logits.argmax(-1)).all(axis=1)
+    return {"board_agreement": float(same.mean()),
+            f"board_agreement_first_{FIRST}": float(same[:FIRST].mean()),
+            "disagreeing_boards": np.flatnonzero(~same).tolist()}
+
+
+def scheme_readings(checkpoint, device, files, boards, bf16_logits,
+                    calib: int) -> dict:
+    """The plain block layout's agreement with bf16 under each of
+    ``SCHEMES``; the ycbcr420 reading decodes the files' planes and holds
+    int8 against bf16 on them."""
+    from unittest import mock
+
+    from chess_vision_tpu_torch.experiments.plain import (plain_int8_ops,
+                                                          xla_form_blocks)
+    from chess_vision_tpu_torch.serve import Predictor
+
+    planes = reference = None
+    out = {}
+    for name, (gelu, calibrated, mode, xla) in SCHEMES.items():
+        t0 = time.time()
+        if mode == "ycbcr420" and planes is None:
+            bf16 = Predictor(checkpoint, batch_size=BATCH, device=device,
+                             mode=mode)
+            decoded = [bf16._decode_planes(f) for f in files]
+            planes = tuple(np.stack([p[i] for p in decoded]) for i in range(3))
+            reference = square_logits(bf16, planes)
+            del bf16, decoded
+        env = {"CHESS_VISION_INT8_LAYOUT": "block", "CHESS_VISION_GELU": gelu}
+        with mock.patch.dict(os.environ, env):
+            int8 = Predictor(checkpoint, batch_size=BATCH, device=device,
+                             quant="int8", mode=mode,
+                             calib_paths=files[:calib] if calibrated else None)
+        with plain_int8_ops():
+            with xla_form_blocks() if xla else contextlib.nullcontext():
+                logits = square_logits(
+                    int8, planes if mode == "ycbcr420" else boards)
+        out[name] = agreement(reference if mode == "ycbcr420" else bf16_logits,
+                              logits)
+        out[name]["seconds"] = round(time.time() - t0, 1)
+        print(f"scheme {name}: board agreement with bf16 "
+              f"{out[name]['board_agreement']} (first {FIRST}: "
+              f"{out[name][f'board_agreement_first_{FIRST}']}), boards "
+              f"{out[name]['disagreeing_boards']}", file=sys.stderr, flush=True)
+        del int8
     return out
 
 
@@ -175,6 +249,8 @@ def main(argv=None) -> int:
               f"{result['board_agreement_kernel_plain']}; disagreeing boards by "
               f"cause {result['causes']}", file=sys.stderr, flush=True)
         del int8
+    out["schemes"] = scheme_readings(args.checkpoint, device, files, boards,
+                                     bf16_logits, args.calib)
     text = json.dumps(out, indent=1)
     if args.out:
         with open(args.out, "w") as f:

@@ -3,8 +3,10 @@
 The port's own copy of ``chess_vision_tpu/native``: ``decoder.cpp`` (libjpeg
 decompress, PIL-parity triangle-filter resize, raw YCbCr 4:2:0 planes) is
 compiled with ``g++`` at first use into ``chess_vision_tpu_torch/build/``
-(not tracked by git) and loaded with ``ctypes``. The call releases the GIL, so
-a Python thread pool decodes in parallel.
+(not tracked by git) and loaded with ``ctypes``; so is the port's own
+``convert.cpp`` (the RGB -> 4:2:0 host conversion of decoded boards), which
+needs no libjpeg. The calls release the GIL, so a Python thread pool decodes
+and converts in parallel.
 
 This is host I/O: when ``g++`` or libjpeg is missing, or a file is not a JPEG
 the decoder takes, the functions return ``None`` and the caller decodes with
@@ -21,52 +23,53 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_DIR, "decoder.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libcvtdecoder.so")
+_I, _L, _P = ctypes.c_int, ctypes.c_long, ctypes.c_void_p
+# library -> (source, linker flags, {function: (restype, argtypes)})
+_LIBRARIES = {
+    "decoder": ("decoder.cpp", ["-ljpeg"], {
+        "decode_resize": (_I, [ctypes.c_char_p, _L, _I, _P]),
+        "decode_ycbcr420": (_I, [ctypes.c_char_p, _L, _I, _P, _P, _P])}),
+    "convert": ("convert.cpp", [], {
+        "rgb_to_ycbcr420": (None, [_P, _I, _I, _P, _P, _P])}),
+}
 _lock = threading.Lock()
-_lib = None
-_build_failed = False
+_libs: dict = {}  # name -> CDLL, or None when it did not build
 
 
-def _build() -> None:
+def _build(source: str, path: str, flags: list) -> None:
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
-             "-shared", _SOURCE, "-o", tmp, "-ljpeg"],
+             "-ffp-contract=off", "-shared", source, "-o", tmp, *flags],
             check=True, capture_output=True)
-        os.replace(tmp, _LIB_PATH)  # atomic: concurrent builds agree
+        os.replace(tmp, path)  # atomic: concurrent builds agree
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
 
 
-def _load():
-    global _lib, _build_failed
+def _load(name: str = "decoder"):
     with _lock:
-        if _lib is not None or _build_failed:
-            return _lib
+        if name in _libs:
+            return _libs[name]
+        source, flags, functions = _LIBRARIES[name]
+        source = os.path.join(_DIR, source)
+        path = os.path.join(_BUILD_DIR, f"libcvt{name}.so")
         try:
-            if not os.path.exists(_LIB_PATH) or (
-                    os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SOURCE)):
-                _build()
-            lib = ctypes.CDLL(_LIB_PATH)
-            lib.decode_resize.restype = ctypes.c_int
-            lib.decode_resize.argtypes = [
-                ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.decode_ycbcr420.restype = ctypes.c_int
-            lib.decode_ycbcr420.argtypes = [
-                ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            _lib = lib
+            if not os.path.exists(path) or (
+                    os.path.getmtime(path) < os.path.getmtime(source)):
+                _build(source, path, flags)
+            lib = ctypes.CDLL(path)
+            for fn, (restype, argtypes) in functions.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
         except (OSError, subprocess.CalledProcessError):
-            _build_failed = True
-            return None
-        return _lib
+            lib = None
+        _libs[name] = lib
+        return lib
 
 
 def available() -> bool:
@@ -121,3 +124,25 @@ def decode_ycbcr420(data: bytes, size: int):
 def decode_file_ycbcr420(path: str, size: int):
     data = _read_jpeg(path)
     return None if data is None else decode_ycbcr420(data, size)
+
+
+def rgb_to_ycbcr420_into(images: np.ndarray, y: np.ndarray, cb: np.ndarray,
+                         cr: np.ndarray) -> bool:
+    """C-contiguous uint8 (B, S, S, 3) RGB boards -> their 4:2:0 planes in
+    the C-contiguous uint8 arrays ``y`` (B, S, S), ``cb`` and ``cr`` (B, S/2,
+    S/2), byte for byte ``ops/preprocess.rgb_to_ycbcr420``'s; False (nothing
+    written) when the library is not there."""
+    lib = _load("convert")
+    if lib is None:
+        return False
+    B, S = images.shape[:2]
+    for a in (images, y, cb, cr):
+        if a.dtype != np.uint8 or not a.flags.c_contiguous:
+            raise ValueError("expected C-contiguous uint8 arrays")
+    if (images.shape != (B, S, S, 3) or y.shape != (B, S, S) or S % 2
+            or cb.shape != (B, S // 2, S // 2) or cr.shape != cb.shape):
+        raise ValueError(f"shapes {images.shape} -> {y.shape}, {cb.shape}, "
+                         f"{cr.shape}")
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    lib.rgb_to_ycbcr420(ptr(images), B, S, ptr(y), ptr(cb), ptr(cr))
+    return True

@@ -63,12 +63,18 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def layernorm_f32(x: torch.Tensor, scale, bias, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis in f32, output left in f32. Two-pass
-    statistics: the mean, then the mean of squared deviations."""
+    statistics: the mean, then the mean of squared deviations. The inverse
+    standard deviation rounds as the kernels' (``rowquant.cuh``:
+    ``__fdiv_rn(1, __fsqrt_rn(var + eps))``): a correctly rounded f32
+    square root, taken in f64 and rounded once (torch's f32 ``sqrt`` is not
+    correctly rounded on every CPU, its ``rsqrt`` not on the card), then an
+    IEEE division."""
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     cen = x - mu
     var = cen.square().mean(dim=-1, keepdim=True)
-    return (cen * torch.rsqrt(var + eps) * scale.float().to(x.device)
+    inv_std = 1.0 / torch.sqrt((var + eps).double()).float()
+    return (cen * inv_std * scale.float().to(x.device)
             + bias.float().to(x.device))
 
 

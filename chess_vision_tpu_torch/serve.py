@@ -10,8 +10,14 @@ W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
 attention kernels), with per-layer softmax shifts calibrated on a few inputs;
 ``CHESS_VISION_INT8_LAYOUT=block|flat|fused`` picks its kernel layout.
 
+``mode="ycbcr420"`` ships the JPEG's own 4:2:0 planes (Y at full size, Cb
+and Cr at half size: half the bytes of RGB) and rebuilds normalized RGB on
+the device in plain PyTorch (``ops/preprocess.ycbcr420_to_normalized``) in
+place of the preprocess kernel; files are decoded to planes by the native
+decoder, and ``predict_array``'s RGB boards are converted on the host.
+
     python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob \
-        [--quant int8 --calib 8]
+        [--mode ycbcr420] [--quant int8 --calib 8]
 """
 
 from __future__ import annotations
@@ -40,15 +46,27 @@ from chess_vision_tpu_torch.ops import quant as quant_ops
 from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
 from chess_vision_tpu_torch.utils.device import resolve_device
 
+MODES = ("rgb", "ycbcr420")
 
-def make_infer_fn(model, mean, std):
-    """Inference function: uint8 (B,S,S,3) on the model's device -> (square
-    ids u8 (B,64), turn bool (B,), castling bool (B,4)), left on the device."""
+
+def model_input(inputs, mean, std, dtype, mode: str = "rgb") -> torch.Tensor:
+    """The normalized (B, S, S, 3) model input in ``dtype`` from a batch on
+    the device: ``mode="rgb"`` takes (uint8 (B, S, S, 3),) through the
+    preprocess kernel, ``"ycbcr420"`` takes the uint8 planes (Y (B, S, S),
+    Cb, Cr (B, S/2, S/2)) through ``ycbcr420_to_normalized``."""
+    if mode == "ycbcr420":
+        return preprocess_ops.ycbcr420_to_normalized(*inputs, mean, std, dtype)
+    return preprocess_ops.preprocess_u8(inputs[0], mean, std, dtype)
+
+
+def make_infer_fn(model, mean, std, mode: str = "rgb"):
+    """Inference function: the batch's inputs on the model's device (see
+    ``model_input``) -> (square ids u8 (B,64), turn bool (B,), castling bool
+    (B,4)), left on the device."""
 
     @torch.inference_mode()
-    def infer(images_u8: torch.Tensor):
-        x = preprocess_ops.preprocess_u8(images_u8, mean, std, model.dtype)
-        out = model(x)
+    def infer(*inputs: torch.Tensor):
+        out = model(model_input(inputs, mean, std, model.dtype, mode))
         preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
         return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
 
@@ -57,15 +75,15 @@ def make_infer_fn(model, mean, std):
 
 def make_int8_infer_fn(pack, mean, std, attn_shifts=None,
                        gelu: str = "sigmoid", num_heads: int = 12,
-                       layout: str = "block"):
-    """The int8 (W8A8) counterpart of ``make_infer_fn``: same input and
+                       layout: str = "block", mode: str = "rgb"):
+    """The int8 (W8A8) counterpart of ``make_infer_fn``: same inputs and
     outputs, ChessViT run by ``ops/quant.chessvit_int8_apply`` on ``pack``
     (the port's tensors) with the calibrated ``attn_shifts``, the fc1
     ``gelu`` and the kernel ``layout`` closed in."""
 
     @torch.inference_mode()
-    def infer(images_u8: torch.Tensor):
-        x = preprocess_ops.preprocess_u8(images_u8, mean, std, torch.bfloat16)
+    def infer(*inputs: torch.Tensor):
+        x = model_input(inputs, mean, std, torch.bfloat16, mode)
         out = quant_ops.chessvit_int8_apply(pack, x, attn_shifts=attn_shifts,
                                             gelu=gelu, num_heads=num_heads,
                                             layout=layout)
@@ -76,12 +94,16 @@ def make_int8_infer_fn(pack, mean, std, attn_shifts=None,
 
 
 class _Slot:
-    """Host buffers of one in-flight batch: the staged images and the results,
-    pinned on a CUDA device so both copies run asynchronously."""
+    """Host buffers of one in-flight batch: the staged inputs (the RGB images,
+    or the Y, Cb and Cr planes) and the results, pinned on a CUDA device so
+    both copies run asynchronously."""
 
-    def __init__(self, batch: int, size: int, pin: bool):
-        self.images = torch.empty((batch, size, size, 3), dtype=torch.uint8,
-                                  pin_memory=pin)
+    def __init__(self, batch: int, size: int, pin: bool, mode: str = "rgb"):
+        shapes = ([(batch, size, size), (batch, size // 2, size // 2),
+                   (batch, size // 2, size // 2)] if mode == "ycbcr420"
+                  else [(batch, size, size, 3)])
+        self.inputs = [torch.empty(shape, dtype=torch.uint8, pin_memory=pin)
+                       for shape in shapes]
         self.preds = torch.empty((batch, 64), dtype=torch.uint8, pin_memory=pin)
         self.turn = torch.empty((batch,), dtype=torch.bool, pin_memory=pin)
         self.castling = torch.empty((batch, 4), dtype=torch.bool, pin_memory=pin)
@@ -103,15 +125,17 @@ class Predictor:
     ("block", the default, "flat" or "fused"; the JAX package's "xla" and
     "hybrid" are not ported and raise), both once, here. Then ``model`` is
     None and ``pack``, ``attn_shifts``, ``gelu`` and ``layout`` hold what
-    the forward runs on."""
+    the forward runs on. Calibration images are decoded to RGB and
+    normalized on the host in either ``mode``, as in the JAX package.
+
+    ``mode="ycbcr420"`` stages and ships 4:2:0 planes (module docstring)."""
 
     def __init__(self, checkpoint, batch_size: int = 256,
                  decode_workers: int = 8, inflight: int = 4,
                  mode: str = "rgb", quant: str | None = None, device=None,
                  calib_paths=None):
-        if mode != "rgb":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP Queue A item 5)")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant {quant!r}; expected None or 'int8'")
         self.device = resolve_device(device)
@@ -121,6 +145,7 @@ class Predictor:
         else:
             cfg, params = checkpoint
         self.cfg = cfg
+        self.mode = mode
         self.input_size = cfg["model"].get("input_size") or 224
         data_cfg = get_data_config(cfg["model"].get("name", ""))
         self.model = self.pack = self.attn_shifts = self.gelu = None
@@ -147,18 +172,18 @@ class Predictor:
             self.infer = make_int8_infer_fn(
                 self.pack, data_cfg["mean"], data_cfg["std"],
                 attn_shifts=self.attn_shifts, gelu=self.gelu,
-                num_heads=num_heads, layout=self.layout)
+                num_heads=num_heads, layout=self.layout, mode=mode)
         else:
             self.model = build_model(cfg)
             self.model.load_state_dict(state_dict_from_jax(params, cfg))
             self.model.cast_weights().to(self.device)
             self.infer = make_infer_fn(self.model, data_cfg["mean"],
-                                       data_cfg["std"])
+                                       data_cfg["std"], mode=mode)
         self.batch_size = batch_size
         self.decode_workers = decode_workers
         self.inflight = inflight
         pin = self.device.type == "cuda"
-        self._slots = [_Slot(batch_size, self.input_size, pin)
+        self._slots = [_Slot(batch_size, self.input_size, pin, mode)
                        for _ in range(inflight)]
         self._submitted = 0
 
@@ -175,18 +200,31 @@ class Predictor:
             img = img.resize((self.input_size, self.input_size), Image.BILINEAR)
         return np.asarray(img, np.uint8)
 
-    def _submit(self, images: np.ndarray) -> tuple[int, _Slot]:
-        """Stage up to batch_size images (the tail padded with the last one)
-        and enqueue their inference. A slot is reused ``inflight`` submissions
-        later, by which time its batch has been drained."""
-        count = images.shape[0]
+    def _decode_planes(self, path: str):
+        """(Y, Cb, Cr) uint8 planes: the native 4:2:0 decode when the JPEG
+        has that form at the input size, else the RGB decode converted on
+        the host."""
+        from chess_vision_tpu_torch import native
+
+        planes = native.decode_file_ycbcr420(path, self.input_size)
+        if planes is not None:
+            return planes
+        return preprocess_ops.rgb_to_ycbcr420(self._decode(path))
+
+    def _submit(self, inputs: tuple) -> tuple[int, _Slot]:
+        """Stage up to batch_size inputs (a tuple of arrays in the slot's
+        order; the tail padded with the last of them) and enqueue their
+        inference. A slot is reused ``inflight`` submissions later, by which
+        time its batch has been drained."""
         slot = self._slots[self._submitted % self.inflight]
         self._submitted += 1
-        staged = slot.images.numpy()
-        staged[:count] = images
-        staged[count:] = images[-1]
+        count = len(inputs[0])
+        for buf, arr in zip(slot.inputs, inputs):
+            staged = buf.numpy()
+            staged[:count] = arr
+            staged[count:] = arr[-1]
         preds, turn, castling = self.infer(
-            slot.images.to(self.device, non_blocking=True))
+            *(buf.to(self.device, non_blocking=True) for buf in slot.inputs))
         slot.preds.copy_(preds, non_blocking=True)
         slot.turn.copy_(turn, non_blocking=True)
         slot.castling.copy_(castling, non_blocking=True)
@@ -211,45 +249,70 @@ class Predictor:
                              f"{tuple(images_u8.shape)}")
 
     def predict_array(self, images_u8: np.ndarray) -> list[str]:
-        """uint8 (N,S,S,3) RGB -> N FEN strings (padding the tail batch)."""
+        """uint8 (N,S,S,3) RGB -> N FEN strings (padding the tail batch). In
+        ycbcr420 mode a producer thread converts each batch to planes on the
+        host, split over the ``decode_workers`` pool, while earlier batches
+        run."""
         self._check_images(images_u8)
-        fens: list[str] = []
-        window: list[tuple[int, _Slot]] = []
-        for start in range(0, images_u8.shape[0], self.batch_size):
-            window.append(self._submit(images_u8[start:start + self.batch_size]))
-            if len(window) >= self.inflight:
-                fens.extend(self._drain(*window.pop(0)))
-        while window:
-            fens.extend(self._drain(*window.pop(0)))
-        return fens
+        chunks = (images_u8[start:start + self.batch_size]
+                  for start in range(0, images_u8.shape[0], self.batch_size))
+        if self.mode == "rgb":
+            return self._run((chunk,) for chunk in chunks)
+
+        def planes(pool):
+            for chunk in chunks:
+                yield preprocess_ops.rgb_to_ycbcr420_batch(chunk, pool)
+
+        return self._run(self._ahead(planes))
 
     def predict_files(self, paths: list[str]) -> list[str]:
         """Streaming image files -> FENs: decode overlaps device compute."""
+        ycbcr = self.mode == "ycbcr420"
+        decode = self._decode_planes if ycbcr else self._decode
+
+        def batches(pool):
+            for start in range(0, len(paths), self.batch_size):
+                items = list(pool.map(decode,
+                                      paths[start:start + self.batch_size]))
+                yield (tuple(np.stack([p[i] for p in items]) for i in range(3))
+                       if ycbcr else (np.stack(items),))
+
+        return self._run(self._ahead(batches))
+
+    def _ahead(self, produce):
+        """Yield the batches of ``produce(pool)``, a generator run on a
+        producer thread with the ``decode_workers`` pool, up to ``inflight``
+        batches ahead of the consumer."""
         batch_q: queue.Queue = queue.Queue(maxsize=self.inflight)
 
         def producer():
             try:
                 with ThreadPoolExecutor(self.decode_workers) as pool:
-                    for start in range(0, len(paths), self.batch_size):
-                        chunk = paths[start:start + self.batch_size]
-                        batch_q.put(np.stack(list(pool.map(self._decode, chunk))))
+                    for batch in produce(pool):
+                        batch_q.put(batch)
                 batch_q.put(None)
             except Exception as exc:  # handed to the consumer, which raises it
                 batch_q.put(exc)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
-        fens: list[str] = []
-        window: list[tuple[int, _Slot]] = []
         while (item := batch_q.get()) is not None:
             if isinstance(item, Exception):
                 raise item
-            window.append(self._submit(item))
+            yield item
+        thread.join()
+
+    def _run(self, batches) -> list[str]:
+        """Submit each batch of inputs, keeping ``inflight`` in flight;
+        returns their FENs in order."""
+        fens: list[str] = []
+        window: list[tuple[int, _Slot]] = []
+        for inputs in batches:
+            window.append(self._submit(inputs))
             if len(window) >= self.inflight:
                 fens.extend(self._drain(*window.pop(0)))
         while window:
             fens.extend(self._drain(*window.pop(0)))
-        thread.join()
         return fens
 
 
@@ -260,8 +323,10 @@ def main(argv=None):
                         help="directory or glob of board images")
     parser.add_argument("--batch-size", type=int, default=256)
     parser.add_argument("--decode-workers", type=int, default=8)
-    parser.add_argument("--mode", choices=["rgb", "ycbcr420"], default="rgb",
-                        help="ycbcr420 is not ported yet")
+    parser.add_argument("--mode", choices=list(MODES), default="rgb",
+                        help="rgb: ship decoded RGB; ycbcr420: ship the "
+                             "JPEG's 4:2:0 planes (half the bytes) and "
+                             "rebuild RGB on the device")
     parser.add_argument("--quant", choices=["int8"], default=None,
                         help="int8 W8A8 serving (ViT only)")
     parser.add_argument("--calib", type=int, default=8,

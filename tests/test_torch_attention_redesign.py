@@ -145,22 +145,23 @@ def test_k3_routes_by_token_count():
     ({"device_cache": "auto", "transport": "packed",
       "device_cache_budget_gb": 0.001}, 24, False)])
 def test_device_cache_auto_decides_as_the_reference(data, count, engages):
-    """``auto`` streams on rgb, and engages the (unported) cache on the
-    4:2:0 transports only when the corpus fits the budget, as ``train.py``;
-    ``true`` always engages it, ``false`` and an absent key never."""
+    """``auto`` streams on rgb, and engages the cache on the 4:2:0
+    transports only when the corpus fits the budget, as ``train.py``;
+    ``true`` always engages it, ``false`` never, and an absent key is
+    ``auto``, as the reference reads it (``train.py:262``)."""
     cfg = {"model": {"input_size": 256}, "data": data}
     assert device_cache_engages(cfg, count) is engages
     for flag, want in (("true", True), ("false", False), (True, True)):
         assert device_cache_engages(
             {**cfg, "data": {**data, "device_cache": flag}}, count) is want
     absent = {k: v for k, v in data.items() if k != "device_cache"}
-    assert device_cache_engages({**cfg, "data": absent}, count) is False
+    assert device_cache_engages({**cfg, "data": absent}, count) is engages
 
 
 def test_device_cache_auto_trains_on_rgb(tmp_path):
     """``--set data.device_cache=auto`` (the reference's default) trains on
-    the rgb transport, where it raised before; the cache itself stays
-    unported (``true`` raises, tests/test_torch_train_cli.py)."""
+    the rgb transport by streaming, where it raised before; the cache itself
+    is tests/test_torch_data_device.py's."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONUNBUFFERED": "1"}
     corpus = tmp_path / "corpus"
     r = subprocess.run(

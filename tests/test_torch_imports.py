@@ -26,7 +26,8 @@ FORBIDDEN = ("chess_vision_tpu", "jax", "jaxlib", "flax", "optax")
 ENTRY_MODULES = (
     "chess_vision_tpu_torch", "chess_vision_tpu_torch.serve",
     "chess_vision_tpu_torch.predict", "chess_vision_tpu_torch.train.__main__",
-    "chess_vision_tpu_torch.data", "chess_vision_tpu_torch.native",
+    "chess_vision_tpu_torch.data", "chess_vision_tpu_torch.data_device",
+    "chess_vision_tpu_torch.native",
     "chess_vision_tpu_torch.augment", "chess_vision_tpu_torch.utils.logging",
     "chess_vision_tpu_torch.experiments.attn_variants",
     "chess_vision_tpu_torch.evaluate", "chess_vision_tpu_torch.visualize_failures",

@@ -128,6 +128,7 @@ def test_script_prints_every_key_of_the_jax_one(tiny):
         assert set(jax_metrics) | {"throughput"} == set(out[name])
         assert out[name]["n"] == 8 and out[name]["n_legal"] == 6
     assert out["layout"] == "flat" and out["device"] == "cpu"
+    assert out["mode"] == "ycbcr420"
     # the agreements are those of the two Predictors' FENs
     from chess_vision_tpu_torch.serve import Predictor
 
@@ -138,6 +139,7 @@ def test_script_prints_every_key_of_the_jax_one(tiny):
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("CHESS_VISION_INT8_LAYOUT", "flat")
             p = Predictor(path, batch_size=4, device="cpu", quant=quant,
+                          mode="ycbcr420",  # the script's default mode
                           calib_paths=files[:2] if quant else None)
         ids[quant] = int8_eval.metrics_from_fens(
             p.predict_files(files), [{"squares": np.zeros(64), "turn": [0],
@@ -148,11 +150,29 @@ def test_script_prints_every_key_of_the_jax_one(tiny):
     assert out["disagreeing_boards"] == np.flatnonzero(~same.all(axis=1)).tolist()
 
 
-def test_mode_ycbcr420_raises_naming_item_5(tiny):
+def test_mode_ycbcr420_raises_naming_item_5(tiny, capsys):
+    """The name is from when the mode raised (Queue A item 5); it is ported
+    now: ``--mode rgb`` and ``--mode ycbcr420`` each give the agreements of
+    the two Predictors in that mode."""
+    from chess_vision_tpu_torch.serve import Predictor
+
     path, img_dir = tiny
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    files = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir)
+                   if f.endswith(".jpg"))
+    for mode in ("rgb", "ycbcr420"):
         int8_eval.main(["--checkpoint", path, "--test-dir", img_dir,
-                        "--mode", "ycbcr420", "--device", "cpu"])
+                        "--mode", mode, "--batch-size", "4", "--device", "cpu"])
+        out = json.loads(capsys.readouterr().out)
+        assert out["mode"] == mode
+        ids = [int8_eval.metrics_from_fens(
+            Predictor(path, batch_size=4, device="cpu", quant=quant,
+                      mode=mode).predict_files(files),
+            [{"squares": np.zeros(64), "turn": [0], "castling": [0] * 4,
+              "legal": [0]}] * 8)[1] for quant in (None, "int8")]
+        same = ids[0] == ids[1]
+        assert out["board_agreement"] == round(float(same.all(axis=1).mean()), 6)
+        assert out["disagreeing_boards"] == np.flatnonzero(
+            ~same.all(axis=1)).tolist()
 
 
 def test_without_a_gpu_and_without_device_cpu_it_raises(tiny, monkeypatch):
@@ -186,6 +206,18 @@ def test_gate_reads_every_layout_and_names_the_cause(tiny, tmp_path):
         for board in r["disagreeing_boards"]:
             assert board["squares"] and all(
                 q["kernel_class"] != q["bf16_class"] for q in board["squares"])
+        # 8 boards: the first 512 are all of them
+        assert r["board_agreement_kernel_bf16_first_512"] == \
+            r["board_agreement_kernel_bf16"]
+    # the scheme readings: the serving scheme is the block layout's plain
+    # reading; each reading lists the boards it parts from bf16 on
+    schemes = out["schemes"]
+    assert set(schemes) == set(int8_gate.SCHEMES)
+    assert schemes["serving"]["board_agreement"] == \
+        out["layouts"]["block"]["board_agreement_plain_bf16"]
+    for name, r in schemes.items():
+        assert r["board_agreement_first_512"] == r["board_agreement"], name
+        assert len(r["disagreeing_boards"]) == round(8 * (1 - r["board_agreement"]))
     # the ablation of a board: on the CPU every kernel is its plain version
     from chess_vision_tpu_torch.experiments.plain import WRAPPERS
     from chess_vision_tpu_torch.serve import Predictor
@@ -198,6 +230,33 @@ def test_gate_reads_every_layout_and_names_the_cause(tiny, tmp_path):
     assert set(ab) == {"kernels", "plain", *WRAPPERS}
     assert all(ab[w] == {"kernel_alone": ab["plain"], "plain_alone": ab["plain"]}
                for w in WRAPPERS) and ab["kernels"] == ab["plain"]
+
+
+def test_xla_form_blocks_run_the_xla_block(tiny, monkeypatch):
+    """``plain.xla_form_blocks`` swaps each block of the block layout for
+    ``quant._block`` (bf16 attention, dynamic quantization), nothing else."""
+    from chess_vision_tpu_torch.experiments.plain import (forward_logits,
+                                                          xla_form_blocks)
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import quant
+    from chess_vision_tpu_torch.serve import Predictor
+
+    path, img_dir = tiny
+    p = Predictor(path, batch_size=4, device="cpu", quant="int8")
+    boards = np.random.default_rng(3).integers(0, 256, (2, 64, 64, 3),
+                                                dtype=np.uint8)
+    calls = []
+    block, quant_attn = quant._block, attn_ops.fused_qkv_attention_quant
+    monkeypatch.setattr(quant, "_block",
+                        lambda *a: calls.append("xla") or block(*a))
+    monkeypatch.setattr(attn_ops, "fused_qkv_attention_quant",
+                        lambda *a: calls.append("quant") or quant_attn(*a))
+    with xla_form_blocks():
+        xla = forward_logits(p, boards)["squares"]
+    assert calls == ["xla", "xla"]
+    served = forward_logits(p, boards)["squares"]
+    assert calls[2:] == ["quant", "quant"]
+    assert np.isfinite(xla).all() and xla.shape == served.shape
 
 
 def test_compare_names_a_kernel_when_plain_sides_with_bf16():

@@ -144,12 +144,28 @@ def test_predictor_without_gpu_or_device_raises(tiny_ckpt, monkeypatch):
 @pytest.mark.parametrize("kwargs", [{"mode": "ycbcr420"},
                                     {"mode": "ycbcr420", "quant": "int8"}])
 def test_unported_serving_forms_raise(tiny_ckpt, kwargs):
-    # int8 serving is ported for rgb boards; the ycbcr420 transport is not,
-    # in either precision
+    """The name is from when these forms raised (Queue A item 5); both are
+    ported now: the ycbcr420 Predictor, in bf16 and int8, stages three plane
+    buffers a slot and serves files and arrays alike (the FENs are held to
+    the JAX package in tests/test_torch_serve_ycbcr.py); an unknown mode
+    raises."""
     from chess_vision_tpu_torch.serve import Predictor
 
-    with pytest.raises(NotImplementedError):
-        Predictor(tiny_ckpt[0], device="cpu", **kwargs)
+    path, paths = tiny_ckpt
+    p = Predictor(path, batch_size=2, inflight=2, device="cpu",
+                  calib_paths=paths[:2], **kwargs)
+    assert p.mode == "ycbcr420" and len(p._slots[0].inputs) == 3
+    from_files = p.predict_files(paths)
+    planes = [p._decode_planes(f) for f in paths]
+    want = []
+    for start in range(0, len(paths), 2):
+        chunk = planes[start:start + 2]
+        want += p._drain(*p._submit(tuple(np.stack([c[i] for c in chunk])
+                                          for i in range(3))))
+    assert len(from_files) == len(paths) and from_files == want
+    assert len(p.predict_array(np.stack([p._decode(f) for f in paths]))) == len(paths)
+    with pytest.raises(ValueError, match="unknown mode"):
+        Predictor(path, device="cpu", **{**kwargs, "mode": "yuv"})
 
 
 def test_predict_array_rejects_wrong_size(tiny_ckpt):

@@ -144,7 +144,6 @@ def test_without_a_gpu_and_without_device_cpu_it_fails(corpus, tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("model.arch=cnn", "Queue A item 10"),
-    ("data.device_cache=true", "Queue A item 9"),
     ("training.tensor_parallel=2", "Queue A item 11"),
     ("model.remat=attn_out", "attn_out")])
 def test_unported_options_raise_naming_the_roadmap(corpus, tmp_path, override, match):
@@ -152,3 +151,23 @@ def test_unported_options_raise_naming_the_roadmap(corpus, tmp_path, override, m
                check=False)
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr and match in r.stderr
+
+
+def test_device_cache_true_trains_as_streaming_the_packed_transport(
+        corpus, tmp_path):
+    """``data.device_cache=true`` (the ``data.device_cache=true`` case of
+    the test above until the cache was ported) holds the corpus on the
+    device even on the rgb transport, as the reference does, and then trains
+    on its 4:2:0 planes: the same epochs, to the printed digit, as streaming
+    the packed transport."""
+    def epochs(out):
+        return [line for line in out.splitlines() if "— loss:" in line]
+
+    cached = _train(["--device", "cpu", *_overrides(corpus, tmp_path / "a", 2),
+                     "data.device_cache=true"]).stdout
+    streamed = _train(["--device", "cpu",
+                       *_overrides(corpus, tmp_path / "b", 2, "packed"),
+                       "data.device_cache=false"]).stdout
+    assert "Device cache: on" in cached and "Device cache" not in streamed
+    assert "bytes to the device a train step" in cached
+    assert len(epochs(cached)) == 4 and epochs(cached) == epochs(streamed)
