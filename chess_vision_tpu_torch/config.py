@@ -13,6 +13,13 @@ from __future__ import annotations
 import copy
 
 
+def as_bool(value) -> bool:
+    """A config flag: ``--set`` values reach the config as raw strings."""
+    if isinstance(value, str):
+        return value.lower() in ("true", "1", "yes")
+    return bool(value)
+
+
 def load_config(path: str) -> dict:
     import yaml
 
@@ -37,7 +44,7 @@ def apply_overrides(cfg: dict, overrides: list[str]) -> None:
                 except ValueError:
                     pass
         elif isinstance(orig, bool):
-            value = value.lower() in ("true", "1", "yes")
+            value = as_bool(value)
         elif isinstance(orig, int):
             value = int(value)
         elif isinstance(orig, float):

@@ -322,9 +322,10 @@ def print_grouped_metrics(dataset, sample_results):
 
 
 def load_model(checkpoint: str, device=None):
-    """The checkpoint's model with its weights on ``device`` (the CUDA device
-    unless given), in eval mode and its compute dtype; returns it and the
-    config read from the checkpoint. Only ``arch=vit`` is ported."""
+    """The checkpoint's model (any arch, its BatchNorm statistics included)
+    with its weights on ``device`` (the CUDA device unless given), in eval
+    mode and its compute dtype; returns it and the config read from the
+    checkpoint."""
     from chess_vision_tpu_torch.convert.jax_params import state_dict_from_jax
     from chess_vision_tpu_torch.models import build_model
     from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
@@ -333,13 +334,9 @@ def load_model(checkpoint: str, device=None):
     device = resolve_device(device)
     ckpt = load_checkpoint(checkpoint)
     cfg = ckpt["config"]
-    arch = cfg["model"].get("arch", "vit")
-    if arch != "vit":
-        raise NotImplementedError(
-            f"evaluating arch={arch!r} is not ported to PyTorch yet (ROADMAP "
-            "Queue A item 10, CNN and square archs)")
     model = build_model(cfg)
-    model.load_state_dict(state_dict_from_jax(ckpt["params"], cfg))
+    model.load_state_dict(state_dict_from_jax(ckpt["params"], cfg,
+                                              ckpt.get("batch_stats")))
     return model.cast_weights().to(device).eval(), cfg
 
 

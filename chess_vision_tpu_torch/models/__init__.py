@@ -1,8 +1,10 @@
 """Model dispatcher (``chess_vision_tpu/models/__init__.py``).
 
-``build_model(cfg)`` builds the ViT; the CNN and square archs are not ported
-yet (ROADMAP Queue A item 10). ``normalize_remat`` / ``resolve_remat`` choose
-the trainer's rematerialization, ``init_weights`` draws a fresh model from a
+``build_model(cfg)`` builds ``cfg["model"]["arch"]``: "vit" (the default,
+``ChessViT``), "cnn" (``ChessCNN``, ConvNeXtV2-Tiny) or "square"
+(``ChessSquareCNN``, MobileNetV4 over per-square crops), from the JAX
+package's config keys. ``normalize_remat`` / ``resolve_remat`` choose the
+ViT trainer's rematerialization, ``init_weights`` draws a fresh model from a
 seed.
 """
 
@@ -13,6 +15,10 @@ import math
 import torch
 from torch import nn
 
+from chess_vision_tpu_torch.config import as_bool
+from chess_vision_tpu_torch.models.cnn import ChessCNN
+from chess_vision_tpu_torch.models.layers import GRN, BatchNorm
+from chess_vision_tpu_torch.models.square import ChessSquareCNN
 from chess_vision_tpu_torch.models.vit import ChessViT
 
 ARCHS = ("vit", "cnn", "square")
@@ -65,13 +71,14 @@ def compute_dtype(cfg: dict) -> torch.dtype:
     return torch.bfloat16 if mixed else torch.float32
 
 
-def build_model(cfg: dict) -> ChessViT:
+def build_model(cfg: dict) -> nn.Module:
     """Build a chess recognition model from a full config dict. The model
     comes back in eval mode with PyTorch's default init; a trainer calls
-    ``init_weights`` and ``.train()``. ``model.remat`` "auto" that no caller
-    resolved means full remat, as in the JAX package."""
+    ``init_weights`` and ``.train()``. ``model.remat`` (ViT only) "auto"
+    that no caller resolved means full remat, as in the JAX package."""
     model_cfg = cfg["model"]
     arch = model_cfg.get("arch", "vit")
+    dtype = compute_dtype(cfg)
     if arch == "vit":
         remat = normalize_remat(model_cfg.get("remat", "auto"))
         return ChessViT(
@@ -79,16 +86,27 @@ def build_model(cfg: dict) -> ChessViT:
             head_dropout=model_cfg.get("head_dropout", 0.0),
             drop_path_rate=model_cfg.get("drop_path_rate", 0.0),
             remat=True if remat == "auto" else remat,
-            dtype=compute_dtype(cfg),
+            dtype=dtype,
             embed_dim=model_cfg.get("embed_dim", 768),
             depth=model_cfg.get("depth", 12),
             num_heads=model_cfg.get("num_heads", 12),
             mlp_ratio=model_cfg.get("mlp_ratio", 4.0),
         ).eval()
-    if arch in ("cnn", "square"):
-        raise NotImplementedError(
-            f"arch={arch!r} is not ported to PyTorch yet (ROADMAP Queue A "
-            "item 10, CNN and square archs)")
+    if arch == "cnn":
+        return ChessCNN(
+            head_dropout=model_cfg.get("head_dropout", 0.0),
+            drop_path_rate=model_cfg.get("drop_path_rate", 0.0),
+            dtype=dtype,
+        ).eval()
+    if arch == "square":
+        return ChessSquareCNN(
+            square_overlap=model_cfg.get("square_overlap", 1.5),
+            square_input_size=model_cfg.get("square_input_size", 64),
+            head_dropout=model_cfg.get("head_dropout", 0.0),
+            pin_backbone_bn=as_bool(model_cfg.get("pin_backbone_bn", True)),
+            turn_color_stats=as_bool(model_cfg.get("turn_color_stats", False)),
+            dtype=dtype,
+        ).eval()
     raise ValueError(f"Unknown architecture: {arch!r} (expected one of {ARCHS})")
 
 
@@ -108,26 +126,37 @@ def _trunc_normal_(tensor: torch.Tensor, std: float, gen: torch.Generator):
 
 
 @torch.no_grad()
-def init_weights(model: ChessViT, seed: int = 0) -> ChessViT:
-    """Initialize in place as the JAX package's ``init_variables`` does:
-    truncated-normal(0.02) backbone kernels, patch embedding and position
-    embedding; LeCun-normal head kernels; zero biases and CLS token; unit
-    LayerNorm scales. Drawn on the CPU from ``seed``."""
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialize in place as the JAX package's ``init_variables`` does,
+    drawn on the CPU from ``seed``: zero biases; unit LayerNorm scales; GRN
+    zeros; BatchNorm scale 1, bias 0, running mean 0 and variance 1; the
+    heads' and MobileNet's kernels LeCun-normal (flax's default: truncated
+    normal of std 1/sqrt(fan in)); the ViT's and ConvNeXt's other kernels,
+    the position embedding truncated-normal(0.02); the CLS token zero."""
     gen = torch.Generator().manual_seed(seed)
+    lecun = isinstance(model, ChessSquareCNN)
     for name, module in model.named_modules():
-        if isinstance(module, nn.LayerNorm):
+        if isinstance(module, (nn.LayerNorm, BatchNorm)):
             nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+        elif isinstance(module, GRN):
+            nn.init.zeros_(module.weight)
             nn.init.zeros_(module.bias)
         elif isinstance(module, (nn.Linear, nn.Conv2d)):
             weight = torch.empty(module.weight.shape)
-            if name.startswith("backbone."):
+            if name.startswith("backbone.") and not lecun:
                 _trunc_normal_(weight, 0.02, gen)
             else:
-                _trunc_normal_(weight, 1.0 / math.sqrt(module.in_features), gen)
+                _trunc_normal_(weight, 1.0 / math.sqrt(weight[0].numel()), gen)
             module.weight.copy_(weight)
-            nn.init.zeros_(module.bias)
-    pos = torch.empty(model.backbone.pos_embed.shape)
-    _trunc_normal_(pos, 0.02, gen)
-    model.backbone.pos_embed.copy_(pos)
-    nn.init.zeros_(model.backbone.cls_token)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+    if isinstance(model, ChessViT):
+        pos = torch.empty(model.backbone.pos_embed.shape)
+        _trunc_normal_(pos, 0.02, gen)
+        model.backbone.pos_embed.copy_(pos)
+        nn.init.zeros_(model.backbone.cls_token)
     return model

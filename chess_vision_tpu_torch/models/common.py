@@ -1,4 +1,5 @@
-"""Shared head math: additive type+color logit combination.
+"""Shared head math: additive type+color logit combination, and the heads'
+``Sequential(Dropout, Linear)`` form (keys ``type_head.1.weight``).
 
 joint[..., c] = type_logits[..., CLASS_TO_TYPE[c]] + color_logits[..., CLASS_TO_COLOR[c]]
 (``chess_vision_tpu/models/common.py``).
@@ -7,6 +8,7 @@ joint[..., c] = type_logits[..., CLASS_TO_TYPE[c]] + color_logits[..., CLASS_TO_
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from chess_vision_tpu_torch.fen import CLASS_TO_COLOR, CLASS_TO_TYPE
 
@@ -20,3 +22,7 @@ def combine_type_color(type_logits: torch.Tensor,
     t = type_logits.index_select(-1, _TYPE_INDEX.to(type_logits.device))
     c = color_logits.index_select(-1, _COLOR_INDEX.to(color_logits.device))
     return t + c
+
+
+def head(dim: int, out: int, dropout: float) -> nn.Sequential:
+    return nn.Sequential(nn.Dropout(dropout), nn.Linear(dim, out))

@@ -17,13 +17,13 @@ import torch
 from torch import nn
 
 from chess_vision_tpu_torch.fen import NUM_PIECE_COLORS, NUM_PIECE_TYPES
-from chess_vision_tpu_torch.models.common import combine_type_color
-from chess_vision_tpu_torch.models.layers import adaptive_avg_pool_nhwc, linear
+from chess_vision_tpu_torch.models.common import combine_type_color, head
+from chess_vision_tpu_torch.models.layers import (
+    adaptive_avg_pool_nhwc,
+    cast_weights,
+    linear,
+)
 from chess_vision_tpu_torch.models.vit_backbone import ViTBackbone
-
-
-def _head(dim: int, out: int, dropout: float) -> nn.Sequential:
-    return nn.Sequential(nn.Dropout(dropout), nn.Linear(dim, out))
 
 
 class ChessViT(nn.Module):
@@ -37,10 +37,10 @@ class ChessViT(nn.Module):
                                     depth=depth, num_heads=num_heads,
                                     mlp_ratio=mlp_ratio,
                                     drop_path_rate=drop_path_rate, remat=remat)
-        self.type_head = _head(embed_dim, NUM_PIECE_TYPES, head_dropout)
-        self.color_head = _head(embed_dim, NUM_PIECE_COLORS, head_dropout)
-        self.turn_head = _head(embed_dim, 1, head_dropout)
-        self.castling_head = _head(embed_dim, 4, head_dropout)
+        self.type_head = head(embed_dim, NUM_PIECE_TYPES, head_dropout)
+        self.color_head = head(embed_dim, NUM_PIECE_COLORS, head_dropout)
+        self.turn_head = head(embed_dim, 1, head_dropout)
+        self.castling_head = head(embed_dim, 4, head_dropout)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (B, H, W, 3) normalized images -> {"squares" (B, 832),
@@ -60,12 +60,4 @@ class ChessViT(nn.Module):
             "castling": linear(cls_token, self.castling_head[1]).float(),
         }
 
-    def cast_weights(self) -> "ChessViT":
-        """Round every weight except LayerNorm's to the compute dtype once,
-        in place (the per-use casts then do nothing)."""
-        for module in self.modules():
-            if isinstance(module, nn.LayerNorm):
-                continue
-            for param in module.parameters(recurse=False):
-                param.data = param.data.to(self.dtype)
-        return self
+    cast_weights = cast_weights

@@ -1,5 +1,7 @@
-"""Device ops of the port: each holds a hand-written CUDA kernel and the plain
-PyTorch version it is tested against.
+"""Device ops of the port: each op that stands for a TPU kernel of the JAX
+package holds a hand-written CUDA kernel and the plain PyTorch version it is
+tested against; ``square_crop``, which the JAX package computes in XLA, is
+plain PyTorch.
 
 Importing the package makes one small call of torch's CPU exp, which runs on
 the calling thread alone. PyTorch's CPU build sets up its vector math (exp,

@@ -2,8 +2,9 @@
 
 Counterpart of ``chess_vision_tpu/serve.py`` and the root ``serve.py`` CLI.
 Pipeline: host thread-pool decode -> uint8 NHWC batch staged in pinned host
-memory -> device (preprocess kernel, ChessViT with the attention kernel,
-argmax; only 69 bytes of results per board come back) -> host FEN assembly.
+memory -> device (preprocess kernel, the model: ChessViT with the attention
+kernel, ChessCNN or ChessSquareCNN; argmax; only 69 bytes of results per
+board come back) -> host FEN assembly.
 A bounded window of ``inflight`` batches lets decode, staging and FEN
 assembly on the host overlap the device's work. ``quant="int8"`` serves the
 W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
@@ -114,7 +115,10 @@ class Predictor:
     """Load a checkpoint once, predict FENs for images at max throughput.
 
     ``checkpoint`` is a path to a JAX-package checkpoint or a ``(cfg,
-    params)`` pair with params in the JAX layout. ``device`` defaults to the
+    params)`` pair with params in the JAX layout, or ``(cfg, params,
+    batch_stats)`` for the square model's BatchNorm. Any arch serves in
+    bf16; the weights are rounded to it once, here, and BatchNorm stays
+    unfolded, as in the JAX package. ``device`` defaults to the
     CUDA device and raises without one; pass ``device="cpu"`` to run the
     plain PyTorch ops on the CPU.
 
@@ -142,8 +146,9 @@ class Predictor:
         if isinstance(checkpoint, (str, os.PathLike)):
             ckpt = load_checkpoint(os.fspath(checkpoint))
             cfg, params = ckpt["config"], ckpt["params"]
+            batch_stats = ckpt.get("batch_stats")
         else:
-            cfg, params = checkpoint
+            cfg, params, batch_stats = (*checkpoint, None)[:3]
         self.cfg = cfg
         self.mode = mode
         self.input_size = cfg["model"].get("input_size") or 224
@@ -175,7 +180,8 @@ class Predictor:
                 num_heads=num_heads, layout=self.layout, mode=mode)
         else:
             self.model = build_model(cfg)
-            self.model.load_state_dict(state_dict_from_jax(params, cfg))
+            self.model.load_state_dict(
+                state_dict_from_jax(params, cfg, batch_stats))
             self.model.cast_weights().to(self.device)
             self.infer = make_infer_fn(self.model, data_cfg["mean"],
                                        data_cfg["std"], mode=mode)

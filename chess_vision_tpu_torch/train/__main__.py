@@ -1,6 +1,7 @@
-"""Train the flagship ChessViT on a CUDA GPU (or, asked to, on the CPU).
+"""Train a chess recognition model (``model.arch`` vit, cnn or square) on a
+CUDA GPU (or, asked to, on the CPU).
 
-Counterpart of the root ``train.py`` for ``arch=vit`` on one device:
+Counterpart of the root ``train.py`` on one device:
 
     python -m chess_vision_tpu_torch.train --config configs/vit.yaml \
         [--resume ckpt] [--reset-schedule] [--auto-resume] [--seed 0] \
@@ -11,7 +12,10 @@ Each epoch trains on the loader's batches, evaluates on the validation split
 (and the out-of-distribution set when its directory exists), and writes
 ``latest.ckpt`` (and ``best.ckpt`` on a better validation board accuracy) in
 the JAX package's checkpoint layout, so either package resumes or serves the
-other's checkpoints. ``main`` parses the command line and calls ``train``,
+other's checkpoints. The square model's BatchNorm statistics stay pinned
+(``model.pin_backbone_bn``, true by default) or, unpinned, update by flax's
+rule at every train step; either way they go into the checkpoint's
+``batch_stats``. ``main`` parses the command line and calls ``train``,
 which takes the config as a dict and the datasets as objects.
 
 ``data.device_cache`` (auto, the default, true or false) holds the corpus
@@ -37,6 +41,7 @@ import torch
 
 from chess_vision_tpu_torch.config import (
     apply_overrides,
+    as_bool,
     get_data_config,
     load_config,
 )
@@ -86,24 +91,19 @@ def maybe_load_pretrained(model, cfg: dict) -> bool:
         print(f"WARNING: pretrained weights not found at {path}; "
               "using random init (run the timm->jax converter to create them)")
         return False
-    params = load_checkpoint(path)["params"]
-    backbone = params.get("backbone", params)
-    sd = state_dict_from_tree({"backbone": backbone})
+    ckpt = load_checkpoint(path)
+    params, stats = ckpt["params"], ckpt.get("batch_stats") or {}
+    sd = state_dict_from_tree({"backbone": params.get("backbone", params)})
+    sd.update(state_dict_from_tree({"backbone": stats.get("backbone", stats)}))
     model.load_state_dict(sd, strict=False)
     print(f"Loaded pretrained backbone from {path}")
     return True
 
 
 def _check_supported(cfg: dict) -> None:
-    arch = cfg["model"].get("arch", "vit")
-    if arch != "vit":
-        raise NotImplementedError(
-            f"training arch={arch!r} is not ported to PyTorch yet (ROADMAP "
-            "Queue A item 10, CNN and square archs)")
     tcfg = cfg["training"]
     tp = int(tcfg.get("tensor_parallel", 1) or 1)
-    fsdp = str(tcfg.get("fsdp", False)).lower() in ("true", "1", "yes")
-    if tp > 1 or fsdp:
+    if tp > 1 or as_bool(tcfg.get("fsdp", False)):
         raise NotImplementedError(
             "training.tensor_parallel and training.fsdp are not ported to "
             "PyTorch yet (ROADMAP Queue A item 11, multi-device)")
@@ -120,7 +120,7 @@ def device_cache_engages(cfg: dict, n_samples: int) -> bool:
     numbers."""
     dc = cfg["data"].get("device_cache", "auto")
     if isinstance(dc, str) and dc.lower() != "auto":
-        dc = dc.lower() in ("true", "1", "yes")
+        dc = as_bool(dc)
     if dc != "auto":
         return bool(dc)
     est = DeviceData.nbytes_estimate(n_samples, int(cfg["model"]["input_size"]))
@@ -184,7 +184,7 @@ def train(cfg: dict, dataset, ood_dataset=None, *, seed: int = 0,
 
     # --- Remat policy ---
     remat_cfg = normalize_remat(cfg["model"].get("remat", "auto"))
-    if remat_cfg == "auto":
+    if remat_cfg == "auto" and cfg["model"].get("arch", "vit") == "vit":
         memory = (torch.cuda.get_device_properties(device).total_memory
                   if device.type == "cuda" else 0.0)
         held = cache_bytes if use_device_cache else 0

@@ -63,9 +63,13 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self) -> torch.Tensor:
         """One clipped AdamW update from the parameters' ``.grad``; clears the
-        gradients. Returns the global gradient norm before clipping, a 0-d
-        tensor left on the device."""
-        grads = [p.grad for p in self.params]
+        gradients. A parameter that the loss does not reach (MobileNet's
+        ``conv_head``) has no ``.grad`` and takes a zero gradient, as in
+        optax: its moments stay zero and weight decay still shrinks it.
+        Returns the global gradient norm before clipping, a 0-d tensor left
+        on the device."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
         mu = [self.mu[n] for n in self.names]
         nu = [self.nu[n] for n in self.names]
         norm = torch.linalg.vector_norm(

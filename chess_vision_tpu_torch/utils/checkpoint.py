@@ -10,8 +10,9 @@ same payload. Arrays above flax's chunk size are split into
 (read here; the writer refuses an array that large, the model has none).
 
 ``save_checkpoint`` writes {epoch, step, params, opt_state, batch_stats,
-best_val_acc, config_json} with the parameters carried through the inverse
-weight bridge and the AdamW moments laid out as the state optax gives
+best_val_acc, config_json} with the parameters and the BatchNorm running
+statistics (``batch_stats``, empty for a model without BatchNorm) carried
+through the inverse weight bridge and the AdamW moments laid out as the state optax gives
 ``chain(clip_by_global_norm, adamw(schedule))``: ``("0": {}, "1": ("0":
 {count, mu, nu}, "1": {}, "2": {count}))``, wrapped in ``multi_transform``'s
 ``inner_states`` when the backbone is frozen (its moments are then empty
@@ -29,6 +30,7 @@ import numpy as np
 from chess_vision_tpu_torch.convert.jax_params import (
     state_dict_from_tree,
     tree_from_state_dict,
+    variables_from_state_dict,
 )
 
 _EXT_NDARRAY = 1
@@ -130,7 +132,8 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
     checkpoint layout, atomically."""
     import msgpack
 
-    params_tree = tree_from_state_dict(dict(state.model.named_parameters()))
+    variables = variables_from_state_dict(state.model.state_dict())
+    params_tree = variables["params"]
     payload = {
         "step": int(state.step),
         "epoch": int(epoch),
@@ -138,7 +141,7 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
         "config_json": json.dumps(config),
         "params": params_tree,
         "opt_state": optax_state_dict(state, params_tree),
-        "batch_stats": {},
+        "batch_stats": variables["batch_stats"],
     }
     blob = msgpack.packb(payload, default=_ext_pack, strict_types=True)
     tmp = path + ".tmp"
@@ -149,10 +152,13 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
 
 def restore_train_state(state, ckpt: dict, weights_only: bool = False) -> None:
     """Load a checkpoint dict (``load_checkpoint``) into ``state`` in place:
-    the parameters, and unless ``weights_only`` the moments and step."""
+    the parameters and running statistics, and unless ``weights_only`` the
+    moments and step."""
     import torch
 
-    state.model.load_state_dict(state_dict_from_tree(ckpt["params"]))
+    sd = state_dict_from_tree(ckpt["params"])
+    sd.update(state_dict_from_tree(ckpt.get("batch_stats") or {}))
+    state.model.load_state_dict(sd)
     if weights_only:
         return
     opt = ckpt["opt_state"]

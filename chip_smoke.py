@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--seed 0] [--boards 300] [--bench-boards 1024]
                           [--profile-train N] [--profile-int8 N]
+                          [--profile-arch]
                           [--checkpoint PATH] [--images DIR] [--keep-going]
 
 ``--checkpoint`` serves phases 5, 9, 14, 15 and 17's model with a trained
@@ -169,7 +170,36 @@ Phases, one line each; any failure exits non-zero before the last line:
              chess_vision_tpu_torch.experiments.int8_eval --calib 8`` under
              the block layout in ycbcr420 and rgb mode (its JSON parsed;
              agreement printed, not gated on these weights).
- 18. report  the kernels JSON line (every kernel with its bound and, where
+ 18. cnn     ChessCNN (ConvNeXtV2-Tiny, depths 3-3-9-3, dims 96-768) at 256 px,
+             bf16, drawn by ``init_weights`` from --seed (GRN's gamma and
+             beta drawn N(0, 0.2)) and carried to the JAX layout and back
+             through the weight bridge: ``Predictor.predict_array`` on
+             --boards boards must launch K1 once a batch and no other
+             kernel, with logits bit-equal to the same Predictor on the plain
+             preprocess (cudnn.benchmark off); on 8 boards the card's logits
+             against the port's f32 forward on the CPU within F32_UNITS of
+             each board's scale, FENs equal on confident squares, and GRN's
+             gamma and beta swapped (planted) outside the bound; ycbcr420
+             mode launches nothing; boards/s of rgb and ycbcr420 in turns,
+             peak memory (``--profile-arch`` also prints a
+             ``torch.profiler`` table of one batch and, for the cnn, cuDNN's
+             depthwise 7x7 timed at each stage's shape); then
+             ``train()`` on ``configs/cnn.yaml`` values at batch 64, 2 epochs
+             of 4 steps on phase 11's in-memory corpus: no kernel launched,
+             finite losses, the mean train loss falling, warm-step img/s,
+             the checkpoint read back, and ``python -m
+             chess_vision_tpu_torch.evaluate`` on it in a subprocess, its
+             ``eval_results.jsonl`` row equal to ``evaluate`` in process.
+ 19. square  ChessSquareCNN (MobileNetV4-Conv-Small at 0.5 width on 64 crops
+             of 64 px, 2,925,183 parameters, BatchNorm at the init's
+             statistics) checked as 18, the planted fault being the
+             backbone's BatchNorm in batch-statistics mode; the trainer
+             twice on ``configs/square.yaml`` values: pinned (every running
+             statistic bit-equal to the init's after 8 steps, in the model
+             and the checkpoint) and ``pin_backbone_bn=false`` (all 90 move,
+             and the checkpoint carries them into the subprocess's
+             evaluation).
+ 20. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel but K3's long route, which no 257-token path
              takes, must have been launched by a main path),
@@ -505,6 +535,9 @@ def main() -> int:
     parser.add_argument("--profile-int8", type=int, default=0,
                         help="also profile this many boards through each "
                              "int8 layout")
+    parser.add_argument("--profile-arch", action="store_true",
+                        help="also profile one batch of the cnn and square "
+                             "forwards and time cuDNN's depthwise 7x7")
     parser.add_argument("--checkpoint", default=None,
                         help="serve phases 5, 9, 14, 15 and 17 with this "
                              "ViT-B/16 checkpoint's weights")
@@ -688,13 +721,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         variant_sweep_phase(args, dev, kernels)
         eval_phase(args, cfg, params, train_ckpt, workdir)
+        arch_phase(18, "cnn", args, kernels, kind, smi, workdir)
+        arch_phase(19, "square", args, kernels, kind, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 18: the kernels line, the card and the last line."""
+    """Phase 20: the kernels line, the card and the last line."""
     import torch
 
     # the long route of K3 takes more than 288 tokens: no main path (257
@@ -704,7 +739,7 @@ def report(kernels: dict, kind: str, smi: str, started: float) -> int:
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[18 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[20 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -2628,6 +2663,412 @@ def eval_phase(args, cfg, params, train_ckpt: str, workdir: str) -> None:
               f"{out['bf16']['board_acc']}, int8 {out['int8']['board_acc']}",
               flush=True)
 
+
+
+# The CNN and square archs (phases 18 and 19) at full width, in the config
+# keys of ``configs/cnn.yaml`` and ``configs/square.yaml``.
+ARCH_WIDTH = {
+    "cnn": {"arch": "cnn", "name": "convnextv2_tiny.fcmae_ft_in22k_in1k",
+            "input_size": SIZE},
+    "square": {"arch": "square",
+               "name": "mobilenetv4_conv_small_050.e3000_r224_in1k",
+               "input_size": SIZE, "square_input_size": 64,
+               "square_overlap": 1.5},
+}
+# The card's bf16 forward against the port's f32 forward on the CPU, per
+# board, in units of the row's scale (``row_unit``: its RMS logit over 256,
+# about one bf16 ulp at that magnitude). bf16 rounds every activation to 8
+# significant bits (2^-9 relative) at each of the ~80 (cnn) and ~60 (square)
+# convolutions, products and norms, and the weights once; independent
+# roundings add in quadrature and the residual stream carries them, so the
+# logits land some ulps apart. Read on the card at 256 px, full width
+# (NVIDIA H100 80GB HBM3, 700.00 W): 9.44 (cnn) and 9.88 (square) units; the
+# planted faults 755.3 (cnn: GRN's gamma and beta swapped) and 35,734.8
+# (square: BatchNorm in batch-statistics mode).
+F32_UNITS = 32
+ARCH_EVAL_BOARDS = 64
+
+
+def arch_variables(arch: str, seed: int) -> tuple[dict, dict]:
+    """The config and JAX-layout variables ({"params", "batch_stats"}) of a
+    full-width model drawn by ``init_weights`` from ``seed`` and carried
+    back through the inverse bridge. GRN's gamma and beta, zero at init, are
+    drawn N(0, 0.2) so that the GRN takes part (and a fault in it shows);
+    BatchNorm keeps the init's statistics (mean 0, variance 1)."""
+    import torch
+
+    from chess_vision_tpu_torch.convert.jax_params import variables_from_state_dict
+    from chess_vision_tpu_torch.models import build_model, init_weights
+    from chess_vision_tpu_torch.models.layers import GRN
+
+    cfg = {"model": dict(ARCH_WIDTH[arch]), "training": {"mixed_precision": True}}
+    model = init_weights(build_model(cfg), seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, GRN):
+                module.weight.normal_(0.0, 0.2, generator=gen)
+                module.bias.normal_(0.0, 0.2, generator=gen)
+    return cfg, variables_from_state_dict(model.state_dict())
+
+
+@contextmanager
+def arch_fault(arch: str):
+    """The planted fault of each arch: GRN's gamma and beta swapped (cnn);
+    the backbone's BatchNorm normalizing with the batch's statistics
+    (square)."""
+    import torch
+
+    from chess_vision_tpu_torch.models import layers
+
+    def swapped(self, x):
+        xf = x.float()
+        gx = torch.sqrt(torch.sum(xf * xf, dim=(1, 2), keepdim=True))
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        return (self.bias.float() * (xf * nx) + self.weight.float()
+                + xf).to(x.dtype)
+
+    def batch_mode(self, x):
+        return layers.batch_norm(x, *layers.batch_moments(x), self.weight,
+                                 self.bias, self.eps)
+
+    if arch == "cnn":
+        patch = mock.patch.object(layers.GRN, "forward", swapped)
+    else:
+        patch = mock.patch.object(layers.BatchNorm, "forward", batch_mode)
+    with patch:
+        yield
+
+
+def arch_serve(number: int, arch: str, args, kernels: dict, kind: str,
+               smi: str) -> None:
+    """Phases 18 and 19, serving: ``Predictor.predict_array`` at full width
+    in rgb (K1 once a batch, no other kernel) and ycbcr420 (no kernel);
+    logits bit-equal to the plain ops'; the card's bf16 against the port's
+    f32 forward on the CPU on 8 boards (F32_UNITS), the planted fault
+    outside; boards/s of both modes in turns, peak memory and, with
+    ``--profile-arch``, the kernels that take the device time."""
+    import torch
+
+    from chess_vision_tpu_torch.convert.jax_params import state_dict_from_jax
+    from chess_vision_tpu_torch.experiments.plain import forward_logits
+    from chess_vision_tpu_torch.fen import assemble_fens_batch
+    from chess_vision_tpu_torch.models import build_model
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    tag = f"[{number} {arch}]"
+    torch.backends.cudnn.benchmark = False  # one algorithm per shape
+    cfg, variables = arch_variables(arch, args.seed)
+    ckpt = (cfg, variables["params"], variables["batch_stats"])
+    t0 = time.perf_counter()
+    predictor = Predictor(ckpt, batch_size=BATCH, device="cuda")
+    rng = np.random.default_rng(args.seed + number)
+    boards = rng.integers(0, 256, (args.boards, SIZE, SIZE, 3), dtype=np.uint8)
+    predictor.predict_array(boards[:BATCH])  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = math.ceil(args.boards / BATCH)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fens = predictor.predict_array(boards)
+    counts = int8_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    moved = {k: v for k, v in counts.items() if v}
+    print(f"{tag} {arch} {SIZE}px bf16 full width, {args.boards} boards in "
+          f"{batches} batches of {BATCH}: launches {moved} (set-up "
+          f"{setup_s:.1f} s); peak device memory {peak_gib:.2f} GiB", flush=True)
+    require(moved == {"preprocess_u8": batches},
+            f"{tag} launch counts {moved} for {batches} batches")
+    kernels["preprocess_u8"]["launches"] += counts["preprocess_u8"]
+
+    with plain_ops(attn_ops, pre_ops):
+        fens_plain = predictor.predict_array(boards)
+        logits_p = forward_logits(predictor, boards)
+        require(pre_ops.LAUNCHES == counts["preprocess_u8"],
+                f"{tag} the plain-ops run launched K1")
+    logits_k = forward_logits(predictor, boards)
+    same = {k: bool(np.array_equal(logits_k[k], logits_p[k])) for k in logits_k}
+    print(f"{tag} logits with K1 vs the plain preprocess (cudnn.benchmark off): "
+          f"bit-equal {same}; {sum(a == b for a, b in zip(fens, fens_plain))}/"
+          f"{len(fens)} FEN strings identical", flush=True)
+    require(all(same.values()) and fens == fens_plain,
+            f"{tag} the kernel path's logits are not the plain path's: {same}")
+
+    # the card (bf16) against the port's f32 forward on the CPU
+    n = 8
+    mean, std = mean_std(cfg)
+    cpu_cfg = {"model": cfg["model"], "training": {"mixed_precision": False}}
+    cpu_model = build_model(cpu_cfg)
+    cpu_model.load_state_dict(state_dict_from_jax(
+        variables["params"], cpu_cfg, variables["batch_stats"]))
+    x = pre_ops.preprocess_u8_plain(torch.from_numpy(boards[:n]), mean, std,
+                                    torch.float32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = {k: v.numpy() for k, v in cpu_model(x).items()}
+    cpu_s = time.perf_counter() - t0
+    ids = ref["squares"].reshape(n, 64, 13).argmax(-1)
+    fens_cpu = assemble_fens_batch(ids, ref["turn"], ref["castling"])
+    print(f"{tag} the port's f32 forward of {n} boards on the CPU: "
+          f"{cpu_s:.1f} s", flush=True)
+    card = {k: v[:n] for k, v in logits_k.items()}
+    require_logits(f"{tag} card bf16 vs CPU f32:", fens[:n], fens_cpu, card, ref,
+                   F32_UNITS)
+    with arch_fault(arch):
+        logits_f = forward_logits(predictor, boards[:n])
+    what = ("GRN's gamma and beta swapped" if arch == "cnn" else
+            "the backbone's BatchNorm in batch-statistics mode")
+    require_planted(f"{tag} card vs CPU f32:", what, logits_f, ref, F32_UNITS)
+    del cpu_model, x
+
+    # ycbcr420: the planes rebuilt in PyTorch, no kernel
+    pred_y = Predictor(ckpt, batch_size=BATCH, device="cuda", mode="ycbcr420")
+    pred_y.predict_array(boards[:BATCH])
+    torch.cuda.synchronize()
+    reset_counts()
+    fens_y = pred_y.predict_array(boards)
+    moved_y = {k: v for k, v in int8_counts().items() if v}
+    agree = np.mean([a == b for fa, fb in zip(fens, fens_y)
+                     for a, b in zip(fa.split()[0], fb.split()[0])])
+    print(f"{tag} ycbcr420: launches {moved_y}; against rgb mode (the inputs "
+          f"differ; not gated): {sum(a == b for a, b in zip(fens, fens_y))}/"
+          f"{len(fens)} FEN strings identical, placement characters agree "
+          f"{agree:.4f}", flush=True)
+    require(not moved_y, f"{tag} ycbcr420 launched {moved_y}")
+
+    bench = np.concatenate([boards] * math.ceil(args.bench_boards / args.boards))
+    bench = bench[:args.bench_boards]
+    rates = {"rgb": [], "ycbcr420": []}
+    for which in ("rgb", "ycbcr420", "ycbcr420", "rgb"):
+        pred = pred_y if which == "ycbcr420" else predictor
+        t0 = time.perf_counter()
+        pred.predict_array(bench)
+        rates[which].append(len(bench) / (time.perf_counter() - t0))
+    print(f"{tag} predict_array boards/s at batch {BATCH} ({len(bench)} boards "
+          f"per run; rgb, ycbcr420, ycbcr420, rgb): {rates}; {kind}, {smi}",
+          flush=True)
+    if args.profile_arch:
+        profile_forward(tag, predictor, boards[:BATCH])
+        if arch == "cnn":
+            depthwise_reading(tag, predictor.model)
+    del predictor, pred_y
+    torch.cuda.empty_cache()
+
+
+def profile_forward(tag: str, predictor, boards) -> None:
+    """One batch through the Predictor's forward under ``torch.profiler``:
+    the device time by kernel, the top ones printed with their share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    u8 = torch.from_numpy(boards).to(predictor.device)
+    predictor.infer(u8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        predictor.infer(u8)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(t for _, t in rows)
+    rows.sort(key=lambda r: -r[1])
+    conv = sum(t for k, t in rows if any(
+        w in k.lower() for w in ("conv", "cudnn", "xmma", "implicit", "dgrad",
+                                 "wgrad", "fprop")))
+    top = "; ".join(f"{k[:70]} {t / 1e3:.3f} ms ({t / max(total, 1):.1%})"
+                    for k, t in rows[:8])
+    print(f"{tag} torch.profiler, one batch of {len(boards)} through the "
+          f"forward: device time {total / 1e3:.3f} ms, kernels whose name "
+          f"reads as a cuDNN convolution {conv / max(total, 1):.1%}; top: {top}",
+          flush=True)
+
+
+def depthwise_reading(tag: str, model) -> None:
+    """cuDNN's 7x7 depthwise convolution of each ConvNeXt stage at batch
+    256, bf16, channels_last (an NHWC tensor's NCHW view), by CUDA events,
+    beside the bytes it must move (input and output once, over 3.35 TB/s)."""
+    import torch
+
+    from chess_vision_tpu_torch.models.layers import conv2d
+
+    parts = []
+    for s, stage in enumerate(model.backbone.stages):
+        conv = stage.blocks[0].conv_dw
+        hw = SIZE // 4 >> s
+        x = torch.randn((BATCH, hw, hw, conv.in_channels), device="cuda",
+                        dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: conv2d(x, conv), 20)
+        bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        parts.append(f"stage {s} {tuple(x.shape)} {ms:.4f} ms (bound "
+                     f"{bound:.4f}, {len(stage.blocks)} a forward)")
+    print(f"{tag} depthwise 7x7, cuDNN: {'; '.join(parts)}", flush=True)
+
+
+def arch_train_config(arch: str, save_dir: str, **model_overrides) -> dict:
+    """``configs/<arch>.yaml`` with the in-memory corpus of phase 11: batch
+    64, 2 epochs, no pretrained weights, no OOD set."""
+    from chess_vision_tpu_torch.config import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs", f"{arch}.yaml"))
+    cfg["data"].update(val_split=0.2, num_workers=4, max_samples=None,
+                       ood_val_dir="")
+    cfg["model"].update(pretrained=False, **model_overrides)
+    cfg["training"].update(epochs=2, batch_size=TRAIN_BATCH)
+    cfg["checkpointing"]["save_dir"] = save_dir
+    cfg["logging"]["tensorboard_dir"] = save_dir + "/runs"
+    return cfg
+
+
+def arch_train(number: int, arch: str, args, corpus, workdir: str, kind: str,
+               smi: str, **model_overrides) -> tuple[str, dict]:
+    """``train()`` on ``configs/<arch>.yaml`` values, 2 epochs of 4 steps:
+    no kernel launched, finite losses, the last epoch's mean train loss below
+    the first's, warm-step img/s, the checkpoint written and read back.
+    Returns the checkpoint's path and the trained state's running
+    statistics."""
+    import torch
+
+    from chess_vision_tpu_torch.train.__main__ import train
+    from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tag = f"[{number} {arch}]"
+    name = arch + "".join(f"_{k}={v}" for k, v in model_overrides.items())
+    save_dir = os.path.join(workdir, name)
+    stamps = []
+
+    def on_step(step_kind, sums):
+        torch.cuda.synchronize()
+        stamps.append((step_kind, time.perf_counter(),
+                       sums.get("step_loss", sums["loss_sum"])))
+
+    cfg = arch_train_config(arch, save_dir, **model_overrides)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train(cfg, corpus, seed=args.seed, device="cuda", on_step=on_step)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    moved = {k: v for k, v in int8_counts().items() if v}
+    history = result["history"]
+    losses = [float(s[2]) for s in stamps if s[0] == "train"]
+    # warm steps: a train step that follows a train step
+    gaps = [b[1] - a[1] for a, b in zip(stamps, stamps[1:])
+            if a[0] == b[0] == "train"]
+    warm = TRAIN_BATCH / float(np.median(gaps)) if gaps else float("nan")
+    print(f"{tag} train() {name}, batch {TRAIN_BATCH}: {len(losses)} train "
+          f"steps in {train_s:.1f} s (evaluation and checkpoints included); "
+          f"launches {moved}; step losses {[round(x, 4) for x in losses]}; "
+          f"epoch train losses {[h['train']['loss'] for h in history]}, val "
+          f"{[h['val']['loss'] for h in history]}; warm train step img/s "
+          f"{warm:.1f} (median of {len(gaps)} step intervals); peak device "
+          f"memory {peak_gib:.2f} GiB; {kind}, {smi}", flush=True)
+    require(len(losses) == 8 and not moved,
+            f"{tag} {len(losses)} train steps, launches {moved}")
+    require(all(math.isfinite(x) for x in losses), f"{tag} step losses {losses}")
+    require(history[-1]["train"]["loss"] < history[0]["train"]["loss"],
+            f"{tag} the mean train loss did not fall")
+    path = os.path.join(save_dir, "latest.ckpt")
+    ckpt = load_checkpoint(path)
+    require(ckpt["step"] == 8 and ckpt["epoch"] == 1
+            and ckpt["config"]["model"]["arch"] == arch
+            and ckpt["params"]["type_head"]["kernel"].shape[1] == 7,
+            f"{tag} the checkpoint read back")
+    stats = {k: v.detach().cpu().clone()
+             for k, v in result["state"].model.state_dict().items()
+             if "running_" in k}
+    return path, stats
+
+
+def arch_eval(number: int, arch: str, ckpt_path: str, test_dir: str) -> dict:
+    """``python -m chess_vision_tpu_torch.evaluate`` on a checkpoint in a
+    subprocess; its ``eval_results.jsonl`` row must hold the metrics that
+    ``evaluate`` gives in process on ``load_model`` of the same file."""
+    from chess_vision_tpu_torch.data import BatchLoader, ChessDataset
+    from chess_vision_tpu_torch.evaluate import evaluate, load_model
+
+    tag = f"[{number} {arch}]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chess_vision_tpu_torch.evaluate", "--checkpoint",
+         ckpt_path, "--test-dir", test_dir, "--batch-size", str(TRAIN_BATCH)],
+        cwd=root, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"{tag} evaluate CLI exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    log = os.path.join(os.path.dirname(ckpt_path), "eval_results.jsonl")
+    with open(log) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    model, cfg = load_model(ckpt_path)
+    dataset = ChessDataset(test_dir, input_size=SIZE)
+    loader = BatchLoader(dataset, np.arange(len(dataset)), TRAIN_BATCH,
+                         num_workers=4)
+    mean, std = mean_std(cfg)
+    here = evaluate(model, dataset, loader, mean, std, verbose=False)
+    print(f"{tag} python -m chess_vision_tpu_torch.evaluate ({cli_s:.1f} s, "
+          f"start-up included): eval_results.jsonl metrics {row['metrics']}; "
+          f"in process on load_model of the same file {here}", flush=True)
+    require(row["num_samples"] == ARCH_EVAL_BOARDS
+            and row["metrics"] == json.loads(json.dumps(here))
+            and math.isfinite(here["loss"]),
+            f"{tag} the evaluate CLI's row {row} is not the in-process "
+            f"evaluation {here}")
+    return here
+
+
+def arch_phase(number: int, arch: str, args, kernels: dict, kind: str,
+               smi: str, workdir: str) -> None:
+    """Phases 18 (cnn) and 19 (square): serving, then training and the
+    evaluate CLI on its checkpoint."""
+    import torch
+
+    t_phase = time.perf_counter()
+    arch_serve(number, arch, args, kernels, kind, smi)
+    tag = f"[{number} {arch}]"
+    corpus = MemoryCorpus(320, args.seed)
+    test_dir = os.path.join(workdir, f"{arch}_eval")
+    write_eval_boards(test_dir, ARCH_EVAL_BOARDS, args.seed + number)
+    if arch == "cnn":
+        path, _ = arch_train(number, arch, args, corpus, workdir, kind, smi)
+        arch_eval(number, arch, path, test_dir)
+    else:
+        # pinned (the default): the running statistics stay the init's, bit
+        # for bit, in the model and in the checkpoint
+        path, stats = arch_train(number, arch, args, corpus, workdir, kind, smi,
+                                 pin_backbone_bn=True)
+        from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+        from chess_vision_tpu_torch.convert.jax_params import state_dict_from_tree
+
+        saved = state_dict_from_tree(load_checkpoint(path)["batch_stats"])
+        init = all(torch.equal(v, torch.zeros_like(v) if "mean" in k
+                               else torch.ones_like(v)) for k, v in stats.items())
+        print(f"{tag} pinned: {len(stats)} running statistics after 8 steps "
+              f"equal the init's bit for bit: {init}; in the checkpoint: "
+              f"{saved.keys() == stats.keys() and all(torch.equal(saved[k], stats[k]) for k in stats)}",
+              flush=True)
+        require(len(stats) == 90 and init and saved.keys() == stats.keys()
+                and all(torch.equal(saved[k], stats[k]) for k in stats),
+                f"{tag} pinned statistics moved")
+        # unpinned: they move by flax's rule and the checkpoint carries them
+        path, stats = arch_train(number, arch, args, corpus, workdir, kind, smi,
+                                 pin_backbone_bn=False)
+        saved = state_dict_from_tree(load_checkpoint(path)["batch_stats"])
+        moved = sum(not torch.equal(v, torch.zeros_like(v) if "mean" in k
+                                    else torch.ones_like(v))
+                    for k, v in stats.items())
+        print(f"{tag} unpinned: {moved} of {len(stats)} running statistics "
+              f"moved in 8 steps", flush=True)
+        require(moved == len(stats) == 90 and saved.keys() == stats.keys()
+                and all(torch.equal(saved[k], stats[k]) for k in stats),
+                f"{tag} the unpinned statistics did not move into the "
+                "checkpoint")
+        arch_eval(number, arch, path, test_dir)
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     try:

@@ -10,7 +10,7 @@ import torch
 
 from chess_vision_tpu.convert.timm_convert import convert_reference_model
 from chess_vision_tpu.models import build_model as jax_build_model
-from chess_vision_tpu.models import init_variables
+from chess_vision_tpu.models import abstract_variables, init_variables
 from chess_vision_tpu_torch.convert.jax_params import state_dict_from_jax
 from chess_vision_tpu_torch.models import build_model
 
@@ -68,5 +68,17 @@ def test_state_dict_keys_and_shapes_match_model(name):
 
 
 def test_other_archs_not_ported():
-    with pytest.raises(NotImplementedError):
-        state_dict_from_jax({}, {"model": {"arch": "cnn"}})
+    """The bridge takes the CNN arch too (it raised NotImplementedError
+    until the arch was ported; its round trips are in
+    tests/test_torch_arch_bridge.py): a ChessCNN's parameters land on timm's
+    names, and an unknown arch raises."""
+    cfg = {"model": {"arch": "cnn", "input_size": 64},
+           "training": {"mixed_precision": False}}
+    params = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                          abstract_variables(jax_build_model(cfg), 64)["params"])
+    sd = state_dict_from_jax(params, cfg)
+    assert sd.keys() == build_model(cfg).state_dict().keys()
+    assert sd["backbone.stages.3.blocks.2.conv_dw.weight"].shape == (768, 1, 7, 7)
+    assert sd["backbone.stages.1.blocks.0.mlp.grn.weight"].shape == (4 * 192,)
+    with pytest.raises(ValueError, match="unknown arch"):
+        state_dict_from_jax({}, {"model": {"arch": "resnet"}})

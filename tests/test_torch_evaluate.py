@@ -256,16 +256,24 @@ def test_cli_without_a_gpu_and_without_device_cpu_fails(trained, tiny_dir):
     assert "no CUDA device is available" in r.stderr
 
 
-def test_other_archs_raise_naming_the_roadmap(trained, monkeypatch):
+def test_other_archs_raise_naming_the_roadmap(trained, tmp_path):
+    """``load_model`` takes a ChessCNN checkpoint (it raised
+    NotImplementedError until the arch was ported): the model comes back as
+    a ChessCNN in eval mode with the checkpoint's weights and config."""
+    from chess_vision_tpu_torch.models import build_model, init_weights
+    from chess_vision_tpu_torch.models.cnn import ChessCNN
+    from chess_vision_tpu_torch.train.state import create_train_state
     from chess_vision_tpu_torch.utils import checkpoint
 
-    real = checkpoint.load_checkpoint
-
-    def as_cnn(path):
-        ckpt = real(path)
-        ckpt["config"]["model"]["arch"] = "cnn"
-        return ckpt
-
-    monkeypatch.setattr(checkpoint, "load_checkpoint", as_cnn)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        port_eval.load_model(trained, "cpu")
+    cfg = checkpoint.load_checkpoint(trained)["config"]
+    cfg["model"].update(arch="cnn", name="convnextv2_tiny.fcmae_ft_in22k_in1k")
+    written = init_weights(build_model(cfg), seed=3)
+    path = str(tmp_path / "cnn.ckpt")
+    checkpoint.save_checkpoint(path, create_train_state(cfg, written, 1),
+                               epoch=0, best_val_acc=0.0, config=cfg)
+    model, loaded_cfg = port_eval.load_model(path, "cpu")
+    assert isinstance(model, ChessCNN) and not model.training
+    assert loaded_cfg == cfg
+    loaded = model.state_dict()  # f32: the config trains without bf16
+    for key, value in written.state_dict().items():
+        assert torch.equal(loaded[key], value), key

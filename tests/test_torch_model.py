@@ -125,5 +125,13 @@ def test_adaptive_pool_matches_jax(in_size, out_size):
 
 @pytest.mark.parametrize("arch", ["cnn", "square"])
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError):
-        build_model({"model": {"arch": arch}})
+    """The CNN and square archs, which raised NotImplementedError until they
+    were ported, build at full width with the JAX package's parameter
+    counts (held against JAX in tests/test_torch_cnn.py and
+    test_torch_square.py); an unknown arch still raises."""
+    model = build_model({"model": {"arch": arch, "input_size": 256}})
+    want = {"cnn": 27_878_031, "square": 2_925_183}[arch]
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert not model.training
+    with pytest.raises(ValueError, match="Unknown architecture"):
+        build_model({"model": {"arch": arch + "2"}})

@@ -143,7 +143,7 @@ def test_without_a_gpu_and_without_device_cpu_it_fails(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("model.arch=cnn", "Queue A item 10"),
+    ("training.fsdp=true", "Queue A item 11"),
     ("training.tensor_parallel=2", "Queue A item 11"),
     ("model.remat=attn_out", "attn_out")])
 def test_unported_options_raise_naming_the_roadmap(corpus, tmp_path, override, match):
