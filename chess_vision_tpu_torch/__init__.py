@@ -1,8 +1,11 @@
 """chess_vision_tpu_torch: the PyTorch/CUDA port of chess_vision_tpu.
 
-Serves and trains the flagship ChessViT (board image -> FEN) on an NVIDIA
-Hopper GPU, with preprocessing, attention forward and attention backward in
-hand-written CUDA kernels. The package stands alone: it imports nothing of
+Serves, evaluates and trains the three archs of the JAX package (the
+flagship ChessViT, board image -> FEN; ChessCNN; ChessSquareCNN) in bf16,
+f32 or int8 serving on an NVIDIA Hopper GPU, or over several
+(``parallel/``: data-parallel, FSDP and tensor-parallel training, serving
+and evaluation over a device list), with every Pallas kernel of the JAX
+package as a hand-written CUDA kernel (``csrc/``). The package stands alone: it imports nothing of
 ``chess_vision_tpu`` or JAX and keeps its own copies of the numpy-only FEN
 codec (``fen.py``), the JPEG decoder (``native/``) and the host input
 pipeline (``data.py``); tests hold the copies equal to the JAX package's.

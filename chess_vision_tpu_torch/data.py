@@ -30,6 +30,7 @@ from chess_vision_tpu_torch.fen import (
     filename_to_fen,
     parse_full_fen,
 )
+from chess_vision_tpu_torch.parallel.mesh import shard_rows
 
 IMAGE_EXTS = (".jpeg", ".jpg", ".png")
 
@@ -192,6 +193,11 @@ class BatchLoader:
     When drop_remainder is False the final short batch is padded up to
     batch_size by repeating the last sample, with `mask` marking real rows:
     every batch has one shape and the metric counts stay exact.
+
+    `shard` = (index, count) yields shard `index` of `count` contiguous
+    shards of each batch (`parallel.mesh.shard_rows`), in the same order and
+    padding, and decodes only its rows: a data-parallel rank's slice of the
+    global batch. `indices`, `mask` and `n_real` are then the shard's.
     """
 
     def __init__(
@@ -205,6 +211,7 @@ class BatchLoader:
         drop_remainder: bool = False,
         prefetch: int = 2,
         transport: str = "rgb",
+        shard: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.indices = np.asarray(indices)
@@ -215,6 +222,7 @@ class BatchLoader:
         self.drop_remainder = drop_remainder
         self.prefetch = prefetch
         self.transport = transport  # "rgb" | "ycbcr420" | "packed"
+        self.rows = shard_rows(batch_size, *shard)
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -226,9 +234,11 @@ class BatchLoader:
         if n_real < self.batch_size and not self.drop_remainder:
             pad = np.full(self.batch_size - n_real, idx_chunk[-1])
             idx_chunk = np.concatenate([idx_chunk, pad])
-        labels = [self.dataset.labels_for(i) for i in idx_chunk]
         mask = np.zeros(len(idx_chunk), np.float32)
         mask[:n_real] = 1.0
+        idx_chunk, mask = idx_chunk[self.rows], mask[self.rows]
+        n_real = int(mask.sum())
+        labels = [self.dataset.labels_for(i) for i in idx_chunk]
         batch = {
             "squares": np.stack([l["squares"] for l in labels]).astype(np.int32),
             "turn": np.stack([l["turn"] for l in labels]),

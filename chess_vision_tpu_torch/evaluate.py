@@ -11,12 +11,16 @@ metrics grouped by manifest fields. Counts and confusions are summed on the
 device; per batch only the predictions and the per-sample flags (one int8
 (B, 68) tensor) come back to the host. The CLI reads the config from the
 checkpoint and appends one row to ``eval_results.jsonl`` next to it. It runs
-on the CUDA device unless ``--device`` says otherwise.
+on every visible CUDA device unless ``--device`` names one: as the JAX CLI
+evaluates over all devices (``make_mesh()``, ``shard_batch``), each batch is
+cut into contiguous shards, one per device, each on its own replica of the
+model, and the sums of the shards are added; the report is the one device's.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 from collections import defaultdict
@@ -27,6 +31,7 @@ import torch
 
 from chess_vision_tpu_torch.augment import preprocess_eval_batch
 from chess_vision_tpu_torch.fen import INDEX_TO_PIECE, NUM_CLASSES, labels_to_fen
+from chess_vision_tpu_torch.parallel.mesh import shard_batch
 from chess_vision_tpu_torch.train.losses import weighted_smoothed_cross_entropy
 from chess_vision_tpu_torch.train.loop import BatchStager
 
@@ -106,7 +111,10 @@ def make_eval_batch_fn(model, mean, std):
         count = lambda x: x.sum(dtype=torch.int64)  # noqa: E731
         return {
             "results": results,
-            "loss_sum": piece_loss.double() * mask.double().sum(),
+            # a shard of padding alone (evaluate over devices) adds 0, not
+            # the 0/0 of its mean
+            "loss_sum": torch.where(real.any(), piece_loss.double(), 0.0)
+            * mask.double().sum(),
             "squares_correct": count(~wrong & real[:, None]),
             "boards_correct": count(board_correct),
             "turn_correct_legal": count(turn_correct & legal),
@@ -125,15 +133,22 @@ def make_eval_batch_fn(model, mean, std):
     return eval_batch
 
 
-def evaluate(model, dataset, loader, mean, std, verbose: bool = True) -> dict:
+def evaluate(model, dataset, loader, mean, std, verbose: bool = True,
+             devices=None) -> dict:
     """Evaluate ``model`` (a module holding its weights, on the device it
     runs on) over ``loader``'s batches of ``dataset``; returns the metrics
     dict of the JAX package's ``evaluate`` and, with ``verbose``, prints its
-    report byte for byte. Unlike the JAX function it takes no ``params``,
-    ``batch_stats`` or ``mesh``: the module holds its weights, and
-    multi-device evaluation is not ported (ROADMAP Queue A item 11)."""
-    eval_batch = make_eval_batch_fn(model, mean, std)
-    stager = BatchStager(next(model.parameters()).device)
+    report byte for byte. Unlike the JAX function it takes no ``params`` or
+    ``batch_stats``: the module holds its weights. In place of its ``mesh``,
+    ``devices`` (a list; a device may repeat) evaluates each batch in
+    len(devices) contiguous shards, one on each device's replica of
+    ``model``; the loader's batch size must divide by their count."""
+    home = next(model.parameters()).device
+    devices = [torch.device(d) for d in devices] if devices else [home]
+    replicas = [model if i == 0 and d == home else copy.deepcopy(model).to(d)
+                for i, d in enumerate(devices)]
+    steps = [(make_eval_batch_fn(m, mean, std), BatchStager(d))
+             for m, d in zip(replicas, devices)]
 
     sums = None
     sample_results = []
@@ -142,7 +157,7 @@ def evaluate(model, dataset, loader, mean, std, verbose: bool = True) -> dict:
     for batch in loader:
         indices = batch["indices"]
         n_real = batch["n_real"]
-        out = eval_batch(stager(batch))
+        out = _eval_shards(batch, steps)
         sums = out if sums is None else {
             k: v if k == "results" else sums[k] + v for k, v in out.items()}
 
@@ -196,6 +211,21 @@ def evaluate(model, dataset, loader, mean, std, verbose: bool = True) -> dict:
         print_grouped_metrics(dataset, sample_results)
 
     return metrics
+
+
+def _eval_shards(batch: dict, steps: list) -> dict:
+    """One loader batch through ``steps`` ((eval_batch, stager) per device):
+    the batch cut into contiguous shards (``parallel.mesh.shard_batch``),
+    each evaluated on its device; the shards' results in order and their
+    sums added on the first device."""
+    arrays = {k: v for k, v in batch.items() if k not in ("indices", "n_real")}
+    outs = [eval_batch(stager(shard_batch(arrays, i, len(steps))))
+            for i, (eval_batch, stager) in enumerate(steps)]
+    if len(outs) == 1:
+        return outs[0]
+    first = outs[0]["results"].device
+    return {k: (torch.cat([o[k].to(first) for o in outs]) if k == "results"
+                else sum(o[k].to(first) for o in outs)) for k in outs[0]}
 
 
 def _print_report(metrics, conf, turn_conf, castling_right, worst):
@@ -351,9 +381,13 @@ def main(argv=None):
     parser.add_argument("--max-samples", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--device", default=None,
-                        help="torch device (default: the CUDA device)")
+                        help="torch device (default: every visible CUDA "
+                             "device, one shard of each batch on each)")
     args = parser.parse_args(argv)
 
+    devices = None
+    if args.device is None and torch.cuda.device_count() > 1:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     model, cfg = load_model(args.checkpoint, args.device)
     input_size = cfg["model"].get("input_size") or 224
 
@@ -369,7 +403,10 @@ def main(argv=None):
     print(f"Test set: {len(dataset)} images from {test_dir}")
 
     data_cfg = get_data_config(cfg["model"]["name"])
-    metrics = evaluate(model, dataset, loader, data_cfg["mean"], data_cfg["std"])
+    if devices:
+        print(f"Evaluating over {len(devices)} devices")
+    metrics = evaluate(model, dataset, loader, data_cfg["mean"],
+                       data_cfg["std"], devices=devices)
 
     ckpt_dir = os.path.dirname(os.path.abspath(args.checkpoint))
     eval_log = os.path.join(ckpt_dir, "eval_results.jsonl")

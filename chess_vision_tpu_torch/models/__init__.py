@@ -28,9 +28,14 @@ ARCHS = ("vit", "cnn", "square")
 # 86 M-parameter model (1.28 GiB) and the per-use bf16 copies of the weights.
 # Per-image activations kept for the backward pass: (peak - state) / 64 from
 # ``torch.cuda.max_memory_allocated`` over train steps at batch 64, 6.60 GiB
-# without remat (chip_smoke.py train phase; NVIDIA H100 80GB HBM3, 700.00 W).
+# without remat (chip_smoke.py train phase; NVIDIA H100 80GB HBM3, 700.00 W);
+# with ``remat="attn_out"`` (each block's input and attention output kept,
+# one block's activations live again in the backward) the peak above the
+# state read 1.34 GiB at batch 64, of which the f32 gradients are 0.32 GiB
+# (chip_smoke.py phase 21, the same card; full remat read 1.33 GiB).
 STATE_BYTES = 1.5 * 2**30
 NOREMAT_BYTES_PER_IMAGE = 86e6
+ATTN_OUT_BYTES_PER_IMAGE = 17e6
 HEADROOM_BYTES = 2.0 * 2**30  # cuBLAS workspaces, allocator fragmentation
 
 
@@ -49,20 +54,25 @@ def normalize_remat(value):
 
 
 def resolve_remat(batch: int, device=None, device_bytes: float | None = None):
-    """The auto remat policy for ViT-B training: no rematerialization when
-    the activations of ``batch`` images fit in the device's memory beside the
-    train state, else full remat (recomputing costs a second forward per
-    block). ``device_bytes`` defaults to the total memory of ``device``
+    """The auto remat policy for ViT-B training, the JAX rule's three tiers:
+    the least rematerialization whose activations for ``batch`` images (a
+    device's share of the batch) fit in the device's memory beside the train
+    state: False, then "attn_out" (recomputes each block but its attention),
+    then True (recomputes each block whole: a second forward per block).
+    ``device_bytes`` defaults to the total memory of ``device``
     (``torch.cuda.get_device_properties``); on the CPU, where there is
-    nothing to fit, the answer is False. The JAX package's third choice,
-    "attn_out", is not ported."""
+    nothing to fit, the answer is False."""
     if device_bytes is None:
         device = torch.device("cpu" if device is None else device)
         if device.type != "cuda":
             return False
         device_bytes = float(torch.cuda.get_device_properties(device).total_memory)
     free = device_bytes - STATE_BYTES - HEADROOM_BYTES
-    return not NOREMAT_BYTES_PER_IMAGE * batch <= free
+    if NOREMAT_BYTES_PER_IMAGE * batch <= free:
+        return False
+    if ATTN_OUT_BYTES_PER_IMAGE * batch <= free:
+        return "attn_out"
+    return True
 
 
 def compute_dtype(cfg: dict) -> torch.dtype:

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from chess_vision_tpu_torch.fen import CLASS_TO_COLOR, CLASS_TO_TYPE
+from chess_vision_tpu_torch.models.layers import Dropout
 
 _TYPE_INDEX = torch.tensor(CLASS_TO_TYPE)
 _COLOR_INDEX = torch.tensor(CLASS_TO_COLOR)
@@ -25,4 +26,4 @@ def combine_type_color(type_logits: torch.Tensor,
 
 
 def head(dim: int, out: int, dropout: float) -> nn.Sequential:
-    return nn.Sequential(nn.Dropout(dropout), nn.Linear(dim, out))
+    return nn.Sequential(Dropout(dropout), nn.Linear(dim, out))

@@ -13,7 +13,14 @@ as E[x^2] - E[x]^2 (``use_fast_variance``); ``F.layer_norm`` is two-pass, one
 of the stated sources of tolerance against the JAX package. Dropout and drop
 path act in train mode only (``module.train()``), so serving is unchanged;
 they draw from the device's default generator, whose state
-``torch.utils.checkpoint`` restores when a block is recomputed.
+``torch.utils.checkpoint`` restores when a block is recomputed, and draw for
+the global batch when the batch is split over data-parallel ranks
+(``parallel.mesh.global_bernoulli``), as the JAX package draws one mask for
+its global array. Unpinned BatchNorm takes the global batch's statistics
+there too. ``Attention`` and ``Mlp`` run tensor-parallel when
+``parallel.mesh.shard_tensor_parallel`` has cut their weights and set their
+``tp_group``: the row-parallel product's partial sums are added over the
+model axis before its bias.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from contextlib import contextmanager, nullcontext
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chess_vision_tpu_torch.ops import attention as attention_ops
+from chess_vision_tpu_torch.parallel import mesh as parallel
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -41,54 +50,97 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth: in train mode drops the whole residual
-    branch of a sample with probability ``rate`` and scales the kept ones by
-    1 / (1 - rate)."""
+class Dropout(nn.Module):
+    """Element-wise dropout in train mode: a kept element is scaled by
+    1 / (1 - rate), as flax's ``nn.Dropout``; the mask is drawn for the
+    global batch (module docstring)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
+
+    def forward(self, x: torch.Tensor, cut=None) -> torch.Tensor:
+        """``cut``: ``x`` is this rank's columns of a column-parallel product
+        (``parallel.mesh.global_bernoulli``)."""
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.empty(shape, dtype=torch.float32,
-                           device=x.device).bernoulli_(keep).bool()
+        mask = parallel.global_bernoulli(self._mask_shape(x), keep, x.device,
+                                         cut)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class DropPath(Dropout):
+    """Per-sample stochastic depth: in train mode drops the whole residual
+    branch of a sample with probability ``rate`` and scales the kept ones by
+    1 / (1 - rate)."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """``layer`` on this rank's cut of the input features: the partial
+    product summed over the model axis, then the (replicated) bias."""
+    y = parallel.reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), group)
+    return y + layer.bias.to(x.dtype)
+
+
 class Mlp(nn.Module):
-    """Linear -> exact (erf) GELU -> Dropout -> Linear -> Dropout."""
+    """Linear -> exact (erf) GELU -> Dropout -> Linear -> Dropout. Under
+    tensor parallelism fc1 is column- and fc2 row-parallel, and the dropout
+    between them draws its mask at the full hidden width and keeps this
+    rank's columns: one device's mask."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(F.gelu(linear(x, self.fc1)))
-        return self.drop(linear(x, self.fc2))
+        if self.tp_group is None:
+            x = self.drop(F.gelu(linear(x, self.fc1)))
+            return self.drop(linear(x, self.fc2))
+        x = F.gelu(linear(parallel.copy_to_model(x, self.tp_group), self.fc1))
+        x = self.drop(x, cut=parallel.model_cut(self.tp_group))
+        return self.drop(row_parallel(x, self.fc2, self.tp_group))
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with a fused (timm-layout) qkv projection;
-    the attention itself is ``ops.attention.fused_qkv_attention``."""
+    the attention itself is ``ops.attention.fused_qkv_attention``. Under
+    tensor parallelism qkv holds this rank's heads (``num_heads`` of them)
+    and proj is row-parallel."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
+        self.tp_group = None
+
+    def qkv_of(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            x = parallel.copy_to_model(x, self.tp_group)
+        return linear(x, self.qkv)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, D) -> the attention output before proj (B, N, H*Dh)."""
+        return attention_ops.fused_qkv_attention(self.qkv_of(x), self.num_heads)
+
+    def project(self, out: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is None:
+            return self.drop(linear(out, self.proj))
+        return self.drop(row_parallel(out, self.proj, self.tp_group))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = linear(x, self.qkv)
-        out = attention_ops.fused_qkv_attention(qkv, self.num_heads)
-        return self.drop(linear(out, self.proj))
+        return self.project(self.attend(x))
 
 
 class TransformerBlock(nn.Module):
@@ -103,10 +155,31 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
         self.drop_path = DropPath(drop_path)
+        self.remat_attn_out = False  # set by ViTBackbone for remat="attn_out"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
+        if self.remat_attn_out and self.training and torch.is_grad_enabled():
+            return self._forward_attn_out(x)
+        return self._after_attention(x, self.attn.attend(self.norm1(x)))
+
+    def _after_attention(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop_path(self.attn.project(out))
         return x + self.drop_path(self.mlp(self.norm2(x)))
+
+    def _forward_attn_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The block under ``remat="attn_out"``: the backward keeps only the
+        block input and the attention output. LayerNorm 1 -> qkv ->
+        attention keeps its input alone and recomputes LayerNorm 1 and qkv
+        for the attention backward, never the attention forward (K2)
+        (``ops.attention.attention_recomputing_qkv``); proj -> the MLP is a
+        checkpointed region (non-reentrant, the generator's state restored
+        for drop path), recomputed whole from the block input and the
+        attention output."""
+        params = [*self.norm1.parameters(), *self.attn.qkv.parameters()]
+        out = attention_ops.attention_recomputing_qkv(
+            x, lambda y: self.attn.qkv_of(self.norm1(y)), params,
+            self.attn.num_heads)
+        return checkpoint(self._after_attention, x, out, use_reentrant=False)
 
 
 def make_pool_matrix(in_size: int, out_size: int) -> torch.Tensor:
@@ -194,12 +267,22 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel mean and biased variance of an NHWC tensor in f32 (or
     f64 for f64 input), the variance as E[x^2] - E[x]^2 clipped at 0 (flax's
-    ``_compute_stats``)."""
+    ``_compute_stats``). Split over data-parallel ranks, the sums and sums of
+    squares are added over them first: the global batch's statistics, as
+    GSPMD computes them (not ``nn.SyncBatchNorm``, whose update rule
+    differs)."""
     xf = _at_least_f32(x)
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dim=dims)
-    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
-    return mean, var
+    ranks = parallel.data_axis_size()
+    if ranks == 1:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        return mean, var
+    count = x.numel() // x.shape[-1] * ranks
+    sums = parallel.all_reduce_sum(
+        torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+    mean = sums[0] / count
+    return mean, torch.clamp_min(sums[1] / count - mean * mean, 0.0)
 
 
 def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,

@@ -21,6 +21,7 @@ from torch import nn
 from chess_vision_tpu_torch.fen import NUM_PIECE_COLORS, NUM_PIECE_TYPES
 from chess_vision_tpu_torch.models.common import combine_type_color, head
 from chess_vision_tpu_torch.models.layers import (
+    Dropout,
     cast_weights,
     global_avg_pool_nhwc,
     linear,
@@ -46,8 +47,8 @@ class ChessSquareCNN(nn.Module):
         self.color_head = head(width, NUM_PIECE_COLORS, head_dropout)
         extra = 64 * 3 if turn_color_stats else 0
         self.global_head = nn.Sequential(
-            nn.Dropout(head_dropout), nn.Linear(64 * width + extra, 64), nn.ReLU(),
-            nn.Dropout(head_dropout))
+            Dropout(head_dropout), nn.Linear(64 * width + extra, 64), nn.ReLU(),
+            Dropout(head_dropout))
         self.turn_head = head(64, 1, 0.0)
         self.castling_head = head(64, 4, 0.0)
 

@@ -15,6 +15,14 @@ dQ, dK and dV in a second, with no scratch in device memory; above
 ``reference_attention_bwd`` as the plain version: the arithmetic of the JAX
 package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
+f32 inputs (an f32 model: ``training.mixed_precision=false``, or an f32
+checkpoint served) take the f32 kernels of ``csrc/attention_f32.cu``: the
+forward, and a backward of two kernels (dQ per 64-query tile, then dK/dV per
+64-key tile, through an f32 (B, H, 3, N) statistics scratch) at every token
+count, IEEE f32 throughout (no TF32); they count in ``F32_LAUNCHES`` and
+``F32_BWD_LAUNCHES``, not in the bf16 counters. The plain versions are the
+same two functions, which compute in f32 for either dtype.
+
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
 package's function of that name, K4): attention, then per-token int8
 quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu`` (one
@@ -46,8 +54,11 @@ BWD_LAUNCHES = 0
 BWD_LONG_LAUNCHES = 0  # of BWD_LAUNCHES, those of the long route
 QUANT_LAUNCHES = 0
 FLAT_LAUNCHES = 0
+F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
+F32_BWD_LAUNCHES = 0  # of the f32 backward (its two kernels count once)
 
-_HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention.cu
+_HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention*.cu
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
 QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
 _MAX_GRID_YZ = 65535
@@ -103,12 +114,16 @@ def _accum_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _check_kernel_input(qkv: torch.Tensor, num_heads: int) -> int:
-    """Raise on what the attention kernels do not take; returns the head dim."""
+def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
+                        dtypes: tuple = _KERNEL_DTYPES) -> int:
+    """Raise on what the attention kernels do not take (the quantizing ones
+    take bf16 alone, as the JAX int8 path); returns the head dim."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the attention kernel takes bf16, got {qkv.dtype}")
+    if qkv.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"this attention kernel takes {names}, got "
+                        f"{qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv shape {tuple(qkv.shape)} does not split into "
                          f"3 x {num_heads} heads")
@@ -130,7 +145,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     A CPU tensor takes ``reference_attention`` (and
     ``reference_attention_bwd`` for its gradient); a CUDA tensor launches the
-    kernels (bf16, head dim 16, 32 or 64) or raises."""
+    kernels (bf16 or f32, head dim 16, 32 or 64) or raises."""
     if qkv.requires_grad and torch.is_grad_enabled():
         return _FusedAttention.apply(qkv, num_heads)
     return fused_qkv_attention_fwd(qkv, num_heads)
@@ -138,7 +153,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 class _FusedAttention(torch.autograd.Function):
     """The forward saves only ``qkv``; the backward recomputes the softmax
-    statistics from it inside its one kernel (``fused_qkv_attention_bwd``)."""
+    statistics from it inside its kernel (``fused_qkv_attention_bwd``)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads):
@@ -150,6 +165,42 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
         return fused_qkv_attention_bwd(qkv, g, ctx.num_heads), None
+
+
+def attention_recomputing_qkv(x: torch.Tensor, make_qkv, params: list,
+                              num_heads: int) -> torch.Tensor:
+    """``fused_qkv_attention(make_qkv(x), num_heads)`` that keeps only ``x``
+    for the backward: there ``make_qkv`` (a differentiable function of
+    ``x`` and the tensors ``params``, such as LayerNorm then the qkv
+    product) runs again for the attention backward's qkv, and the attention
+    forward does not. ``remat="attn_out"`` (``models/layers.py``) runs each
+    block's attention so."""
+    return _RecomputedQkvAttention.apply(x, make_qkv, num_heads, *params)
+
+
+class _RecomputedQkvAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, make_qkv, num_heads, *params):
+        with torch.no_grad():
+            qkv = make_qkv(x)
+        ctx.save_for_backward(x, *params)
+        ctx.make_qkv, ctx.num_heads = make_qkv, num_heads
+        return fused_qkv_attention_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        x = x.detach().requires_grad_(ctx.needs_input_grad[0])
+        with torch.enable_grad():
+            qkv = ctx.make_qkv(x)
+        dqkv = fused_qkv_attention_bwd(qkv.detach(), g, ctx.num_heads)
+        wants = [x, *params]
+        which = [i for i, t in enumerate(wants) if t.requires_grad]
+        found = torch.autograd.grad(qkv, [wants[i] for i in which], dqkv)
+        grads = [None] * len(wants)
+        for i, grad in zip(which, found):
+            grads[i] = grad
+        return grads[0], None, None, *grads[1:]
 
 
 def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -164,20 +215,35 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _build.library()
+    scale = 1.0 / math.sqrt(head_dim)
+    f32 = qkv.dtype == torch.float32
     with torch.cuda.device(qkv.device):
-        rc = lib.cvt_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
-            1.0 / math.sqrt(head_dim), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "attention")
-    global LAUNCHES
-    LAUNCHES += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if f32:  # the scale folds into q where that is exact, as in JAX
+            q_scale, s_scale = (scale, 1.0) if _pow2(scale) else (1.0, scale)
+            rc = lib.cvt_attention_fwd_f32(
+                qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
+                q_scale, s_scale, stream)
+        else:
+            rc = lib.cvt_attention_fwd(
+                qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
+                scale, stream)
+    _build.check(rc, "f32 attention" if f32 else "attention")
+    global LAUNCHES, F32_LAUNCHES
+    if f32:
+        F32_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
-def bwd_route(n: int) -> str:
-    """The backward kernel that takes ``n`` tokens: ``"short"``
+def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The backward kernel that takes ``n`` tokens: in bf16 ``"short"``
     (``csrc/attention_bwd.cu``, a head in shared memory) up to
-    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_long.cu``) above."""
+    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_long.cu``) above;
+    in f32 ``"f32"`` (``csrc/attention_f32.cu``, tiled at every ``n``)."""
+    if dtype == torch.float32:
+        return "f32"
     return "short" if n <= BWD_MAX_TOKENS else "long"
 
 
@@ -187,13 +253,15 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     dqkv (B, N, 3*H*Dh).
 
     A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
-    a backward kernel (bf16, head dim 16, 32 or 64) or raises. Both kernels
-    are hand-written and give the same function; the shape picks one
-    (``bwd_route``): up to ``BWD_MAX_TOKENS`` tokens the one-block-per-head
-    kernel of ``csrc/attention_bwd.cu``, above it the two kernels of
-    ``csrc/attention_bwd_long.cu`` (dQ per 64-query tile, then dK/dV per
-    64-key tile, through an f32 (B, H, 3, N) statistics scratch). ``g`` is
-    made contiguous first (autograd may hand a strided one)."""
+    a backward kernel (bf16 or f32, head dim 16, 32 or 64) or raises. The
+    kernels are hand-written and give the same function; dtype and shape
+    pick one (``bwd_route``): in bf16 up to ``BWD_MAX_TOKENS`` tokens the
+    one-block-per-head kernel of ``csrc/attention_bwd.cu``, above it the two
+    kernels of ``csrc/attention_bwd_long.cu`` (dQ per 64-query tile, then
+    dK/dV per 64-key tile, through an f32 (B, H, 3, N) statistics scratch);
+    in f32 the two kernels of ``csrc/attention_f32.cu``, of the same
+    structure, at every token count. ``g`` is made contiguous first
+    (autograd may hand a strided one)."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -210,20 +278,26 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if dqkv.numel() == 0:
         return dqkv
     lib = _build.library()
-    long = bwd_route(N) == "long"
-    # the long route's row statistics (max, 1/l, r) per (image, head, row)
+    route = bwd_route(N, qkv.dtype)
+    tiled = route != "short"
+    # the tiled routes' row statistics per (image, head, row): (max, 1/l, r)
+    # in bf16, (max, l, r) in f32
     stats = (torch.empty((B, num_heads, 3, N), dtype=torch.float32,
-                         device=qkv.device) if long else None)
-    scratch = [stats.data_ptr()] if long else []
-    entry = lib.cvt_attention_bwd_long if long else lib.cvt_attention_bwd
+                         device=qkv.device) if tiled else None)
+    scratch = [stats.data_ptr()] if tiled else []
+    entry = {"short": lib.cvt_attention_bwd, "long": lib.cvt_attention_bwd_long,
+             "f32": lib.cvt_attention_bwd_f32}[route]
     with torch.cuda.device(qkv.device):
         rc = entry(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), *scratch,
                    B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
                    torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "attention backward")
-    global BWD_LAUNCHES, BWD_LONG_LAUNCHES
-    BWD_LAUNCHES += 1
-    BWD_LONG_LAUNCHES += long
+    _build.check(rc, f"attention backward ({route})")
+    global BWD_LAUNCHES, BWD_LONG_LAUNCHES, F32_BWD_LAUNCHES
+    if route == "f32":
+        F32_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
+        BWD_LONG_LAUNCHES += route == "long"
     return dqkv
 
 
@@ -297,7 +371,7 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     head dim 16, 32 or 64) or raises."""
     if qkv.device.type == "cpu":
         return reference_attention_quant(qkv, num_heads, softmax_shift)
-    head_dim = _check_kernel_input(qkv, num_heads)
+    head_dim = _check_kernel_input(qkv, num_heads, (torch.bfloat16,))
     B, N, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)
@@ -361,7 +435,8 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     NP = _flat_images(qkv, images, n_real)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous and 16-byte aligned")
-    head_dim = _check_kernel_input(qkv.view(images, NP, -1), num_heads)
+    head_dim = _check_kernel_input(qkv.view(images, NP, -1), num_heads,
+                                   (torch.bfloat16,))
     M, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)

@@ -11,6 +11,13 @@ W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
 attention kernels), with per-layer softmax shifts calibrated on a few inputs;
 ``CHESS_VISION_INT8_LAYOUT=block|flat|fused`` picks its kernel layout.
 
+``devices=[...]`` serves over several devices from one process (the
+``serve`` CLI's ``--dp`` takes every visible CUDA device): one replica of the
+model, or of the int8 pack, per device (a device may be named twice: two
+replicas on one card), each batch cut into contiguous shards that run on
+their devices' streams side by side; the FENs come back in order. int8
+calibration runs once and its shifts are shared.
+
 ``mode="ycbcr420"`` ships the JPEG's own 4:2:0 planes (Y at full size, Cb
 and Cr at half size: half the bytes of RGB) and rebuilds normalized RGB on
 the device in plain PyTorch (``ops/preprocess.ycbcr420_to_normalized``) in
@@ -18,12 +25,13 @@ place of the preprocess kernel; files are decoded to planes by the native
 decoder, and ``predict_array``'s RGB boards are converted on the host.
 
     python -m chess_vision_tpu_torch.serve --checkpoint C --images dir_or_glob \
-        [--mode ycbcr420] [--quant int8 --calib 8]
+        [--mode ycbcr420] [--quant int8 --calib 8] [--dp]
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import os
 import queue
@@ -44,6 +52,7 @@ from chess_vision_tpu_torch.convert.jax_params import (
 from chess_vision_tpu_torch.models import build_model
 from chess_vision_tpu_torch.ops import preprocess as preprocess_ops
 from chess_vision_tpu_torch.ops import quant as quant_ops
+from chess_vision_tpu_torch.parallel.mesh import shard_rows
 from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
 from chess_vision_tpu_torch.utils.device import resolve_device
 
@@ -108,7 +117,7 @@ class _Slot:
         self.preds = torch.empty((batch, 64), dtype=torch.uint8, pin_memory=pin)
         self.turn = torch.empty((batch,), dtype=torch.bool, pin_memory=pin)
         self.castling = torch.empty((batch, 4), dtype=torch.bool, pin_memory=pin)
-        self.done: torch.cuda.Event | None = None
+        self.done: list[torch.cuda.Event] = []  # one per shard
 
 
 class Predictor:
@@ -132,17 +141,27 @@ class Predictor:
     the forward runs on. Calibration images are decoded to RGB and
     normalized on the host in either ``mode``, as in the JAX package.
 
-    ``mode="ycbcr420"`` stages and ships 4:2:0 planes (module docstring)."""
+    ``mode="ycbcr420"`` stages and ships 4:2:0 planes (module docstring).
+
+    ``devices`` (a list, instead of ``device``) serves over several devices:
+    one replica each, ``batch_size`` cut into len(devices) contiguous shards
+    (it must divide), a shard per device on the device's own stream. A
+    failure on any device raises."""
 
     def __init__(self, checkpoint, batch_size: int = 256,
                  decode_workers: int = 8, inflight: int = 4,
                  mode: str = "rgb", quant: str | None = None, device=None,
-                 calib_paths=None):
+                 calib_paths=None, devices=None):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant {quant!r}; expected None or 'int8'")
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        shard_rows(batch_size, 0, len(self.devices))  # it must divide
+        self.device = self.devices[0]
         if isinstance(checkpoint, (str, os.PathLike)):
             ckpt = load_checkpoint(os.fspath(checkpoint))
             cfg, params = ckpt["config"], ckpt["params"]
@@ -173,18 +192,27 @@ class Predictor:
                                                num_heads=num_heads,
                                                gelu=self.gelu)
             self.attn_shifts = pack.pop("attn_shifts", None)
-            self.pack = int8_pack_from_jax(pack, self.device)
-            self.infer = make_int8_infer_fn(
-                self.pack, data_cfg["mean"], data_cfg["std"],
+            self.packs = [int8_pack_from_jax(pack, d) for d in self.devices]
+            self.pack = self.packs[0]
+            self.infers = [make_int8_infer_fn(
+                p, data_cfg["mean"], data_cfg["std"],
                 attn_shifts=self.attn_shifts, gelu=self.gelu,
                 num_heads=num_heads, layout=self.layout, mode=mode)
+                for p in self.packs]
         else:
-            self.model = build_model(cfg)
-            self.model.load_state_dict(
+            model = build_model(cfg)
+            model.load_state_dict(
                 state_dict_from_jax(params, cfg, batch_stats))
-            self.model.cast_weights().to(self.device)
-            self.infer = make_infer_fn(self.model, data_cfg["mean"],
-                                       data_cfg["std"], mode=mode)
+            model.cast_weights()
+            self.models = [copy.deepcopy(model).to(d) for d in self.devices[1:]]
+            self.model = model.to(self.device)
+            self.models.insert(0, self.model)
+            self.infers = [make_infer_fn(m, data_cfg["mean"], data_cfg["std"],
+                                         mode=mode) for m in self.models]
+        self.infer = self.infers[0]
+        self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                         and len(self.devices) > 1 else None
+                         for d in self.devices]
         self.batch_size = batch_size
         self.decode_workers = decode_workers
         self.inflight = inflight
@@ -229,20 +257,41 @@ class Predictor:
             staged = buf.numpy()
             staged[:count] = arr
             staged[count:] = arr[-1]
-        preds, turn, castling = self.infer(
-            *(buf.to(self.device, non_blocking=True) for buf in slot.inputs))
-        slot.preds.copy_(preds, non_blocking=True)
-        slot.turn.copy_(turn, non_blocking=True)
-        slot.castling.copy_(castling, non_blocking=True)
-        if self.device.type == "cuda":
-            slot.done = torch.cuda.Event()
-            slot.done.record()
+        slot.done = []
+        if len(self.devices) == 1:  # the current stream
+            self._run_shard(slot, slice(None), self.infers[0], self.device)
+            return count, slot
+        for i, (infer, device, stream) in enumerate(
+                zip(self.infers, self.devices, self._streams)):
+            rows = shard_rows(self.batch_size, i, len(self.devices))
+            if stream is None:
+                self._run_shard(slot, rows, infer, device)
+                continue
+            # the shard's copies and forward queue on the device's stream,
+            # after what the default stream has queued (slot reuse)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                self._run_shard(slot, rows, infer, device)
         return count, slot
 
     @staticmethod
+    def _run_shard(slot: _Slot, rows: slice, infer, device) -> None:
+        """Rows ``rows`` of the slot through ``infer`` on ``device``, their
+        results copied back into the slot; on CUDA an event marks the end."""
+        preds, turn, castling = infer(
+            *(buf[rows].to(device, non_blocking=True) for buf in slot.inputs))
+        slot.preds[rows].copy_(preds, non_blocking=True)
+        slot.turn[rows].copy_(turn, non_blocking=True)
+        slot.castling[rows].copy_(castling, non_blocking=True)
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            slot.done.append(event)
+
+    @staticmethod
     def _drain(count: int, slot: _Slot) -> list[str]:
-        if slot.done is not None:
-            slot.done.synchronize()
+        for event in slot.done:
+            event.synchronize()
         return assemble_fens_batch(slot.preds.numpy()[:count],
                                    slot.turn.numpy()[:count],
                                    slot.castling.numpy()[:count])
@@ -340,15 +389,23 @@ def main(argv=None):
                              "on the first N inputs (0 = exact row-max "
                              "shifts, no calibration)")
     parser.add_argument("--dp", action="store_true",
-                        help="data-parallel serving; not ported yet")
+                        help="data-parallel serving over every visible CUDA "
+                             "device (one replica each; --batch-size must "
+                             "divide by their count)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
 
+    devices = None
     if args.dp:
-        raise NotImplementedError(
-            "--dp is not ported yet (ROADMAP Queue A item 11)")
+        if args.device is not None:
+            sys.exit("--dp serves on every visible CUDA device; drop --device")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if not devices:
+            sys.exit("--dp needs a CUDA device")
+        print(f"Data-parallel serving over {len(devices)} devices",
+              file=sys.stderr)
     if os.path.isdir(args.images):
         paths = sorted(
             os.path.join(args.images, f)
@@ -363,7 +420,7 @@ def main(argv=None):
     predictor = Predictor(
         args.checkpoint, batch_size=args.batch_size,
         decode_workers=args.decode_workers, mode=args.mode, quant=args.quant,
-        device=args.device,
+        device=args.device, devices=devices,
         calib_paths=paths[:args.calib] if args.quant == "int8" else None,
     )
     t0 = time.time()

@@ -15,6 +15,12 @@ blocking, so the next batch's copy overlaps the current step.
 Randomness: one generator for the augmentation draws and the device's default
 generator for dropout and drop path, both re-seeded from the run's seed and
 the step at every step, so a resumed run continues the same streams.
+
+Data parallel (``state.mesh``, ``parallel/mesh.py``): the step gets this
+rank's slice of the global batch, draws the augmentation parameters, dropout
+and drop path masks for the global batch and slices them, divides the loss
+by the global batch's denominators, and sums the metric sums over the ranks,
+so every rank returns the global batch's sums and loss.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from chess_vision_tpu_torch.augment import (
     preprocess_eval_batch,
     preprocess_train_batch,
 )
+from chess_vision_tpu_torch.parallel import mesh as parallel
 from chess_vision_tpu_torch.train.losses import total_loss
 from chess_vision_tpu_torch.train.metrics import (
     accumulate,
@@ -133,34 +140,51 @@ def make_steps(state, cfg: dict, class_weights, mean, std, seed: int = 0):
         class_weights = class_weights.to(device)
     aug_gen = torch.Generator(device=device)
     drop_gen = default_generator(device)
+    mesh = state.mesh
+    ranks = 1 if mesh is None else mesh.dp
+    reduce = parallel.all_reduce_sum if ranks > 1 else None
+
+    def global_value(x: torch.Tensor) -> torch.Tensor:
+        """A rank's share of a loss -> the global loss (inside data_axis)."""
+        return x if reduce is None else reduce(x.detach())
 
     def train_step(batch: dict, aug_params: dict | None = None) -> dict:
+        """``batch``: this rank's slice; ``aug_params``: the global batch's."""
         model.train()
         batch = unpack_batch(batch, input_size)
+        n = batch["squares"].shape[0]
         if aug_params is None:
             aug_gen.manual_seed(_stream_seed(seed, state.step, 0))
-            aug_params = draw_params(batch["squares"].shape[0], aug_gen)
+            aug_params = draw_params(n * ranks, aug_gen)
+        if ranks > 1:
+            rows = parallel.shard_rows(n * ranks, mesh.dp_rank, ranks)
+            aug_params = {k: v[rows] for k, v in aug_params.items()}
         drop_gen.manual_seed(_stream_seed(seed, state.step, 1))
-        images = preprocess_train_batch(batch, aug_params, mean, std,
-                                        channel_perm_p, invert_p)
-        out = model(images)
-        loss, aux = total_loss(out, batch, class_weights, smoothing, turn_w,
-                               castling_w)
-        loss.backward()
+        with parallel.data_axis(mesh):
+            images = preprocess_train_batch(batch, aug_params, mean, std,
+                                            channel_perm_p, invert_p)
+            out = model(images)
+            loss, aux = total_loss(out, batch, class_weights, smoothing,
+                                   turn_w, castling_w, reduce=reduce)
+            loss.backward()
+            loss = global_value(loss)
+            piece_loss = global_value(aux["piece_loss"])
         state.apply_gradients()
-        sums = batch_metric_sums(out, batch, loss)
+        sums = parallel.reduce_sums(batch_metric_sums(out, batch, loss), mesh)
         sums["step_loss"] = loss.detach().float()
-        sums["step_piece_loss"] = aux["piece_loss"].detach().float()
+        sums["step_piece_loss"] = piece_loss.detach().float()
         return sums
 
     @torch.no_grad()
     def eval_step(batch: dict) -> dict:
         model.eval()
         batch = unpack_batch(batch, input_size)
-        out = model(preprocess_eval_batch(batch, mean, std))
-        loss, _ = total_loss(out, batch, class_weights, smoothing, turn_w,
-                             castling_w)
-        return batch_metric_sums(out, batch, loss)
+        with parallel.data_axis(mesh):
+            out = model(preprocess_eval_batch(batch, mean, std))
+            loss, _ = total_loss(out, batch, class_weights, smoothing, turn_w,
+                                 castling_w, reduce=reduce)
+            loss = global_value(loss)
+        return parallel.reduce_sums(batch_metric_sums(out, batch, loss), mesh)
 
     return train_step, eval_step
 

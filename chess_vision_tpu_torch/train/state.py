@@ -19,12 +19,20 @@ The clip factor stays on the device: no step waits for the norm. The moments
 are kept per ``state_dict`` name in the parameters' own (PyTorch) layout;
 ``utils/checkpoint.py`` carries them through the weight bridge into optax's
 ``opt_state`` structure and back.
+
+Over several devices (``parallel/mesh.py``, ``shard_train_state``) the update
+is the same function: the gradients of the parameters that FSDP does not
+hold are summed over the data axis here (FSDP has reduce-scattered its own),
+the global norm adds every shard's squares once (TP cuts over the model
+axis, FSDP shards over the data axis), and AdamW runs on each rank's shards
+of the parameters and moments.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from chess_vision_tpu_torch.fen import NUM_CLASSES, fen_to_labels
@@ -59,6 +67,48 @@ class TrainState:
                 self.params.append(param)
         self.mu = {n: torch.zeros_like(p) for n, p in zip(self.names, self.params)}
         self.nu = {n: torch.zeros_like(p) for n, p in zip(self.names, self.params)}
+        self.mesh = None  # parallel.mesh.Mesh once sharded
+        self.tp_layout: dict = {}
+
+    def _global_norm(self, grads: list) -> torch.Tensor:
+        """The norm of the whole gradient. One device (or data parallel,
+        whose gradients are whole after the reduction): the norm of the
+        per-tensor norms. Sharded: every shard's squares once, summed over
+        the axes the shard is cut along."""
+        from chess_vision_tpu_torch.parallel.mesh import is_sharded
+
+        mesh = self.mesh
+        if mesh is None or not (self.tp_layout or mesh.fsdp):
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+        squares = torch.stack(torch._foreach_norm(grads)) ** 2
+        # by axis: 0 whole, 1 cut over data, 2 over model, 3 over both
+        axis = torch.tensor([is_sharded(p) + 2 * (n in self.tp_layout)
+                             for n, p in zip(self.names, self.params)],
+                            device=squares.device)
+        parts = torch.zeros(4, dtype=squares.dtype, device=squares.device)
+        parts.index_add_(0, axis, squares)
+        by_data, by_model, by_both = parts[1:2], parts[2:3], parts[3:4]
+        if mesh.dp > 1:
+            dist.all_reduce(by_data, group=mesh.dp_group)
+        if mesh.tp > 1:
+            dist.all_reduce(by_model, group=mesh.tp_group)
+        if mesh.world > 1:
+            dist.all_reduce(by_both)
+        return torch.sqrt(parts.sum())
+
+    def _reduce_gradients(self, grads: list) -> None:
+        """Sum over the data axis, in place, the gradients that FSDP does
+        not reduce (one all-reduce of their concatenation)."""
+        from chess_vision_tpu_torch.parallel.mesh import is_sharded
+
+        if self.mesh is None or self.mesh.dp == 1:
+            return
+        whole = [g for g, p in zip(grads, self.params) if not is_sharded(p)]
+        flat = torch.cat([g.reshape(-1) for g in whole])
+        dist.all_reduce(flat, group=self.mesh.dp_group)
+        parts = flat.split([g.numel() for g in whole])
+        torch._foreach_copy_(whole, [p.view_as(g) for p, g in zip(parts, whole)])
 
     @torch.no_grad()
     def apply_gradients(self) -> torch.Tensor:
@@ -68,12 +118,15 @@ class TrainState:
         optax: its moments stay zero and weight decay still shrinks it.
         Returns the global gradient norm before clipping, a 0-d tensor left
         on the device."""
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
-        mu = [self.mu[n] for n in self.names]
-        nu = [self.nu[n] for n in self.names]
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        from chess_vision_tpu_torch.parallel.mesh import local
+
+        grads = [torch.zeros_like(local(p)) if p.grad is None
+                 else local(p.grad) for p in self.params]
+        self._reduce_gradients(grads)
+        mu = [local(self.mu[n]) for n in self.names]
+        nu = [local(self.nu[n]) for n in self.names]
+        params = [local(p) for p in self.params]
+        norm = self._global_norm(grads)
         clip = norm >= self.clip_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(clip, norm, one))
@@ -90,8 +143,8 @@ class TrainState:
         torch._foreach_add_(denom, EPS)
         update = torch._foreach_div(mu, 1.0 - B1 ** count)
         torch._foreach_div_(update, denom)
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
+        torch._foreach_add_(update, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, update, alpha=-lr)
         for p in self.params:
             p.grad = None
         self.step = count

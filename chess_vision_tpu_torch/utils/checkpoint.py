@@ -18,6 +18,10 @@ through the inverse weight bridge and the AdamW moments laid out as the state op
 ``inner_states`` when the backbone is frozen (its moments are then empty
 nodes). ``restore_train_state`` reads either package's checkpoint back.
 ``msgpack`` is imported at call time.
+
+A state sharded over several devices (``parallel/mesh.py``) is gathered into
+the full, single-device layout on every rank and written by rank 0 alone;
+a trainer resumes into the full state before sharding it.
 """
 
 from __future__ import annotations
@@ -112,12 +116,14 @@ def _masked_like(params_tree: dict, moments_tree: dict) -> dict:
     return out
 
 
-def optax_state_dict(state, params_tree: dict) -> dict:
-    """The train state's AdamW moments and count as the serialized
-    ``opt_state`` of the JAX package's optimizer."""
+def optax_state_dict(state, params_tree: dict, moments=None) -> dict:
+    """The train state's AdamW moments (or ``moments``, a gathered (mu, nu)
+    pair) and count as the serialized ``opt_state`` of the JAX package's
+    optimizer."""
     count = np.asarray(state.step, np.int32)
-    mu = _masked_like(params_tree, tree_from_state_dict(state.mu))
-    nu = _masked_like(params_tree, tree_from_state_dict(state.nu))
+    mu, nu = moments or (state.mu, state.nu)
+    mu = _masked_like(params_tree, tree_from_state_dict(mu))
+    nu = _masked_like(params_tree, tree_from_state_dict(nu))
     inner = {"0": {}, "1": {"0": {"count": count, "mu": mu, "nu": nu},
                             "1": {}, "2": {"count": count}}}
     if not state.freeze_backbone:
@@ -129,10 +135,17 @@ def optax_state_dict(state, params_tree: dict) -> dict:
 def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
                     config: dict) -> None:
     """Write ``state`` (``train.state.TrainState``) in the JAX package's
-    checkpoint layout, atomically."""
+    checkpoint layout, atomically. A sharded state is gathered (every rank
+    must call this) and rank 0 writes."""
     import msgpack
 
-    variables = variables_from_state_dict(state.model.state_dict())
+    from chess_vision_tpu_torch.parallel.mesh import full_state
+
+    sd, mu, nu = full_state(state)
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return
+    variables = variables_from_state_dict(sd)
     params_tree = variables["params"]
     payload = {
         "step": int(state.step),
@@ -140,7 +153,7 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
         "best_val_acc": float(best_val_acc),
         "config_json": json.dumps(config),
         "params": params_tree,
-        "opt_state": optax_state_dict(state, params_tree),
+        "opt_state": optax_state_dict(state, params_tree, (mu, nu)),
         "batch_stats": variables["batch_stats"],
     }
     blob = msgpack.packb(payload, default=_ext_pack, strict_types=True)

@@ -199,7 +199,47 @@ Phases, one line each; any failure exits non-zero before the last line:
              and the checkpoint) and ``pin_backbone_bn=false`` (all 90 move,
              and the checkpoint carries them into the subprocess's
              evaluation).
- 20. report  the kernels JSON line (every kernel with its bound and, where
+ 20. f32     K2 and K3 on f32 inputs (``csrc/attention_f32.cu``) vs their
+             plain versions at (64, 257, 2304) and (16, 577, 2304), 12
+             heads: within F32_ATOL, the backward bit-identical twice; their
+             times beside the plain versions' and ``scaled_dot_product_
+             attention``'s in f32; 4 train steps of ViT-B/16 at batch 64 with
+             ``configs/vit.yaml`` values and ``training.mixed_precision=
+             false`` (12 f32 K2 and 12 f32 K3 launches a step, none in
+             bf16), one step's gradients against the plain attention's
+             within F32_GRAD_RTOL, img/s and peak memory; an f32
+             ``Predictor`` on phase 5's boards: K1 once and f32 K2 12 times
+             a batch, FENs equal to its plain path's; the CNN and square
+             archs in f32 (2 train steps, a batch served: finite, K1 once,
+             no attention kernel).
+ 21. remat   bf16 train steps at batch 64 under ``model.remat`` False,
+             "attn_out" and True: (K2, K3) launches per step (12, 12),
+             (12, 12) and (24, 12); the gradients of "attn_out" and True
+             against False's (bit-equal printed, held to REMAT_GRAD_RTOL);
+             img/s and peak memory of each, and the bytes an image
+             "attn_out" keeps, beside ``models.ATTN_OUT_BYTES_PER_IMAGE``.
+ 22. multi   training over ranks on the one card: (a) ``python -m
+             torch.distributed.run --nproc-per-node 1 -m
+             chess_vision_tpu_torch.train`` (a 1-rank NCCL group) against
+             the CLI without the launcher, both 1 epoch at full width and
+             depth 2 on 160 JPEGs: checkpoints bit-equal; (b) two ranks on cuda:0 over gloo
+             with CUDA tensors (NCCL refuses two ranks on one GPU),
+             ``parallel.dryrun.compare_ranks``: DP2, FSDP2 and TP2 (6 heads
+             a rank), 4 steps of ViT-B/16 bf16 at a global batch of 64,
+             losses within TRAIN_LOSS_ATOL (the first step) and
+             MULTI_LOSS_RTOL and parameters within AdamW's sign-flip bound
+             of one rank, 99% of them within MULTI_P99; K2 and K3 launched
+             12 times a step on each rank; a planted fault (dp2 without the
+             gradient sum) must fail those bounds. Two ranks sharing one
+             card: not a scaling. Then ``python -m
+             chess_vision_tpu_torch.parallel.dryrun 2`` on the card: the
+             graft entry's three surfaces (ViT-B/16 at 64 px).
+ 23. dp      ``Predictor(devices=["cuda:0", "cuda:0"])`` (two replicas, a
+             shard each) in bf16 rgb and int8 block: FENs equal to one
+             device's, the launch counts twice a batch's per shard; the
+             ``serve`` CLI with ``--dp``; ``evaluate`` over two replicas
+             on phase 17's boards, its report equal to one device's.
+ 24. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel but K3's long route, which no 257-token path
              takes, must have been launched by a main path),
@@ -271,6 +311,30 @@ K3_ATOL = 1.6e-2
 # 0.004, losses 2.8e-4 apart.
 TRAIN_GRAD_RTOL = 4e-2
 TRAIN_LOSS_ATOL = 5e-3
+# f32 K2/K3 vs their plain versions: IEEE f32 on both sides, sums in another
+# order (the kernels' online max over 64-key tiles); read on the H100 at
+# 1.1e-6 (forward) and 3.6e-7 (backward) on values up to 1.7
+F32_ATOL = 5e-6
+# gradients of one f32 train step, f32 kernels vs plain attention on the
+# card, per tensor (max |difference| / max |plain gradient|): f32 rounding
+# through 12 blocks
+F32_GRAD_RTOL = 1e-3
+# "attn_out" and full remat against no remat: the same ops on the same
+# values, recomputed; dropout and drop path redrawn from the restored state
+REMAT_GRAD_RTOL = 1e-6
+# two ranks against one over 4 bf16 steps (phase 22): the first step's loss
+# (the same weights) within TRAIN_LOSS_ATOL; every step's within this
+# relative bound: the ranks' bf16 products round at other points (TP adds
+# two partial products; DP runs 32-row GEMMs) and 4 steps of AdamW at lr
+# 1e-4 without warm-up amplify it (losses 4.5 -> 11.9 -> 7.1); read on the
+# H100: 2.9e-3 at most (tp2's fourth step), 4e-4 on the first
+MULTI_LOSS_RTOL = 1e-2
+# ... and 99% of the parameters within this of one rank's after the 4 steps.
+# The maximum only holds AdamW's sign flips (a gradient entry near 0 whose
+# sign differs moves its parameter by up to 2 lr a step either way; read up
+# to 5.1e-4 of the bound's 8e-4), so this is what sees a fault in the
+# reduction. Sound runs read 4.1e-6 to 1.3e-5 on the H100 (dp2, fsdp2, tp2).
+MULTI_P99 = 5e-5
 # K14 (and the split chain, which gives the same bits) vs
 # ``fused_vit_block_plain`` over a whole block: each of the block's four
 # row quants may put a code one level apart where a value sits on a rounding
@@ -723,13 +787,18 @@ def main() -> int:
         eval_phase(args, cfg, params, train_ckpt, workdir)
         arch_phase(18, "cnn", args, kernels, kind, smi, workdir)
         arch_phase(19, "square", args, kernels, kind, smi, workdir)
+        corpus = MemoryCorpus(320, args.seed)
+        f32_phase(args, cfg, params, boards, corpus, kernels, kind, smi)
+        remat_phase(args, corpus, kind, smi)
+        multi_device_phase(args, workdir, kind, smi)
+        dp_phase(args, cfg, params, boards, train_ckpt, workdir, kind, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 20: the kernels line, the card and the last line."""
+    """Phase 24: the kernels line, the card and the last line."""
     import torch
 
     # the long route of K3 takes more than 288 tokens: no main path (257
@@ -739,7 +808,7 @@ def report(kernels: dict, kind: str, smi: str, started: float) -> int:
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[20 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[24 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -1139,7 +1208,7 @@ def reset_counts() -> None:
 
     pre_ops.LAUNCHES = rq.LAUNCHES = fb.LAUNCHES = 0
     attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = attn_ops.QUANT_LAUNCHES = 0
-    attn_ops.FLAT_LAUNCHES = 0
+    attn_ops.FLAT_LAUNCHES = attn_ops.F32_LAUNCHES = attn_ops.F32_BWD_LAUNCHES = 0
     for counts in (mm.LAUNCHES, av.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -1325,7 +1394,7 @@ def calibration_boards(args) -> np.ndarray:
 
 
 def build_int8_predictor(args, cfg, params, layout: str | None = None,
-                         mode: str = "rgb"):
+                         mode: str = "rgb", devices=None):
     """``Predictor(quant="int8", mode=mode)`` on the path's weights
     (``path_model``), its shifts calibrated on ``calibration_boards``, under
     CHESS_VISION_INT8_LAYOUT=layout (unset for None), warmed up; returns it
@@ -1345,7 +1414,8 @@ def build_int8_predictor(args, cfg, params, layout: str | None = None,
         if layout is None:
             os.environ.pop("CHESS_VISION_INT8_LAYOUT", None)
         predictor = Predictor((cfg, params), batch_size=BATCH,
-                              device="cuda", quant="int8", mode=mode,
+                              device=None if devices else "cuda",
+                              devices=devices, quant="int8", mode=mode,
                               calib_paths=[str(i) for i in range(len(calib))])
     predictor.predict_array(np.random.default_rng(args.seed + 1).integers(
         0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8))  # warm-up
@@ -1984,18 +2054,26 @@ def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None) -> str:
 
 def profiled_kernels(fn) -> list[str]:
     """The names of the device kernels one call of fn runs, by
-    ``torch.profiler``."""
+    ``torch.profiler``. A trace that caught no device kernel at all is taken
+    again, up to three times: the profiler once returned no event for a call
+    whose kernel ran (K15 bf16s, timed by CUDA events in the same phase); a
+    call that launches no kernel still reads empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "memset" not in e.name.lower() and "memcpy" not in e.name.lower()]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memset" not in e.name.lower()
+                 and "memcpy" not in e.name.lower()]
+        if names:
+            return names
+    return names
 
 
 def flash_work(kernel: str, n: int, head_dim: int, extra_smem: int = 0) -> str:
@@ -3069,6 +3147,488 @@ def arch_phase(number: int, arch: str, args, kernels: dict, kind: str,
         arch_eval(number, arch, path, test_dir)
     print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.cuda.empty_cache()
+
+
+def attention_counts_all() -> tuple[int, int, int, int]:
+    """(K2, K3) in bf16, then in f32."""
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    return (*attention_counts(), attn_ops.F32_LAUNCHES,
+            attn_ops.F32_BWD_LAUNCHES)
+
+
+def timed_steps(step, batches, n: int = 4) -> float:
+    """img/s of ``n`` warm train steps on batches already on the card."""
+    import torch
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(batches[(i + 1) % len(batches)])
+    torch.cuda.synchronize()
+    return n * TRAIN_BATCH / (time.perf_counter() - t0)
+
+
+def grad_gap(grads: dict, ref: dict) -> tuple[float, str, bool]:
+    """The worst per-tensor max |difference| / max |reference gradient|, its
+    tensor, and whether every tensor is bit-equal."""
+    import torch
+
+    rel = {n: ((grads[n] - ref[n]).abs().max()
+               / ref[n].abs().max().clamp_min(1e-30)).item() for n in ref}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst, all(torch.equal(grads[n], ref[n]) for n in ref)
+
+
+def f32_phase(args, cfg, params, boards, corpus, kernels: dict, kind: str,
+              smi: str) -> None:
+    """Phase 20: K2 and K3 on f32 inputs, the f32 trainer and Predictor."""
+    import torch
+
+    from chess_vision_tpu_torch.augment import draw_params
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    tag = "[20 f32]"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    H, Dh = 12, 64
+    for B, n in ((TRAIN_BATCH, SIZE // 16 * SIZE // 16 + 1), (16, 577)):
+        qkv = torch.randn((B, n, 3 * H * Dh), device=dev, generator=gen)
+        g = torch.randn((B, n, H * Dh), device=dev, generator=gen)
+        out = attn_ops.fused_qkv_attention_fwd(qkv, H)
+        dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        again = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        ref = attn_ops.reference_attention(qkv, H)
+        dref = attn_ops.reference_attention_bwd(qkv, g, H)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        derr = (dqkv - dref).abs().max().item()
+        same = torch.equal(dqkv, again)
+        del ref, dref, again
+        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, H), 10)
+        bwd_ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 10)
+        plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, H), 3)
+        plain_bwd_ms = cuda_ms(
+            lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
+        lib_fwd, lib_bwd = sdpa_ms(qkv, g, H)
+        print(f"{tag} f32 attention {tuple(qkv.shape)} H={H}: forward max "
+              f"|diff| {err}, backward {derr} (atol {F32_ATOL}), backward "
+              f"twice bit-identical {same}; K2 f32 {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, scaled_dot_product_attention f32 "
+              f"{lib_fwd:.4f}); K3 f32 {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}, SDPA backward {lib_bwd:.4f})", flush=True)
+        require(err <= F32_ATOL and derr <= F32_ATOL and same,
+                f"{tag} f32 attention at {tuple(qkv.shape)}: {err}, {derr}, "
+                f"deterministic {same}")
+        if B == TRAIN_BATCH:
+            ops = 2 * 2 * B * H * n * n * Dh
+            kernels["fused_qkv_attention_f32"] = kernel_entry(
+                "fused_qkv_attention_f32", "attention_f32.cu",
+                "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+                nbytes=4 * qkv.numel() * 4 // 3, ops=ops, op_type="f32",
+                library_ms=lib_fwd)
+            kernels["fused_qkv_attention_bwd_f32"] = kernel_entry(
+                "fused_qkv_attention_bwd_f32", "attention_f32.cu",
+                "chess_vision_tpu/ops/attention.py:623", derr, bwd_ms,
+                plain_bwd_ms, nbytes=4 * (2 * qkv.numel() + g.numel()),
+                ops=ops * 5 // 2, op_type="f32", library_ms=lib_bwd)
+        del qkv, g, out, dqkv
+    torch.cuda.empty_cache()
+
+    # the main path: 4 train steps of the f32 model, counted one by one
+    f32_cfg = train_config("", remat=False)
+    f32_cfg["training"]["mixed_precision"] = False
+    state, step, _, batches = make_trainer(f32_cfg, corpus, args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for batch in batches[:4]:
+        before = attention_counts_all()
+        loss = step(batch)["step_loss"].item()
+        per_step.append((tuple(a - b for a, b in zip(attention_counts_all(),
+                                                       before)), loss))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = attention_counts_all()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = timed_steps(step, batches)
+    print(f"{tag} ViT-B/16 f32 (training.mixed_precision=false), batch "
+          f"{TRAIN_BATCH}, configs/vit.yaml values: 4 steps in {train_s:.1f} s "
+          f"(first included); (K2, K3, f32 K2, f32 K3) launches per step "
+          f"{[c for c, _ in per_step]}; losses "
+          f"{[round(x, 4) for _, x in per_step]}; warm {rate:.1f} img/s; peak "
+          f"{peak:.2f} GiB; {kind}, {smi}", flush=True)
+    require(all(c == (0, 0, 12, 12) for c, _ in per_step),
+            f"{tag} launches per step {per_step}")
+    require(all(math.isfinite(x) for _, x in per_step), f"{tag} losses")
+    kernels["fused_qkv_attention_f32"]["launches"] += launches[2]
+    kernels["fused_qkv_attention_bwd_f32"]["launches"] += launches[3]
+    del state, step
+
+    # one step's gradients: f32 kernels vs plain attention on the card
+    quiet = train_config("", head_dropout=0.0, drop_path_rate=0.0, remat=False)
+    quiet["training"]["mixed_precision"] = False
+    state_k, step_k, _, _ = make_trainer(quiet, corpus, args.seed)
+    state_p, step_p, _, _ = make_trainer(quiet, corpus, args.seed)
+    aug = draw_params(TRAIN_BATCH, torch.Generator(device=dev).manual_seed(args.seed))
+    grads_k, loss_k = step_with_grads(state_k, step_k, batches[0], aug)
+    with plain_attention():
+        counts = attention_counts_all()
+        grads_p, loss_p = step_with_grads(state_p, step_p, batches[0], aug)
+        require(attention_counts_all() == counts,
+                f"{tag} the plain step launched a kernel")
+    worst, name, equal = grad_gap(grads_k, grads_p)
+    print(f"{tag} one f32 step, kernels vs plain attention: loss {loss_k} vs "
+          f"{loss_p}; worst per-tensor gradient gap {worst:.3e} at {name} "
+          f"(bound {F32_GRAD_RTOL}); bit-equal {equal}", flush=True)
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and worst <= F32_GRAD_RTOL,
+            f"{tag} f32 gradients {worst} at {name}, losses {loss_k}, {loss_p}")
+    del state_k, state_p, step_k, step_p, grads_k, grads_p, batches
+    torch.cuda.empty_cache()
+
+    # an f32 checkpoint served: K1 (f32 output) and f32 K2 per batch
+    cfg32 = {**cfg, "training": {"mixed_precision": False}}
+    predictor = Predictor((cfg32, params), batch_size=BATCH, device="cuda")
+    require(predictor.model.dtype == torch.float32, f"{tag} model dtype")
+    predictor.predict_array(boards[:BATCH])
+    reset_counts()
+    fens = predictor.predict_array(boards)
+    batches_n = math.ceil(len(boards) / BATCH)
+    counts = (pre_ops.LAUNCHES, attn_ops.F32_LAUNCHES, attn_ops.LAUNCHES)
+    with plain_ops(attn_ops, pre_ops):
+        fens_plain = predictor.predict_array(boards)
+    t0 = time.perf_counter()
+    predictor.predict_array(boards)
+    rate = len(boards) / (time.perf_counter() - t0)
+    agree = sum(a == b for a, b in zip(fens, fens_plain))
+    print(f"{tag} f32 Predictor on {len(boards)} boards: (K1, f32 K2, bf16 K2) "
+          f"launches {counts}; FENs equal to its plain path's {agree}/"
+          f"{len(boards)}; {rate:.0f} boards/s", flush=True)
+    require(counts == (batches_n, 12 * batches_n, 0), f"{tag} launches {counts}")
+    require(fens == fens_plain, f"{tag} {len(boards) - agree} FENs differ")
+    kernels["fused_qkv_attention_f32"]["launches"] += counts[1]
+    del predictor
+    torch.cuda.empty_cache()
+
+    # the CNN and square archs in f32: no attention kernel, their
+    # convolutions in cuDNN with TF32 off; two train steps and a batch served
+    for arch in ("cnn", "square"):
+        arch_cfg = arch_train_config(arch, "")
+        arch_cfg["training"]["mixed_precision"] = False
+        state, step, _, batches = make_trainer(arch_cfg, corpus, args.seed)
+        reset_counts()
+        losses = [step(batch)["step_loss"].item() for batch in batches[:2]]
+        rate = timed_steps(step, batches, 2)
+        launches = attention_counts_all()
+        del state, step, batches
+        served_cfg, variables = arch_variables(arch, args.seed)
+        served_cfg["training"]["mixed_precision"] = False
+        predictor = Predictor((served_cfg, variables["params"],
+                               variables["batch_stats"]), batch_size=BATCH,
+                              device="cuda")
+        reset_counts()
+        fens = predictor.predict_array(boards[:BATCH])
+        served = (pre_ops.LAUNCHES, predictor.model.dtype)
+        print(f"{tag} {arch} in f32: train losses {losses}, {rate:.1f} img/s "
+              f"warm, attention launches {launches}; served {len(fens)} boards, "
+              f"(K1 launches, model dtype) {served}", flush=True)
+        require(all(math.isfinite(x) for x in losses) and launches == (0, 0, 0, 0)
+                and len(fens) == BATCH and served == (1, torch.float32),
+                f"{tag} {arch} in f32: {losses}, {launches}, {served}")
+        del predictor
+        torch.cuda.empty_cache()
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def remat_phase(args, corpus, kind: str, smi: str) -> None:
+    """Phase 21: no remat, "attn_out" and full remat on the bf16 train step."""
+    import torch
+
+    from chess_vision_tpu_torch import models
+    from chess_vision_tpu_torch.augment import draw_params
+
+    tag = "[21 remat]"
+    t_phase = time.perf_counter()
+    aug = draw_params(TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(
+        args.seed))
+    policies = (False, "attn_out", True)
+    grads, rows, steps = {}, {}, {}
+    for remat in policies:
+        state, step, _, batches = make_trainer(train_config("", remat=remat),
+                                               corpus, args.seed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        grads[remat], loss = step_with_grads(state, step, batches[0], aug)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rows[remat] = (attention_counts_all()[:2], loss, peak)
+        steps[remat] = (state, step)
+    # img/s in turns, the three trainers alive together
+    rates = {remat: [] for remat in policies}
+    for remat in (*policies, *policies[::-1]):
+        rates[remat].append(timed_steps(steps[remat][1], batches, 6))
+    for remat in policies:
+        counts, loss, peak = rows[remat]
+        print(f"{tag} remat {remat!r}: (K2, K3) launches a step {counts}, loss "
+              f"{loss:.6f}, img/s in turns {[round(r, 1) for r in rates[remat]]}, "
+              f"peak above the train state {peak / 2**30:.2f} GiB "
+              f"({peak / TRAIN_BATCH / 1e6:.1f} MB an image, gradients "
+              f"included)", flush=True)
+    del steps, batches
+    torch.cuda.empty_cache()
+    want = {False: (12, 12), "attn_out": (12, 12), True: (24, 12)}
+    require(all(rows[r][0] == want[r] for r in policies),
+            f"{tag} launches {rows}")
+    for remat in ("attn_out", True):
+        worst, name, equal = grad_gap(grads[remat], grads[False])
+        print(f"{tag} remat {remat!r} gradients against no remat: bit-equal "
+              f"{equal}, worst per-tensor gap {worst:.3e} at {name} (bound "
+              f"{REMAT_GRAD_RTOL})", flush=True)
+        require(worst <= REMAT_GRAD_RTOL, f"{tag} {remat} gradients {worst}")
+    print(f"{tag} models.ATTN_OUT_BYTES_PER_IMAGE "
+          f"{models.ATTN_OUT_BYTES_PER_IMAGE:.3g}, NOREMAT_BYTES_PER_IMAGE "
+          f"{models.NOREMAT_BYTES_PER_IMAGE:.3g}; {kind}, {smi}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def multi_device_phase(args, workdir: str, kind: str, smi: str) -> None:
+    """Phase 22: a 1-rank NCCL group through the launcher, and two ranks on
+    the one card over gloo."""
+    import torch
+
+    from chess_vision_tpu_torch.parallel import dryrun
+    from chess_vision_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tag = "[22 multi]"
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(workdir, "multi_data")
+    write_eval_boards(data, 160, args.seed + 22)
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    ckpts = {}
+    for how in ("plain", "launcher"):
+        save = os.path.join(workdir, f"multi_{how}")
+        cmd = (["-m", "chess_vision_tpu_torch.train"] if how == "plain" else
+               ["-m", "torch.distributed.run", "--nproc-per-node", "1",
+                "--nnodes", "1", "--master-addr", "localhost",
+                "--master-port", str(dryrun.free_port()),
+                "-m", "chess_vision_tpu_torch.train"])
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, *cmd, "--config", "configs/vit.yaml", "--set",
+             "training.epochs=1", f"training.batch_size={TRAIN_BATCH}",
+             "data.num_workers=4", "data.val_split=0.2", f"data.train_dir={data}",
+             "data.ood_val_dir=", "model.pretrained=false", "model.remat=false",
+             "model.depth=2",
+             f"checkpointing.save_dir={save}",
+             f"logging.tensorboard_dir={save}/runs"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        require(r.returncode == 0, f"{tag} {how} trainer exit {r.returncode}: "
+                                   f"{r.stdout[-1500:]} {r.stderr[-2000:]}")
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith(("Devices", "Mesh", "  Train"))]
+        print(f"{tag} {how} trainer ({time.perf_counter() - t0:.1f} s): "
+              f"{lines}", flush=True)
+        if how == "launcher":
+            require("Mesh" in r.stdout and "nccl" in r.stdout,
+                    f"{tag} the launcher run joined no NCCL group: {lines}")
+        ckpts[how] = load_checkpoint(os.path.join(save, "latest.ckpt"))
+    a, b = (flat_params(ckpts[h]["params"]) for h in ("plain", "launcher"))
+    same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    gap = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    lr = ckpts["plain"]["config"]["training"]["lr"]
+    print(f"{tag} 1-rank NCCL group vs no group: checkpoints' {len(a)} "
+          f"parameters bit-equal {same} (max |diff| {gap:.2e}; bound 2 lr "
+          f"steps = {4 * lr:.1e}), steps {ckpts['plain']['step']} and "
+          f"{ckpts['launcher']['step']}", flush=True)
+    require(gap <= 4 * lr and ckpts["plain"]["step"] == ckpts["launcher"]["step"] == 2,
+            f"{tag} the 1-rank group's checkpoint differs")
+
+    # two ranks on cuda:0 over gloo, against one rank on the same card
+    cfg = train_config("", remat=False)
+    cfg["scheduler"]["warmup_epochs"] = 0
+    batches = dryrun.random_batches(4, TRAIN_BATCH, size=SIZE, seed=args.seed)
+    for batch in batches:
+        batch["mask"][:] = 1.0
+    t0 = time.perf_counter()
+    ref = dryrun.train_steps(cfg, batches, device="cuda:0")
+    ref_s = time.perf_counter() - t0
+    runs = {"dp2": dict(cfg=cfg, batches=batches),
+            "fsdp2": dict(cfg=cfg, batches=batches, fsdp=True),
+            "tp2": dict(cfg=cfg, batches=batches, tp=2),
+            # planted: no gradient sum over the data axis; must fail
+            "dp2 unsummed": dict(cfg=cfg, batches=batches,
+                                 plant="no_gradient_sum")}
+    t0 = time.perf_counter()
+    out = dryrun.compare_ranks(2, runs, device="cuda:0", backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    lr, steps = cfg["training"]["lr"], len(batches)
+    print(f"{tag} two ranks sharing one card over gloo (a check of the "
+          f"function, not a scaling measurement): one rank {ref_s:.1f} s, the "
+          f"four two-rank runs {ranks_s:.1f} s with start-up; one rank's "
+          f"losses {[round(x, 5) for x in ref['losses']]}", flush=True)
+    for name, res in out.items():
+        first_gap = abs(res["losses"][0] - ref["losses"][0])
+        loss_gap = max(abs(x - y) / abs(y) for x, y in zip(res["losses"],
+                                                           ref["losses"]))
+        diffs = torch.cat([(res["state"][k] - ref["state"][k]).abs().flatten()
+                           for k in ref["state"]])
+        p99 = diffs.float()[::7].quantile(0.99).item()
+        launches = res["launches_by_rank"]
+        print(f"{tag} {name}: losses {[round(x, 5) for x in res['losses']]} "
+              f"(first step {first_gap:.2e} apart, atol {TRAIN_LOSS_ATOL}; "
+              f"worst step {loss_gap:.2e} relative, rtol {MULTI_LOSS_RTOL}); "
+              f"parameters max |diff| {diffs.max().item():.2e} (bound 2 lr "
+              f"steps = {2 * lr * steps:.1e}), 99th percentile {p99:.2e} "
+              f"(bound {MULTI_P99}); (K2, K3, f32 K2, f32 K3) launches by "
+              f"rank {launches}", flush=True)
+        same = (first_gap <= TRAIN_LOSS_ATOL and loss_gap <= MULTI_LOSS_RTOL
+                and diffs.max().item() <= 2 * lr * steps and p99 <= MULTI_P99)
+        if "plant" in runs[name]:
+            require(not same, f"{tag} the planted fault ({name}) passes the "
+                              "bounds of two ranks against one")
+            continue
+        require(same, f"{tag} {name} differs from one rank")
+        require(all(c[:2] == [12 * steps, 12 * steps] for c in launches),
+                f"{tag} {name} launches by rank {launches}")
+    torch.cuda.empty_cache()
+
+    # the graft entry's three surfaces, as a user runs them on the card
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "chess_vision_tpu_torch.parallel.dryrun", "2"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in r.stdout.splitlines() if "dryrun_multichip" in ln]
+    print(f"{tag} python -m chess_vision_tpu_torch.parallel.dryrun 2 "
+          f"({time.perf_counter() - t0:.1f} s): {lines}", flush=True)
+    require(r.returncode == 0 and len(lines) == 3 and "cuda" in lines[0],
+            f"{tag} dryrun exit {r.returncode}: {r.stdout[-1500:]} "
+            f"{r.stderr[-2000:]}")
+    print(f"{tag} {kind}, {smi}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def flat_params(params: dict) -> dict:
+    """A checkpoint's parameter tree flattened to path -> array."""
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}")
+            else:
+                out[f"{path}/{k}"] = np.asarray(v)
+
+    walk(params, "")
+    return out
+
+
+def dp_phase(args, cfg, params, boards, train_ckpt: str, workdir: str,
+             kind: str, smi: str) -> None:
+    """Phase 23: serving and evaluation over two replicas on the one card."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from chess_vision_tpu_torch import evaluate as ev
+    from chess_vision_tpu_torch.config import get_data_config
+    from chess_vision_tpu_torch.data import BatchLoader, ChessDataset
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    tag = "[23 dp]"
+    t_phase = time.perf_counter()
+    two = ["cuda:0", "cuda:0"]
+    depth = cfg["model"]["depth"]
+    batches = math.ceil(len(boards) / BATCH)
+    one = Predictor((cfg, params), batch_size=BATCH, device="cuda")
+    dp = Predictor((cfg, params), batch_size=BATCH, devices=two)
+    fens_one = one.predict_array(boards)
+    dp.predict_array(boards[:BATCH])
+    reset_counts()
+    fens_dp = dp.predict_array(boards)
+    counts = (pre_ops.LAUNCHES, attn_ops.LAUNCHES)
+    rates = {}
+    for name, p in (("one", one), ("two", dp), ("two", dp), ("one", one)):
+        t0 = time.perf_counter()
+        p.predict_array(boards)
+        rates.setdefault(name, []).append(len(boards) / (time.perf_counter() - t0))
+    print(f"{tag} bf16 Predictor(devices={two}): (K1, K2) launches {counts} for "
+          f"{batches} batches of 2 shards; FENs equal to one device's "
+          f"{sum(a == b for a, b in zip(fens_dp, fens_one))}/{len(boards)}; "
+          f"boards/s in turns {rates} (two replicas on one card)", flush=True)
+    require(counts == (2 * batches, 2 * depth * batches), f"{tag} launches {counts}")
+    require(fens_dp == fens_one, f"{tag} bf16 FENs differ from one device's")
+    del one, dp
+
+    int8_one, _ = build_int8_predictor(args, cfg, params, "block")
+    int8_dp, _ = build_int8_predictor(args, cfg, params, "block", devices=two)
+    fens_one = int8_one.predict_array(boards)
+    reset_counts()
+    fens_dp = int8_dp.predict_array(boards)
+    got = int8_counts()
+    want = int8_want("block", depth, 2 * batches)
+    print(f"{tag} int8 block Predictor(devices={two}): launches {got}; FENs "
+          f"equal to one device's {sum(a == b for a, b in zip(fens_dp, fens_one))}"
+          f"/{len(boards)}; shifts shared "
+          f"{int8_dp.attn_shifts == int8_one.attn_shifts}", flush=True)
+    require(got == want, f"{tag} int8 launches {got}, want {want}")
+    require(fens_dp == fens_one, f"{tag} int8 FENs differ from one device's")
+    del int8_one, int8_dp
+    torch.cuda.empty_cache()
+
+    # the serve CLI with --dp on the card, against it without
+    root = os.path.dirname(os.path.abspath(__file__))
+    test_dir = os.path.join(workdir, "eval")
+    images = os.path.join(test_dir, "00000*.jpg")
+    outs = {}
+    for flag in ("--dp", "--device=cuda"):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "chess_vision_tpu_torch.serve",
+             "--checkpoint", train_ckpt, "--images", images, "--batch-size", "8",
+             flag], cwd=root, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+            capture_output=True, text=True, timeout=600)
+        require(r.returncode == 0, f"{tag} serve {flag} exit {r.returncode}: "
+                                   f"{r.stderr[-2000:]}")
+        outs[flag] = r.stdout
+        print(f"{tag} python -m chess_vision_tpu_torch.serve {flag} "
+              f"({time.perf_counter() - t0:.1f} s): "
+              f"{r.stderr.strip().splitlines()[-2:]}", flush=True)
+    require(outs["--dp"] == outs["--device=cuda"] and outs["--dp"].count("\n") == 10,
+            f"{tag} serve --dp printed {outs['--dp'][:500]}")
+
+    # evaluate over two replicas on phase 17's boards, against one device
+    model = Predictor((cfg, params), batch_size=BATCH, device="cuda").model
+    data_cfg = get_data_config(cfg["model"]["name"])
+    dataset = ChessDataset(test_dir, input_size=SIZE)
+    reports = []
+    for devices in (None, two):
+        loader = BatchLoader(dataset, np.arange(len(dataset)), BATCH,
+                             num_workers=8)
+        text = io.StringIO()
+        with redirect_stdout(text):
+            metrics = ev.evaluate(model, dataset, loader, data_cfg["mean"],
+                                  data_cfg["std"], devices=devices)
+        reports.append((metrics, text.getvalue()))
+    (one_m, one_text), (two_m, two_text) = reports
+    loss_gap = abs(two_m["loss"] - one_m["loss"]) / max(abs(one_m["loss"]), 1e-30)
+    print(f"{tag} evaluate over {two}: metrics {two_m}; report text equal to "
+          f"one device's {two_text == one_text}; the mean loss (the shards' "
+          f"sums added) {loss_gap:.1e} apart; {kind}, {smi}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    require(two_text == one_text and loss_gap <= 1e-6
+            and all(two_m[k] == one_m[k] for k in one_m if k != "loss"),
+            f"{tag} the two-replica evaluation differs")
 
 if __name__ == "__main__":
     try:

@@ -87,8 +87,8 @@ def test_autograd_launches_the_kernels(cuda):
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     qkv, g = _inputs(2, 17, 2, 16, cuda)
-    with pytest.raises(TypeError):
-        attn.fused_qkv_attention_bwd(qkv.float(), g.float(), 2)
+    with pytest.raises(TypeError):  # f16 (bf16 and f32 are taken)
+        attn.fused_qkv_attention_bwd(qkv.half(), g.half(), 2)
     with pytest.raises(ValueError):
         attn.fused_qkv_attention_bwd(qkv[:, :, :90], g[:, :, :30], 3)  # head dim 10
     with pytest.raises(ValueError):

@@ -95,7 +95,7 @@ def test_attention_kernel_matches_plain(cuda, B, N, H, Dh):
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     qkv = torch.zeros((2, 17, 3 * 2 * 64), device=cuda)
     with pytest.raises(TypeError):
-        attn.fused_qkv_attention(qkv, 2)  # f32
+        attn.fused_qkv_attention(qkv.half(), 2)  # f16 (bf16 and f32 are taken)
     with pytest.raises(ValueError):
         attn.fused_qkv_attention(qkv.bfloat16(), 3)  # does not split into heads
     with pytest.raises(ValueError):

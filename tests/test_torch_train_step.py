@@ -244,12 +244,18 @@ def test_dropout_follows_the_seed_and_the_step():
 
 
 def test_attn_out_remat_and_f32_on_the_card_are_refused():
-    with pytest.raises(NotImplementedError, match="attn_out"):
-        build_model(_cfg(True, remat="attn_out"))
+    """The name is from when both raised (ROADMAP Queue A item 7); both are
+    ported: ``remat="attn_out"`` builds (its gradients are held to
+    ``remat=False``'s in ``tests/test_torch_remat.py``), an unknown policy
+    raises, and ``resolve_remat`` has the JAX rule's three tiers."""
+    assert build_model(_cfg(True, remat="attn_out")).backbone.remat == "attn_out"
+    with pytest.raises(ValueError, match="remat"):
+        build_model(_cfg(True, remat="blocks"))
     from chess_vision_tpu_torch.models import normalize_remat, resolve_remat
 
     assert normalize_remat("FALSE") is False and normalize_remat("full") is True
     assert normalize_remat("auto") == "auto" and normalize_remat(True) is True
     assert resolve_remat(64, device_bytes=80 * 2**30) is False
-    assert resolve_remat(4096, device_bytes=80 * 2**30) is True
+    assert resolve_remat(4096, device_bytes=80 * 2**30) == "attn_out"
+    assert resolve_remat(1 << 16, device_bytes=80 * 2**30) is True
     assert resolve_remat(64, "cpu") is False
