@@ -14,17 +14,18 @@
 // Arithmetic: IEEE f32 on the CUDA cores (FFMA, accurate expf), no TF32 and
 // no bf16 anywhere, as PyTorch leaves cuBLAS's f32 products:
 //  forward  (the JAX kernel's) the softmax scale folded into q where it is a
-//           power of two (exact: 2^-3 at Dh = 64; 1/sqrt(32) scales the
-//           scores instead), f32 scores, p = exp(s - m) unrounded, the row
-//           sum accumulated beside P V as the JAX kernel's ones column of
-//           [V | 1] does, floored at 1e-30, one division at the end. The row
-//           max is taken online over 64-key tiles, rescaling the sums by
-//           exp(m_old - m_new), so a row's sums are ordered by tile.
+//           power of two (exact: 2^-3 at Dh = 64, applied to the score,
+//           which is the same number; 1/sqrt(32) scales the scores), f32
+//           scores, p = exp(s - m) unrounded with m the CTA's row max over
+//           its keys, the row sum beside P V, the CTAs' sums rescaled by
+//           exp(m_cta - m) to the head's row max, floored at 1e-30, one
+//           division at the end.
 //  backward (reference_attention_bwd's rounding points in f32)
 //           s = (q k) * scale, pn = exp(s - m) / l, dV = pn^T g,
 //           dP = g v^T, r = rowsum(dP * pn), dS = pn * (dP - r) * scale,
-//           dQ = dS K, dK = dS^T Q, each output written once. m, l and r
-//           come from one online pass (r as rowsum(dP * p) / l).
+//           dQ = dS K, dK = dS^T Q, each output written once; m, l and
+//           r = rowsum(dP * p) / l from the warps' and CTAs' partial
+//           statistics, rescaled to the head's row max.
 //
 // Bound on this card at the training shape (64, 257, 2304): the forward
 // reads qkv (152 MB) and writes out (51 MB), 0.061 ms at 3.35 TB/s; its two
@@ -32,457 +33,641 @@
 // operations bound it. The backward's five products (32.5 GFLOP) take 0.49
 // ms at that rate against 0.15 ms for its bytes.
 //
-// Design: simple and right first. The f32 tiles are twice bf16's bytes, so
-// the bf16 kernels' way (attention_bwd.cu keeps a head's Q, K, V and g in
-// shared memory: 295 KB in f32 at 288 tokens, above the 227 KB a block can
-// have) does not carry over; every kernel here tiles both token axes at
-// every N:
-//  attention_fwd_f32_kernel  one block of 256 threads per (64 query rows,
-//           head, image); K^T and V tiles of 64 keys in shared memory; a
-//           thread owns 4 rows x 4 keys of S (keys tx + 16j, so the 16
-//           threads of a row reduce by shuffles) and 4 rows x Dh/16 columns
-//           of O; P goes through shared memory between the two products.
-//  attention_bwd_dq_f32_kernel  one block per 64 query rows: pass 1 the
-//           online statistics (m, l, r) into an f32 scratch (B, H, 3, N),
-//           pass 2 dQ = dS K over the key tiles.
-//  attention_bwd_dkv_f32_kernel  one block per 64 keys: walks the query
-//           tiles with their statistics, dV = pn^T g and dK = dS^T Q.
-// Both backward kernels are deterministic (no atomics). Shared-memory rows
-// are padded so that the reads of a warp fall in distinct banks or are
-// broadcasts. Timings and bounds are in PERF.md section 6.
+// Design (attention_f32.cuh): one thread-block cluster of C <= 8 CTAs of 128
+// threads per (image, head), the head's 16-key steps shared out evenly
+// (ops/attention.f32_plan, f32_key_ranges: C = ceil(steps / 4), at most 64
+// keys a CTA; 257 tokens: 5 CTAs of 64, 64, 48, 48 and 33 keys); each CTA
+// copies its keys' K and V rows into shared memory once and keeps them while
+// the cluster walks the query tiles (64 rows, then 16-row tail tiles), the
+// next Q (and g) tile copied by cp.async while this one's last products run.
+//  attention_bwd_f32_kernel  (111 KB, two CTAs an SM) per tile: S and dP
+//           over the CTA's keys; the warps' (max, exp-sum, rowsum(dP p))
+//           combined in the CTA, then across the cluster through distributed
+//           shared memory; pn and dS into key-major tiles; dV += pn^T g and
+//           dK += dS^T q into registers that live for the launch; the CTA's
+//           partial dQ = dS K over pn^T's place, added over the cluster in
+//           rank order by the CTA that owns the rows and written once. The
+//           function's 5 products, one launch, no scratch in device memory,
+//           no atomics.
+//  attention_fwd_f32_kernel  (75.5 KB, three CTAs an SM) per tile: S over
+//           the CTA's keys; its row max and p = exp(s - m) into a key-major
+//           tile, the row sums; the CTA's partial P V over P^T's place; the
+//           cluster's partials rescaled to the head's row max and added in
+//           rank order, one division; the barrier that frees P^T again is
+//           waited for after the next tile's S. A CTA range above 64 keys
+//           (N > 512) is walked in 64-key windows with an online max, K and
+//           V then copied again for each query tile; no configuration of the
+//           repo has such N.
+// Timings and bounds are in PERF.md section 6.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "attention_f32.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // query rows or keys a block, keys or queries a tile
-constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 4 columns
-constexpr int kRowPad = 4;     // row-major tiles: rows 4 apart fall 16 banks apart
-constexpr int kTPad = 1;       // transposed tiles: column c of row d at d*65 + c
+using namespace cvt_f32;
+
+// a probe build's stand-in for a product's scores: values read from the
+// operand, so that what follows still runs on data
+template <int Rpl>
+__device__ __forceinline__ void probe_fill(float (&acc)[Rpl][4], const float* x) {
+#pragma unroll
+  for (int i = 0; i < Rpl; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = x[4 * i + j];
+  }
+}
+
+// ----------------------------------------------------------------- backward
 
 template <int Dh>
-struct Layout {
-  static constexpr int kLd = Dh + kRowPad;       // a row-major (row, Dh) tile
-  static constexpr int kLdT = kTile + kTPad;     // a transposed (Dh, kTile) tile
-  static constexpr int kLdP = kTile + kRowPad;   // a (kTile, kTile) tile
-  static constexpr int kRowTile = kTile * kLd;
-  static constexpr int kTTile = Dh * kLdT;
-  static constexpr int kPTile = kTile * kLdP;
+struct Bwd {
+  const float* base;    // the head's q columns of the image
+  const float* g_base;  // the head's columns of g
+  float* o_base;        // the head's dq columns of dqkv
+  long long stride;     // 3 D
+  int d_model;
+  int n;
+  int kc;               // this CTA's keys
+  int rank;
+  int ctas;
+  float scale;
+  float* ks;            // K rows of this CTA's keys
+  float* vs;
+  float* stages;        // the Q tile, then the g tile
+  float* pt;            // pn^T (key, row); the dQ partials (split, row, Dh)
+  float* dst;           // dS^T (key, row)
+  float* wst;           // per-warp (max, exp-sum, rowsum(dP p)) [3][kWarps][64]
+  float* cst;           // the CTA's [3][64]
+  float* fin;           // the head's (m, l, r) [3][64]
+  Tiles tiles;
 };
 
-// rows [row0, row0 + 64) x Dh columns of `src` (row stride `stride`), times
-// `mul`, into a row-major tile; rows at or past n are zero
 template <int Dh>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long stride,
-                                           int row0, int n, float mul) {
-  constexpr int kQuads = Dh / 4;
-  for (int idx = threadIdx.x; idx < kTile * kQuads; idx += kThreads) {
-    const int r = idx / kQuads;
-    const int c = (idx % kQuads) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    float* at = dst + r * Layout<Dh>::kLd + c;
-    at[0] = v.x * mul;
-    at[1] = v.y * mul;
-    at[2] = v.z * mul;
-    at[3] = v.w * mul;
+__device__ __forceinline__ void bwd_stage(const Bwd<Dh>& c, int t) {
+  if (t < c.tiles.count) {
+    float* qs = c.stages;
+    const int rows = c.tiles.is_full(t) ? kTileRows : kUnitRows;
+    stage_rows<Dh>(qs, c.base, c.stride, c.tiles.row0(t), rows, c.n);
+    stage_rows<Dh>(qs + kTileRows * row_ld<Dh>(), c.g_base, c.d_model, c.tiles.row0(t), rows, c.n);
   }
+  cvt::flash_commit();
 }
 
-// the same rows transposed: element (row r, column d) at dst[d * 65 + r]
-template <int Dh>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src, long long stride,
-                                           int row0, int n) {
-  constexpr int kQuads = Dh / 4;
-  for (int idx = threadIdx.x; idx < kTile * kQuads; idx += kThreads) {
-    const int r = idx % kTile;
-    const int c = (idx / kTile) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    constexpr int ld = Layout<Dh>::kLdT;
-    dst[(c + 0) * ld + r] = v.x;
-    dst[(c + 1) * ld + r] = v.y;
-    dst[(c + 2) * ld + r] = v.z;
-    dst[(c + 3) * ld + r] = v.w;
-  }
-}
+template <int Dh, int Rpl>
+__device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
+                                         float (&dk)[KeyMap<Dh>::kKeys][KeyMap<Dh>::kCh][4],
+                                         float (&dv)[KeyMap<Dh>::kKeys][KeyMap<Dh>::kCh][4]) {
+  constexpr int kRows = 8 * Rpl;
+  constexpr int kLd = row_ld<Dh>();
+  using M = KeyMap<Dh>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int qg = lane / 4;
+  const int kg = lane % 4;
+  const bool active = warp * kWarpKeys < c.kc;
+  const float* qs = c.stages;
+  const float* gs = qs + kTileRows * kLd;
 
-// acc[i][j] = sum_d rows[ty*4 + i][d] * cols[d][tx + 16 j]
-template <int Dh>
-__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* rows,
-                                             const float* cols, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  // four d at a time: a row's four values in one 16-byte load
-#pragma unroll 2
-  for (int d = 0; d < Dh; d += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(rows + (ty * 4 + i) * Layout<Dh>::kLd + d);
+  cvt::flash_wait<0>();  // this tile's copies
+  __syncthreads();
+
+  // S and dP over this warp's 16 keys; p = exp(s - the warp's row max)
+  float s[Rpl][4], dp[Rpl][4], mw[Rpl];
+  if (active) {
+    if (probe(kNoProducts1)) {
+      probe_fill(s, qs);
+      probe_fill(dp, gs);
+    } else {
+      rows_by_keys<Dh, Rpl>(s, qs, c.ks + warp * kWarpKeys * kLd, qg, kg);
+      rows_by_keys<Dh, Rpl>(dp, gs, c.vs + warp * kWarpKeys * kLd, qg, kg);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float b[4];
+    for (int i = 0; i < Rpl; ++i) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = cols[(d + e) * Layout<Dh>::kLdT + tx + 16 * j];
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = warp * kWarpKeys + kg + 4 * j < c.kc;
+        s[i][j] = ok ? __fmul_rn(s[i][j], c.scale) : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = warp_max4(mx);  // finite: the warp holds a key of this CTA
+      mw[i] = mx;
+      float l = 0.f, ra = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = e == 0 ? a[i].x : e == 1 ? a[i].y : e == 2 ? a[i].z : a[i].w;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai, b[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - mx);
+        l += s[i][j];
+        ra = fmaf(dp[i][j], s[i][j], ra);
+      }
+      l = warp_sum4(l);
+      ra = warp_sum4(ra);
+      if (kg == 0) {
+        const int r = qg + 8 * i;
+        c.wst[warp * kTileRows + r] = mx;
+        c.wst[(kWarps + warp) * kTileRows + r] = l;
+        c.wst[(2 * kWarps + warp) * kTileRows + r] = ra;
       }
     }
-  }
-}
-
-// acc[i][jd] += sum_c p[ty*4 + i][c] * t[(tx + 16 jd) * 65 + c]: a (64, 64)
-// tile times the transposed (Dh, 64) tile t, into 4 rows x Dh/16 columns
-template <int Dh>
-__device__ __forceinline__ void accumulate_product(float (&acc)[4][Dh / 16], const float* p,
-                                                   const float* t, int ty, int tx) {
-  // four c at a time: a row of p's four values in one 16-byte load
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 a[4];
+  } else if (kg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * Layout<Dh>::kLdP + c);
+    for (int i = 0; i < Rpl; ++i) {
+      const int r = qg + 8 * i;
+      c.wst[warp * kTileRows + r] = -INFINITY;
+      c.wst[(kWarps + warp) * kTileRows + r] = 0.f;
+      c.wst[(2 * kWarps + warp) * kTileRows + r] = 0.f;
     }
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {  // the CTA's statistics of row threadIdx.x
+    const int r = threadIdx.x;
+    float m = -INFINITY;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float b[Dh / 16];
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, c.wst[w * kTileRows + r]);
+    float l = 0.f, ra = 0.f;
 #pragma unroll
-      for (int jd = 0; jd < Dh / 16; ++jd) b[jd] = t[(tx + 16 * jd) * Layout<Dh>::kLdT + c + e];
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(c.wst[w * kTileRows + r] - m);  // 0 for a warp without keys
+      l = fmaf(c.wst[(kWarps + w) * kTileRows + r], f, l);
+      ra = fmaf(c.wst[(2 * kWarps + w) * kTileRows + r], f, ra);
+    }
+    c.cst[r] = m;
+    c.cst[kTileRows + r] = l;
+    c.cst[2 * kTileRows + r] = ra;
+  }
+  if (probe(kNoStats)) {
+    __syncthreads();
+  } else {
+    cluster_sync();
+  }
+  if (threadIdx.x < kRows) {  // the head's, from every CTA in rank order
+    const int r = threadIdx.x;
+    float mk[kMaxCtas], lk[kMaxCtas], rk[kMaxCtas];
+    float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = e == 0 ? a[i].x : e == 1 ? a[i].y : e == 2 ? a[i].z : a[i].w;
-#pragma unroll
-        for (int jd = 0; jd < Dh / 16; ++jd) acc[i][jd] = fmaf(ai, b[jd], acc[i][jd]);
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        const float* cst = cluster_ptr(c.cst, k);
+        mk[k] = cst[r];
+        lk[k] = cst[kTileRows + r];
+        rk[k] = cst[2 * kTileRows + r];
+        m = fmaxf(m, mk[k]);
       }
     }
+    float l = 0.f, ra = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        const float f = expf(mk[k] - m);
+        l = fmaf(lk[k], f, l);
+        ra = fmaf(rk[k], f, ra);
+      }
+    }
+    c.fin[r] = m;
+    c.fin[kTileRows + r] = l;
+    c.fin[2 * kTileRows + r] = ra / l;
+  }
+  __syncthreads();
+
+  if (active) {
+    // pn and dS into this warp's rows of the key-major tiles
+#pragma unroll
+    for (int i = 0; i < Rpl; ++i) {
+      const int r = qg + 8 * i;
+      const float f = expf(mw[i] - c.fin[r]) / c.fin[kTileRows + r];
+      const float rr = c.fin[2 * kTileRows + r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = warp * kWarpKeys + kg + 4 * j;
+        const float pn = s[i][j] * f;
+        c.pt[key * kLdT + r] = pn;
+        c.dst[key * kLdT + r] = pn * (dp[i][j] - rr) * c.scale;
+      }
+    }
+    __syncwarp();
+    const int kg2 = lane / M::kDG;
+    const int dg = lane % M::kDG;
+    if (!probe(kNoProducts2)) {
+      keys_by_d<Dh, kRows>(dv, c.pt + warp * kWarpKeys * kLdT, gs, kg2, dg);
+      keys_by_d<Dh, kRows>(dk, c.dst + warp * kWarpKeys * kLdT, qs, kg2, dg);
+    }
+  }
+  __syncthreads();
+  bwd_stage(c, t + 1);  // the Q and g tiles are read no more
+
+  // this CTA's partial dQ = dS K, in splits of its keys, over pn^T's place
+  const SplitMap<Dh, kRows> sm;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+  if (!probe(kNoProducts3)) {
+    rows_by_d<Dh>(acc, c.dst, c.ks, sm.begin(c.kc), sm.end(c.kc), sm.qg, sm.dc);
+  }
+  float* part = c.pt + sm.offset();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<float4*>(part + i * Dh) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (probe(kNoExchange)) {
+    __syncthreads();
+  } else {
+    cluster_sync();
+  }
+
+  // dQ rows of this CTA's share: the partials of every CTA and split, in
+  // order (every CTA is done with them before the next tile's statistics
+  // barrier, after which pn^T is written again)
+  const RowShare share(kRows, c.ctas, c.rank, c.tiles.row0(t), c.n);
+  for (int e = threadIdx.x; e < share.rows * (Dh / 4); e += kThreads) {
+    const int r = share.r0 + e / (Dh / 4);
+    const int d = e % (Dh / 4) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas && !probe(kNoExchange)) {
+        add_partials<Dh, kRows>(sum, cluster_ptr(c.pt, k), r, d);
+      }
+    }
+    *reinterpret_cast<float4*>(c.o_base + (long long)(share.row0 + r) * c.stride + d) = sum;
   }
 }
 
-// reductions over the 16 threads of a row (tx = lane % 16)
-__device__ __forceinline__ float row_max(float x) {
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ grad,
+                         float* __restrict__ dqkv, int n, int heads, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kLd = row_ld<Dh>();
+  using M = KeyMap<Dh>;
+  Bwd<Dh> c{};
+  c.d_model = heads * Dh;
+  c.stride = 3LL * c.d_model;
+  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
+  c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.n = n;
+  c.rank = blockIdx.x;
+  c.ctas = gridDim.x;
+  int key0;
+  cta_keys(n, c.ctas, c.rank, key0, c.kc);
+  c.scale = scale;
+  c.ks = smem;
+  c.vs = c.ks + kCtaKeys * kLd;
+  c.stages = c.vs + kCtaKeys * kLd;
+  c.pt = c.stages + 2 * kTileRows * kLd;
+  c.dst = c.pt + kCtaKeys * kLdT;
+  c.wst = c.dst + kCtaKeys * kLdT;
+  c.cst = c.wst + 3 * kWarps * kTileRows;
+  c.fin = c.cst + 3 * kTileRows;
+  c.tiles = Tiles(n);
+
+  // K and V once, in the first tile's group
+  const int kc_pad = (c.kc + kWarpKeys - 1) / kWarpKeys * kWarpKeys;
+  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
+  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
+  bwd_stage(c, 0);
+
+  float dk[M::kKeys][M::kCh][4], dv[M::kKeys][M::kCh][4];
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int j = 0; j < M::kKeys; ++j) {
+#pragma unroll
+    for (int ch = 0; ch < M::kCh; ++ch) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[j][ch][e] = dv[j][ch][e] = 0.f;
+    }
+  }
+  for (int t = 0; t < c.tiles.count; ++t) {
+    if (c.tiles.is_full(t)) {
+      bwd_tile<Dh, kTileRows / 8>(c, t, dk, dv);
+    } else {
+      bwd_tile<Dh, kUnitRows / 8>(c, t, dk, dv);
+    }
+  }
+  cluster_sync();  // no CTA leaves while another reads its partials
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int kg = lane / M::kDG;
+  const int dg = lane % M::kDG;
+#pragma unroll
+  for (int j = 0; j < M::kKeys; ++j) {
+    const int key = warp * kWarpKeys + kg + M::kKG * j;
+    if (key >= c.kc) continue;
+    float* row = c.o_base + (long long)(key0 + key) * c.stride;
+#pragma unroll
+    for (int ch = 0; ch < M::kCh; ++ch) {
+      const int d = (dg + M::kDG * ch) * 4;
+      *reinterpret_cast<float4*>(row + c.d_model + d) =
+          make_float4(dk[j][ch][0], dk[j][ch][1], dk[j][ch][2], dk[j][ch][3]);
+      *reinterpret_cast<float4*>(row + 2 * c.d_model + d) =
+          make_float4(dv[j][ch][0], dv[j][ch][1], dv[j][ch][2], dv[j][ch][3]);
+    }
+  }
 }
 
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// ------------------------------------------------------------------ forward
+
+template <int Dh>
+struct Fwd {
+  const float* base;  // the head's q columns of the image
+  float* o_base;      // the head's columns of out
+  long long stride;
+  int d_model;
+  int n;
+  int key0;           // this CTA's first key
+  int kc;             // its keys (above kCtaKeys: walked in windows)
+  int rank;
+  int ctas;
+  float q_scale;
+  float s_scale;
+  float* ks;
+  float* vs;
+  float* stages;      // the Q tile
+  float* pt;          // P^T (key, row); then the O partials (split, row, Dh)
+  float* wmx;         // per-warp row max [kWarps][64]
+  float* wsm;         // per-warp row sum [kWarps][64]
+  float* cst;         // the CTA's (max [64], sum [64])
+  float* fac;         // per row of the reduction's share: kMaxCtas factors, the sum
+  Tiles tiles;
+};
+
+template <int Dh>
+__device__ __forceinline__ void fwd_stage(const Fwd<Dh>& c, int t) {
+  if (t < c.tiles.count) {
+    stage_rows<Dh>(c.stages, c.base, c.stride,
+                   c.tiles.row0(t), c.tiles.is_full(t) ? kTileRows : kUnitRows, c.n);
+  }
+  cvt::flash_commit();
 }
 
 template <int Dh>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void fwd_stage_kv(const Fwd<Dh>& c, int w0) {
+  const int kw = min(kCtaKeys, c.kc - w0);
+  const int rows = (kw + kWarpKeys - 1) / kWarpKeys * kWarpKeys;
+  const int first = c.key0 + w0;
+  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, first, rows, first + kw);
+  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, first, rows, first + kw);
+}
+
+// the new running max of a row: the old one and every warp's of this window
+__device__ __forceinline__ float window_max(const float* wmx, int r, float m_old) {
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) m_old = fmaxf(m_old, wmx[w * kTileRows + r]);
+  return m_old;
+}
+
+template <int Dh, int Rpl>
+__device__ void fwd_reduce(const Fwd<Dh>& c, int t);
+
+template <int Dh, int Rpl>
+__device__ __forceinline__ void fwd_tile(const Fwd<Dh>& c, int t) {
+  constexpr int kRows = 8 * Rpl;
+  constexpr int kLd = row_ld<Dh>();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int qg = lane / 4;
+  const int kg = lane % 4;
+  const float* qs = c.stages;
+  const SplitMap<Dh, kRows> sm;
+  const bool windowed = c.kc > kCtaKeys;
+
+  cvt::flash_wait<0>();
+  __syncthreads();
+  // running row maxima, as three roles see them (the same values): this
+  // lane's rows of S, this thread's 8 rows of O, and row threadIdx.x's sum
+  float m_s[Rpl], m_o[8], m_row = -INFINITY, l_row = 0.f;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < Rpl; ++i) m_s[i] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_o[i] = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+  for (int w0 = 0; w0 < c.kc; w0 += kCtaKeys) {
+    const int kw = min(kCtaKeys, c.kc - w0);
+    if (windowed) {  // this window's K and V, copied for every tile
+      __syncthreads();
+      fwd_stage_kv(c, w0);
+      cvt::flash_commit();
+      cvt::flash_wait<0>();
+      __syncthreads();
+    }
+    const bool active = warp * kWarpKeys < kw;
+    float s[Rpl][4];
+    if (active) {
+      if (probe(kNoProducts1)) {
+        probe_fill(s, qs);
+      } else {
+        rows_by_keys<Dh, Rpl>(s, qs, c.ks + warp * kWarpKeys * kLd, qg, kg);
+      }
+#pragma unroll
+      for (int i = 0; i < Rpl; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = warp * kWarpKeys + kg + 4 * j < kw;
+          s[i][j] = ok ? __fmul_rn(__fmul_rn(s[i][j], c.q_scale), c.s_scale) : -INFINITY;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        mx = warp_max4(mx);
+        if (kg == 0) c.wmx[warp * kTileRows + qg + 8 * i] = mx;
+      }
+    } else if (kg == 0) {
+#pragma unroll
+      for (int i = 0; i < Rpl; ++i) c.wmx[warp * kTileRows + qg + 8 * i] = -INFINITY;
+    }
+    __syncthreads();
+    if (t > 0 && w0 == 0) cvt::flash_cluster_wait();  // the previous tile's arrive
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < Rpl; ++i) {
+        const int r = qg + 8 * i;
+        m_s[i] = window_max(c.wmx, r, m_s[i]);
+        float l = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[i][j] - m_s[i]);
+          c.pt[(warp * kWarpKeys + kg + 4 * j) * kLdT + r] = p;
+          l += p;
+        }
+        l = warp_sum4(l);
+        if (kg == 0) c.wsm[warp * kTileRows + r] = l;
+      }
+    } else if (kg == 0) {
+#pragma unroll
+      for (int i = 0; i < Rpl; ++i) c.wsm[warp * kTileRows + qg + 8 * i] = 0.f;
+    }
+    __syncthreads();
+    // O += P V over this thread's split of the window's keys, rescaled to
+    // the new row max (by 0 on the first window)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_new = window_max(c.wmx, 8 * sm.qg + i, m_o[i]);
+      const float alpha = expf(m_o[i] - m_new);
+      m_o[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+    }
+    if (!probe(kNoProducts2)) {
+      rows_by_d<Dh>(acc, c.pt, c.vs, sm.begin(kw), sm.end(kw), sm.qg, sm.dc);
+    }
+    if (threadIdx.x < kRows) {
+      const int r = threadIdx.x;
+      const float m_new = window_max(c.wmx, r, m_row);
+      l_row *= expf(m_row - m_new);
+      m_row = m_new;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) l_row += c.wsm[w * kTileRows + r];
+    }
+  }
+  fwd_stage(c, t + 1);  // the Q tile is read no more
+  __syncthreads();      // nor P^T: the partials go in its place
+  float* part = c.pt + sm.offset();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<float4*>(part + i * Dh) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (threadIdx.x < kRows) {
+    c.cst[threadIdx.x] = m_row;
+    c.cst[kTileRows + threadIdx.x] = l_row;
+  }
+  if (probe(kNoExchange)) {  // no reduction, no output
+    __syncthreads();
+  } else {
+    cluster_sync();
+    fwd_reduce<Dh, Rpl>(c, t);
+  }
+  // every CTA done with this CTA's partials: waited for after the next
+  // tile's first S product, before P^T is written again
+  cvt::flash_cluster_arrive();
+}
+
+// output rows of tile t of this CTA's share
+template <int Dh, int Rpl>
+__device__ void fwd_reduce(const Fwd<Dh>& c, int t) {
+  constexpr int kRows = 8 * Rpl;
+  const float* parts = c.pt;
+  const float* cst = c.cst;
+  // output rows of this CTA's share: per row, each CTA's factor
+  // exp(m_cta - m) to the head's row max and the floored row sum; then the
+  // CTAs' partials rescaled and added in rank order, and one division
+  const RowShare share(kRows, c.ctas, c.rank, c.tiles.row0(t), c.n);
+  float* fac = c.fac;  // [row of the share][kMaxCtas + 1]
+  if (threadIdx.x < share.rows) {
+    const int r = share.r0 + threadIdx.x;
+    float mk[kMaxCtas], lk[kMaxCtas];
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        const float* rc = cluster_ptr(cst, k);
+        mk[k] = rc[r];
+        lk[k] = rc[kTileRows + r];
+        m = fmaxf(m, mk[k]);
+      }
+    }
+    float l = 0.f;
+    float* f = fac + threadIdx.x * (kMaxCtas + 1);
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        f[k] = expf(mk[k] - m);
+        l = fmaf(lk[k], f[k], l);
+      }
+    }
+    f[kMaxCtas] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < share.rows * (Dh / 4); e += kThreads) {
+    const int r = share.r0 + e / (Dh / 4);
+    const int d = e % (Dh / 4) * 4;
+    const float* f = fac + (e / (Dh / 4)) * (kMaxCtas + 1);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        add_partials<Dh, kRows>(sum, cluster_ptr(parts, k), r, d);
+        o.x = fmaf(sum.x, f[k], o.x);
+        o.y = fmaf(sum.y, f[k], o.y);
+        o.z = fmaf(sum.z, f[k], o.z);
+        o.w = fmaf(sum.w, f[k], o.w);
+      }
+    }
+    const float denom = f[kMaxCtas];
+    *reinterpret_cast<float4*>(c.o_base + (long long)(share.row0 + r) * c.d_model + d) =
+        make_float4(o.x / denom, o.y / denom, o.z / denom, o.w / denom);
+  }
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 3)
 attention_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n,
                          int heads, float q_scale, float s_scale) {
-  using L = Layout<Dh>;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* kt = qs + L::kRowTile;
-  float* vt = kt + L::kTTile;
-  float* ps = vt + L::kTTile;
-  const int d_model = heads * Dh;
-  const long long stride = 3LL * d_model;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kTile;
-  const float* base = qkv + (long long)b * n * stride + h * Dh;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  constexpr int kLd = row_ld<Dh>();
+  Fwd<Dh> c{};
+  c.d_model = heads * Dh;
+  c.stride = 3LL * c.d_model;
+  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.o_base = out + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
+  c.n = n;
+  c.rank = blockIdx.x;
+  c.ctas = gridDim.x;
+  cta_keys(n, c.ctas, c.rank, c.key0, c.kc);
+  c.q_scale = q_scale;
+  c.s_scale = s_scale;
+  c.ks = smem;
+  c.vs = c.ks + kCtaKeys * kLd;
+  c.stages = c.vs + kCtaKeys * kLd;
+  c.pt = c.stages + kTileRows * kLd;
+  c.wmx = c.pt + kCtaKeys * kLdT;
+  c.wsm = c.wmx + kWarps * kTileRows;
+  c.cst = c.wsm + kWarps * kTileRows;
+  c.fac = c.cst + 2 * kTileRows;
+  c.tiles = Tiles(n);
 
-  stage_rows<Dh>(qs, base, stride, row0, n, q_scale);
-  float o[4][Dh / 16];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) o[i][jd] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();
-    stage_cols<Dh>(kt, base + d_model, stride, k0, n);
-    stage_cols<Dh>(vt, base + 2 * d_model, stride, k0, n);
-    __syncthreads();
-    float s[4][4];
-    tile_product<Dh>(s, qs, kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = k0 + tx + 16 * j < n ? __fmul_rn(s[i][j], s_scale) : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds a valid key, so the new max is finite
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);  // exp(-inf) = 0 on the first tile
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int jd = 0; jd < Dh / 16; ++jd) o[i][jd] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l[i] += p;
-        ps[(ty * 4 + i) * L::kLdP + tx + 16 * j] = p;
-      }
+  if (c.kc <= kCtaKeys) fwd_stage_kv(c, 0);  // once, in the first tile's group
+  fwd_stage(c, 0);
+  for (int t = 0; t < c.tiles.count; ++t) {
+    if (c.tiles.is_full(t)) {
+      fwd_tile<Dh, kTileRows / 8>(c, t);
+    } else {
+      fwd_tile<Dh, kUnitRows / 8>(c, t);
     }
-    __syncthreads();
-    // V^T read as the transposed tile: row c of V is column c of vt
-    accumulate_product<Dh>(o, ps, vt, ty, tx);
   }
-  float* o_base = out + (long long)b * n * d_model + h * Dh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sum = fmaxf(row_sum(l[i]), 1e-30f);
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) o_base[(long long)r * d_model + tx + 16 * jd] = o[i][jd] / sum;
-  }
+  cvt::flash_cluster_wait();  // no CTA leaves while another reads its partials
 }
+
+// ------------------------------------------------------------------ launches
 
 template <int Dh>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ grad,
-                            float* __restrict__ dqkv, float* __restrict__ stats, int n,
-                            int heads, float scale) {
-  using L = Layout<Dh>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* gs = qs + L::kRowTile;
-  float* kt = gs + L::kRowTile;
-  float* vt = kt + L::kTTile;
-  float* dss = vt + L::kTTile;
-  const int d_model = heads * Dh;
-  const long long stride = 3LL * d_model;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kTile;
-  const float* base = qkv + (long long)b * n * stride + h * Dh;
-  const float* g_base = grad + (long long)b * n * d_model + h * Dh;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  stage_rows<Dh>(qs, base, stride, row0, n, 1.f);
-  stage_rows<Dh>(gs, g_base, d_model, row0, n, 1.f);
-
-  // pass 1: m, l = rowsum(exp(s - m)) and rowsum(dP * exp(s - m)), online
-  float m[4], l[4], racc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = racc[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();
-    stage_cols<Dh>(kt, base + d_model, stride, k0, n);
-    stage_cols<Dh>(vt, base + 2 * d_model, stride, k0, n);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product<Dh>(s, qs, kt, ty, tx);
-    tile_product<Dh>(dp, gs, vt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = k0 + tx + 16 * j < n ? __fmul_rn(s[i][j], scale) : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-      racc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l[i] += p;
-        racc[i] = fmaf(dp[i][j], p, racc[i]);
-      }
-    }
-  }
-  float r[4];
-  float* st = stats + ((long long)b * heads + h) * 3 * n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = row_sum(l[i]);
-    r[i] = row_sum(racc[i]) / l[i];
-    const int row = row0 + ty * 4 + i;
-    if (tx == 0 && row < n) {
-      st[row] = m[i];
-      st[n + row] = l[i];
-      st[2 * n + row] = r[i];
-    }
-  }
-
-  // pass 2: dS per key tile, then dQ += dS K
-  float dq[4][Dh / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) dq[i][jd] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();
-    stage_cols<Dh>(kt, base + d_model, stride, k0, n);
-    stage_cols<Dh>(vt, base + 2 * d_model, stride, k0, n);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product<Dh>(s, qs, kt, ty, tx);
-    tile_product<Dh>(dp, gs, vt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool key_ok = k0 + tx + 16 * j < n;
-        const float pn = key_ok ? expf(__fmul_rn(s[i][j], scale) - m[i]) / l[i] : 0.f;
-        dss[(ty * 4 + i) * L::kLdP + tx + 16 * j] = pn * (dp[i][j] - r[i]) * scale;
-      }
-    }
-    __syncthreads();
-    accumulate_product<Dh>(dq, dss, kt, ty, tx);
-  }
-  float* o_base = dqkv + (long long)b * n * stride + h * Dh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) o_base[row * stride + tx + 16 * jd] = dq[i][jd];
-  }
-}
-
-template <int Dh>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ grad,
-                             float* __restrict__ dqkv, const float* __restrict__ stats, int n,
-                             int heads, float scale) {
-  using L = Layout<Dh>;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + L::kRowTile;
-  float* qt = vs + L::kRowTile;
-  float* gt = qt + L::kTTile;
-  float* pt = gt + L::kTTile;
-  float* dst = pt + L::kPTile;
-  float* st_m = dst + L::kPTile;
-  float* st_l = st_m + kTile;
-  float* st_r = st_l + kTile;
-  const int d_model = heads * Dh;
-  const long long stride = 3LL * d_model;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int key0 = blockIdx.x * kTile;
-  const float* base = qkv + (long long)b * n * stride + h * Dh;
-  const float* g_base = grad + (long long)b * n * d_model + h * Dh;
-  const float* st = stats + ((long long)b * heads + h) * 3 * n;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  stage_rows<Dh>(ks, base + d_model, stride, key0, n, 1.f);
-  stage_rows<Dh>(vs, base + 2 * d_model, stride, key0, n, 1.f);
-  float dk[4][Dh / 16], dv[4][Dh / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) dk[i][jd] = dv[i][jd] = 0.f;
-  }
-  for (int q0 = 0; q0 < n; q0 += kTile) {
-    __syncthreads();
-    stage_cols<Dh>(qt, base, stride, q0, n);
-    stage_cols<Dh>(gt, g_base, d_model, q0, n);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = q0 + i < n;
-      st_m[i] = ok ? st[q0 + i] : 0.f;
-      st_l[i] = ok ? st[n + q0 + i] : 1.f;
-      st_r[i] = ok ? st[2 * n + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    // transposed tiles: rows are this block's keys, columns 64 queries
-    float s[4][4], dp[4][4];
-    tile_product<Dh>(s, ks, qt, ty, tx);
-    tile_product<Dh>(dp, vs, gt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = tx + 16 * j;
-        const bool ok = q0 + q < n;
-        const float pn = ok ? expf(__fmul_rn(s[i][j], scale) - st_m[q]) / st_l[q] : 0.f;
-        pt[(ty * 4 + i) * L::kLdP + q] = pn;
-        dst[(ty * 4 + i) * L::kLdP + q] = pn * (dp[i][j] - st_r[q]) * scale;
-      }
-    }
-    __syncthreads();
-    accumulate_product<Dh>(dv, pt, gt, ty, tx);
-    accumulate_product<Dh>(dk, dst, qt, ty, tx);
-  }
-  float* o_base = dqkv + (long long)b * n * stride + h * Dh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = key0 + ty * 4 + i;
-    if (key >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < Dh / 16; ++jd) {
-      o_base[key * stride + d_model + tx + 16 * jd] = dk[i][jd];
-      o_base[key * stride + 2 * d_model + tx + 16 * jd] = dv[i][jd];
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int Dh>
-cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, float q_scale,
-                       float s_scale, cudaStream_t stream) {
-  using L = Layout<Dh>;
-  const int bytes = 4 * (L::kRowTile + 2 * L::kTTile + L::kPTile);
-  cudaError_t err = allow_smem(attention_fwd_f32_kernel<Dh>, bytes);
+cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, int ctas,
+                       float q_scale, float s_scale, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(attention_fwd_f32_kernel<Dh>, dim3(ctas, heads, batch),
+                                   fwd_smem_bytes<Dh>(), stream, config, attr);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  attention_fwd_f32_kernel<Dh><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), n, heads, q_scale, s_scale);
-  return cudaGetLastError();
+  return cudaLaunchKernelEx(&config, attention_fwd_f32_kernel<Dh>, static_cast<const float*>(qkv),
+                            static_cast<float*>(out), n, heads, q_scale, s_scale);
 }
 
 template <int Dh>
-cudaError_t launch_bwd(const void* qkv, const void* grad, void* dqkv, void* stats, int batch,
-                       int n, int heads, float scale, cudaStream_t stream) {
-  using L = Layout<Dh>;
-  const int dq_bytes = 4 * (2 * L::kRowTile + 2 * L::kTTile + L::kPTile);
-  const int dkv_bytes = 4 * (2 * L::kRowTile + 2 * L::kTTile + 2 * L::kPTile + 3 * kTile);
-  cudaError_t err = allow_smem(attention_bwd_dq_f32_kernel<Dh>, dq_bytes);
-  if (err == cudaSuccess) err = allow_smem(attention_bwd_dkv_f32_kernel<Dh>, dkv_bytes);
+cudaError_t launch_bwd(const void* qkv, const void* grad, void* dqkv, int batch, int n, int heads,
+                       int ctas, float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(attention_bwd_f32_kernel<Dh>, dim3(ctas, heads, batch),
+                                   bwd_smem_bytes<Dh>(), stream, config, attr);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  attention_bwd_dq_f32_kernel<Dh><<<grid, kThreads, dq_bytes, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(grad),
-      static_cast<float*>(dqkv), static_cast<float*>(stats), n, heads, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkv_f32_kernel<Dh><<<grid, kThreads, dkv_bytes, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(grad),
-      static_cast<float*>(dqkv), static_cast<const float*>(stats), n, heads, scale);
-  return cudaGetLastError();
+  return cudaLaunchKernelEx(&config, attention_bwd_f32_kernel<Dh>, static_cast<const float*>(qkv),
+                            static_cast<const float*>(grad), static_cast<float*>(dqkv), n, heads,
+                            scale);
 }
 
 bool bad_shape(int batch, int n, int heads) {
@@ -492,36 +677,42 @@ bool bad_shape(int batch, int n, int heads) {
 }  // namespace
 
 // qkv: f32 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned.
-// out: f32 (batch, n, heads * head_dim). q_scale multiplies q as it is
-// staged and s_scale the scores (the softmax temperature goes in one of
-// them: q_scale where it is a power of two, as the JAX kernel folds it).
-// Returns the launch's cudaError_t.
+// out: f32 (batch, n, heads * head_dim). ctas: the CTAs of an (image,
+// head)'s cluster (ops/attention.f32_plan; at most 8, each holding at least
+// one 16-key step; another count returns cudaErrorInvalidValue). q_scale
+// multiplies the scores first, then s_scale (the softmax temperature goes
+// in one of them: q_scale where it is a power of two, as the JAX kernel
+// folds it). Returns the launch's cudaError_t.
 extern "C" int cvt_attention_fwd_f32(const void* qkv, void* out, int batch, int n, int heads,
-                                     int head_dim, float q_scale, float s_scale, void* stream) {
-  if (bad_shape(batch, n, heads)) return (int)cudaErrorInvalidValue;
+                                     int head_dim, int ctas, float q_scale, float s_scale,
+                                     void* stream) {
+  if (bad_shape(batch, n, heads) || !plan_ok(n, ctas, 1 << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return (int)launch_fwd<16>(qkv, out, batch, n, heads, q_scale, s_scale, s);
-    case 32: return (int)launch_fwd<32>(qkv, out, batch, n, heads, q_scale, s_scale, s);
-    case 64: return (int)launch_fwd<64>(qkv, out, batch, n, heads, q_scale, s_scale, s);
+    case 16: return (int)launch_fwd<16>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
+    case 32: return (int)launch_fwd<32>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
+    case 64: return (int)launch_fwd<64>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // qkv: f32 (batch, n, 3 * heads * head_dim); grad: f32 (batch, n, heads *
-// head_dim); dqkv: f32, the shape of qkv; stats: f32 scratch of
-// batch * heads * 3 * n values (m, l, r per row). All contiguous and 16-byte
-// aligned. scale: the softmax temperature. Two launches, dQ then dK/dV.
-// Returns the launches' cudaError_t.
-extern "C" int cvt_attention_bwd_f32(const void* qkv, const void* grad, void* dqkv, void* stats,
-                                     int batch, int n, int heads, int head_dim, float scale,
+// head_dim); dqkv: f32, the shape of qkv; all contiguous and 16-byte
+// aligned. ctas as for the forward, with at most 64 keys a CTA (n <= 512).
+// scale: the softmax temperature. One launch. Returns its cudaError_t.
+extern "C" int cvt_attention_bwd_f32(const void* qkv, const void* grad, void* dqkv, int batch,
+                                     int n, int heads, int head_dim, int ctas, float scale,
                                      void* stream) {
-  if (bad_shape(batch, n, heads)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, n, heads) || !plan_ok(n, ctas, kCtaKeys)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return (int)launch_bwd<16>(qkv, grad, dqkv, stats, batch, n, heads, scale, s);
-    case 32: return (int)launch_bwd<32>(qkv, grad, dqkv, stats, batch, n, heads, scale, s);
-    case 64: return (int)launch_bwd<64>(qkv, grad, dqkv, stats, batch, n, heads, scale, s);
+    case 16: return (int)launch_bwd<16>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
+    case 32: return (int)launch_bwd<32>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
+    case 64: return (int)launch_bwd<64>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

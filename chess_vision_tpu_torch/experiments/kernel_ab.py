@@ -51,6 +51,28 @@ Sections (``--sections``, all by default):
            other's bit for bit; then bits alone at ragged shapes (17, 65 and
            300 tokens; 2, 5 and 12 heads; head dims 32 and 64; one and two
            images a block)
+  k2f32    the f32 attention forward (``attention_f32.cu``) at (batch, 257,
+           2304) and (64, 257, 2304) on f32 inputs: ms in the order other,
+           this, this, other; the max |difference| of the two outputs and of
+           each against ``reference_attention``
+  k3f32    the f32 attention backward, the same shapes, against
+           ``reference_attention_bwd``
+  f32probes  this checkout's ``attention_f32.cu`` built again as timing-only
+           probes (``CVT_F32_PROBE``, attention_f32.cuh), each with one part
+           of K2 f32 and of K3 f32 taken out, forward / backward:
+           ``no_products_1`` the S product / the S and dP products (the
+           scores read from the operand instead), ``no_products_2`` the P V
+           product / the dV and dK products, ``no_products_3`` - / the dQ
+           product, ``no_exchange`` the cluster barrier before the partials'
+           reduction (a CTA barrier instead) and the reduction (the
+           forward's with its output stores, the backward's loads of the
+           partials), ``no_stats`` - / the cluster barrier before the row
+           statistics' combine (a CTA barrier; its remote reads stay); at
+           (64, 257, 2304), ms in the order this, each probe, each probe
+           backwards, this. A probe's outputs are wrong by design and are
+           not compared; what it saves against this checkout's time is what
+           the part costs on the path (less where another CTA on the SM was
+           hiding it)
 
 Usage, from the repository root on a machine with a Hopper GPU:
   git archive REV chess_vision_tpu_torch/csrc | tar -x -C DIR
@@ -61,7 +83,10 @@ Usage, from the repository root on a machine with a Hopper GPU:
 The other revision may have K3's older interface (a statistics scratch as its
 fourth pointer), K4's and K5's older one (an f32 (rows, D) scratch as their
 second pointer) and K15's (the same scratch as its second pointer); its fc1
-epilogue gets an f32 (rows, 3072) scratch either way.
+epilogue gets an f32 (rows, 3072) scratch either way. The f32 sections read
+the other revision's ``attention_f32.cu`` (present since the f32 kernels
+were ported) and call its entries by their parameters' names: the two-kernel
+backward's statistics scratch, a cluster's CTA count, whichever it takes.
 The first line is the card's name and power limit (nvidia-smi); the last is
 one JSON object with every number.
 """
@@ -95,10 +120,33 @@ _GEMMS = (("qkv scale_bias", 768, 2304, 0, 0),
           ("fc2 res", 3072, 768, 1, 0))
 
 
-def _param_count(source: str, name: str) -> int:
+def _params(source: str, name: str) -> list[tuple[str, str]]:
+    """(type, name) of each parameter of the C function ``name`` in
+    ``source``."""
     text = re.sub(r"//[^\n]*", "", open(source).read())
     params = re.search(rf"{name}\s*\(([^)]*)\)\s*\{{", text).group(1)
-    return len(params.split(","))
+    return [tuple(p.strip().rsplit(None, 1)) for p in params.split(",")]
+
+
+def _param_count(source: str, name: str) -> int:
+    return len(_params(source, name))
+
+
+def c_entry(lib: ctypes.CDLL, source: str, name: str):
+    """lib's function ``name`` typed from its definition in ``source``, and
+    a call that takes its arguments by their parameters' names."""
+    params = _params(source, name)
+    fn = getattr(lib, name)
+    fn.argtypes = [_P if "*" in kind else ctypes.c_float if kind == "float"
+                   else ctypes.c_int for kind, _ in params]
+
+    def call(**values):
+        missing = [arg for _, arg in params if arg not in values]
+        if missing:
+            raise SystemExit(f"{name} in {source} takes {missing}, which "
+                             "this tool does not know")
+        return fn(*[values[arg] for _, arg in params])
+    return call
 
 
 def build_libs(jobs: dict, out_dir: str) -> tuple[dict, dict]:
@@ -135,7 +183,9 @@ def build_libs(jobs: dict, out_dir: str) -> tuple[dict, dict]:
 
 # the attention kernels whose registers and spills are compared across builds
 _ATTN_KERNELS = ("attention_fwd_kernel", "attention_quant_kernel",
-                 "fused_block_kernel", "attention_variant_kernel")
+                 "fused_block_kernel", "attention_variant_kernel",
+                 "attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
+                 "attention_bwd_dq_f32_kernel", "attention_bwd_dkv_f32_kernel")
 
 
 def ptxas_counts(log: str) -> dict:
@@ -485,7 +535,63 @@ def k15_ab(libs: dict, k15_scratch: bool, name: str, case: tuple, gen,
             "bb": bb, "ms": times, "bit_identical": same}
 
 
-_SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15")
+def f32_entries(lib: ctypes.CDLL, csrc: str) -> tuple:
+    """The f32 forward and backward entries of a library built from
+    ``csrc``'s ``attention_f32.cu``, called by parameter names."""
+    source = os.path.join(csrc, "attention_f32.cu")
+    return (c_entry(lib, source, "cvt_attention_fwd_f32"),
+            c_entry(lib, source, "cvt_attention_bwd_f32"))
+
+
+def f32_args(qkv: torch.Tensor, heads: int) -> dict:
+    """The arguments the f32 entries may take for ``qkv``, by name, as
+    ``ops/attention``'s wrappers pass them."""
+    B, n, C3 = qkv.shape
+    dh = C3 // 3 // heads
+    scale = dh ** -0.5
+    q_scale, s_scale = (scale, 1.0) if attn._pow2(scale) else (1.0, scale)
+    stats = torch.empty((B, heads, 3, n), device=qkv.device)
+    return {"qkv": qkv.data_ptr(), "batch": B, "n": n, "heads": heads,
+            "head_dim": dh, "q_scale": q_scale, "s_scale": s_scale,
+            "scale": scale, "stats": stats.data_ptr(), "_stats": stats,
+            "stream": torch.cuda.current_stream().cuda_stream}
+
+
+def f32_ab(entries: dict, backward: bool, batch: int, gen,
+           order=_ORDER) -> dict:
+    """K2 f32 (or K3 f32) of each of ``entries`` (name -> (forward,
+    backward)) on the same f32 inputs at (batch, 257, 2304), 12 heads: ms
+    in ``order``, and each output's max |difference| from the first
+    entry's and from the plain version's."""
+    n, heads, dh = 257, 12, 64
+    qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device, generator=gen)
+    g = torch.randn((batch, n, heads * dh), device=gen.device, generator=gen)
+    args = f32_args(qkv, heads)
+    args["grad"] = g.data_ptr()
+    args["ctas"] = attn.f32_plan(n, backward=backward)[1]
+    outs = {name: torch.empty_like(qkv if backward else g) for name in entries}
+
+    def run(name):
+        fwd, bwd = entries[name]
+        where = {"dqkv": outs[name].data_ptr()} if backward else {
+            "out": outs[name].data_ptr()}
+        rc = (bwd if backward else fwd)(**args, **where)
+        _build.check(rc, f"{name}'s f32 attention {'backward' if backward else 'forward'}")
+
+    times = in_turns({name: (lambda name=name: run(name)) for name in entries},
+                     order)
+    ref = (attn.reference_attention_bwd(qkv, g, heads) if backward
+           else attn.reference_attention(qkv, heads))
+    first = outs[order[0]]
+    return {"shape": list(qkv.shape), "ms": times,
+            "max_abs_diff": {name: (out - first).abs().max().item()
+                             for name, out in outs.items()},
+            "max_abs_err": {name: (out - ref).abs().max().item()
+                            for name, out in outs.items()}}
+
+
+_SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15", "k2f32",
+             "k3f32", "f32probes")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
                   "int8_matmul.cu", "fused_block.cu", "attention_variants.cu")
 # (batch, tokens, heads, head dim, images a block) of k15's bits-only cases
@@ -497,6 +603,10 @@ _PROBES = {"probe_b_once": ["-DCVT_GEMM_PROBE=1"],
            "probe_ln_skipped": ["-DCVT_GEMM_PROBE=3"]}
 # the probes that time the split kernel (K10's shape only)
 _SPLIT_PROBES = ("probe_b_once", "probe_no_epilogue_io")
+# this checkout's attention_f32.cu built with timing-only macros
+# (attention_f32.cuh's Probe)
+_F32_PROBES = {"no_products_1": 1, "no_products_2": 2, "no_products_3": 3,
+               "no_exchange": 4, "no_stats": 5}
 
 
 def main() -> int:
@@ -521,10 +631,17 @@ def main() -> int:
     report = {"card": smi, "order": list(_ORDER),
               **{name: [] for name in _SECTIONS}}
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {"other": (args.other_csrc, _OTHER_SOURCES, [])}
+        f32 = {"k2f32", "k3f32"} & set(sections)
+        jobs = {"other": (args.other_csrc,
+                          _OTHER_SOURCES + (("attention_f32.cu",) if f32 else ()),
+                          [])}
         if "variants" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("int8_matmul.cu",), flags)
                          for name, flags in _PROBES.items()})
+        if "f32probes" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("attention_f32.cu",),
+                                [f"-DCVT_F32_PROBE={number}"])
+                         for name, number in _F32_PROBES.items()})
         paths, logs = build_libs(jobs, tmp)
         other, old = load_other(paths.pop("other"), args.other_csrc)
         libs = {"other": other, "this": _build.library()}
@@ -534,6 +651,8 @@ def main() -> int:
             print(f"PTXAS {name}: other {report['ptxas']['other'].get(name)}, "
                   f"this {report['ptxas']['this'].get(name)} "
                   "([registers, spill-store bytes])", flush=True)
+        f32_probes = {name: f32_entries(ctypes.CDLL(paths.pop(name)), _build.CSRC_DIR)
+                      for name in _F32_PROBES if name in paths}
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
         if "k2" in sections:
@@ -570,6 +689,22 @@ def main() -> int:
                         for name in av.VARIANTS}
                 report["k15"].append({"shape": list(case), "bit_identical": same})
                 print("K15", json.dumps(report["k15"][-1]), flush=True)
+        entries = {"this": f32_entries(libs["this"], _build.CSRC_DIR)}
+        if f32:
+            entries["other"] = f32_entries(other, args.other_csrc)
+        for section in ("k2f32", "k3f32"):
+            for batch in (args.batch, 64) if section in sections else ():
+                report[section].append(f32_ab(entries, section == "k3f32",
+                                              batch, gen))
+                print(section.upper(), json.dumps(report[section][-1]), flush=True)
+        if "f32probes" in sections:
+            order = ["this", *_F32_PROBES, *reversed(_F32_PROBES), "this"]
+            both = {"this": entries["this"], **f32_probes}
+            for backward in (False, True):
+                report["f32probes"].append(
+                    {"backward": backward, "order": order,
+                     **f32_ab(both, backward, 64, gen, order)})
+                print("F32PROBES", json.dumps(report["f32probes"][-1]), flush=True)
     print(json.dumps(report))
     return 0
 

@@ -16,10 +16,14 @@ dQ, dK and dV in a second, with no scratch in device memory; above
 package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
 f32 inputs (an f32 model: ``training.mixed_precision=false``, or an f32
-checkpoint served) take the f32 kernels of ``csrc/attention_f32.cu``: the
-forward, and a backward of two kernels (dQ per 64-query tile, then dK/dV per
-64-key tile, through an f32 (B, H, 3, N) statistics scratch) at every token
-count, IEEE f32 throughout (no TF32); they count in ``F32_LAUNCHES`` and
+checkpoint served) take the f32 kernels of ``csrc/attention_f32.cu``, IEEE
+f32 throughout (no TF32): one thread-block cluster per (image, head) whose
+CTAs hold the head's keys in ranges of at most ``F32_CTA_KEYS``
+(``f32_plan``), for the forward at every token count and for the backward
+(one launch, the five products, no scratch) up to ``F32_MAX_TOKENS``; above
+it the backward takes the two kernels of ``csrc/attention_f32_long.cu`` (dQ
+per 64-query tile, then dK/dV per 64-key tile, through an f32 (B, H, 3, N)
+statistics scratch). They count in ``F32_LAUNCHES`` and
 ``F32_BWD_LAUNCHES``, not in the bf16 counters. The plain versions are the
 same two functions, which compute in f32 for either dtype.
 
@@ -55,13 +59,24 @@ BWD_LONG_LAUNCHES = 0  # of BWD_LAUNCHES, those of the long route
 QUANT_LAUNCHES = 0
 FLAT_LAUNCHES = 0
 F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
-F32_BWD_LAUNCHES = 0  # of the f32 backward (its two kernels count once)
+F32_BWD_LAUNCHES = 0  # of the f32 backward, one a call on either route
+F32_BWD_LONG_LAUNCHES = 0  # of F32_BWD_LAUNCHES, those of the long route
 
 _HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention*.cu
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
 QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
 _MAX_GRID_YZ = 65535
+# The f32 kernels' cluster (csrc/attention_f32.cuh): a CTA holds at most
+# F32_CTA_KEYS keys (kCtaKeys: 4 warps of 16), a cluster at most
+# F32_MAX_CTAS CTAs (kMaxCtas, the portable size), so the backward's cluster
+# route takes up to F32_MAX_TOKENS tokens and ``f32_long`` the rest; the
+# forward walks a longer range in 64-key windows, so it takes every count.
+F32_CTA_KEYS = 64
+F32_MAX_CTAS = 8
+F32_MAX_TOKENS = F32_MAX_CTAS * F32_CTA_KEYS
+F32_KEY_STEP = 16  # kWarpKeys: a CTA's key range is a multiple of it
+_F32_LONG_TILE = 64  # kTile in csrc/attention_f32_long.cu
 
 
 def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -137,6 +152,41 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     return head_dim
+
+
+def f32_plan(n: int, backward: bool = True) -> tuple[str, int]:
+    """The f32 kernels' layout for ``n`` tokens: (route, ctas).
+
+    Route ``"f32"``: one thread-block cluster of ``ctas`` CTAs per (image,
+    head), the fewest that hold the keys at ``F32_CTA_KEYS`` a CTA, at most
+    ``F32_MAX_CTAS`` (the forward walks a longer range in 64-key windows);
+    the keys of each in ``f32_key_ranges``. The kernels' header
+    (``csrc/attention_f32.cuh``) owns the rest of the layout and its shared
+    memory, and the C entries refuse a CTA count that does not fit. Route
+    ``"f32_long"`` (the backward above ``F32_MAX_TOKENS``):
+    ``csrc/attention_f32_long.cu``, whose dK/dV kernel runs ``ctas`` blocks
+    of 64 keys a head."""
+    if n < 1:
+        raise ValueError(f"no f32 plan for {n} tokens")
+    if backward and n > F32_MAX_TOKENS:
+        return "f32_long", -(-n // _F32_LONG_TILE)
+    steps = -(-n // F32_KEY_STEP)
+    return "f32", min(F32_MAX_CTAS, -(-steps // (F32_CTA_KEYS // F32_KEY_STEP)))
+
+
+def f32_key_ranges(n: int, ctas: int) -> list[tuple[int, int]]:
+    """The keys [start, end) of each CTA of an f32 cluster (``cta_keys`` in
+    ``csrc/attention_f32.cuh``): the n tokens' 16-key steps shared out
+    evenly, the first ones taking one step more; the last step may be
+    short. 257 tokens over 5 CTAs: 64, 64, 48, 48 and 33 keys."""
+    steps = -(-n // F32_KEY_STEP)
+    base, extra = divmod(steps, ctas)
+    ranges = []
+    for rank in range(ctas):
+        start = (rank * base + min(rank, extra)) * F32_KEY_STEP
+        end = start + (base + (rank < extra)) * F32_KEY_STEP
+        ranges.append((start, min(end, n)))
+    return ranges
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -223,7 +273,7 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             q_scale, s_scale = (scale, 1.0) if _pow2(scale) else (1.0, scale)
             rc = lib.cvt_attention_fwd_f32(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
-                q_scale, s_scale, stream)
+                f32_plan(N, backward=False)[1], q_scale, s_scale, stream)
         else:
             rc = lib.cvt_attention_fwd(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
@@ -241,9 +291,11 @@ def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The backward kernel that takes ``n`` tokens: in bf16 ``"short"``
     (``csrc/attention_bwd.cu``, a head in shared memory) up to
     ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_long.cu``) above;
-    in f32 ``"f32"`` (``csrc/attention_f32.cu``, tiled at every ``n``)."""
+    in f32 ``"f32"`` (``csrc/attention_f32.cu``, a head's keys in one
+    thread-block cluster) up to ``F32_MAX_TOKENS``, ``"f32_long"``
+    (``csrc/attention_f32_long.cu``) above."""
     if dtype == torch.float32:
-        return "f32"
+        return "f32" if n <= F32_MAX_TOKENS else "f32_long"
     return "short" if n <= BWD_MAX_TOKENS else "long"
 
 
@@ -259,9 +311,10 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     one-block-per-head kernel of ``csrc/attention_bwd.cu``, above it the two
     kernels of ``csrc/attention_bwd_long.cu`` (dQ per 64-query tile, then
     dK/dV per 64-key tile, through an f32 (B, H, 3, N) statistics scratch);
-    in f32 the two kernels of ``csrc/attention_f32.cu``, of the same
-    structure, at every token count. ``g`` is made contiguous first
-    (autograd may hand a strided one)."""
+    in f32 up to ``F32_MAX_TOKENS`` the one cluster launch of
+    ``csrc/attention_f32.cu`` (``f32_plan``), above it the two kernels of
+    ``csrc/attention_f32_long.cu``, of the bf16 long route's structure.
+    ``g`` is made contiguous first (autograd may hand a strided one)."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -279,22 +332,28 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
         return dqkv
     lib = _build.library()
     route = bwd_route(N, qkv.dtype)
-    tiled = route != "short"
-    # the tiled routes' row statistics per (image, head, row): (max, 1/l, r)
+    tiled = route in ("long", "f32_long")
+    # the long routes' row statistics per (image, head, row): (max, 1/l, r)
     # in bf16, (max, l, r) in f32
     stats = (torch.empty((B, num_heads, 3, N), dtype=torch.float32,
                          device=qkv.device) if tiled else None)
     scratch = [stats.data_ptr()] if tiled else []
+    shape = [B, N, num_heads, head_dim]
+    if route == "f32":
+        shape.append(f32_plan(N)[1])
     entry = {"short": lib.cvt_attention_bwd, "long": lib.cvt_attention_bwd_long,
-             "f32": lib.cvt_attention_bwd_f32}[route]
+             "f32": lib.cvt_attention_bwd_f32,
+             "f32_long": lib.cvt_attention_bwd_f32_long}[route]
     with torch.cuda.device(qkv.device):
         rc = entry(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), *scratch,
-                   B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
+                   *shape, 1.0 / math.sqrt(head_dim),
                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"attention backward ({route})")
     global BWD_LAUNCHES, BWD_LONG_LAUNCHES, F32_BWD_LAUNCHES
-    if route == "f32":
+    global F32_BWD_LONG_LAUNCHES
+    if route.startswith("f32"):
         F32_BWD_LAUNCHES += 1
+        F32_BWD_LONG_LAUNCHES += route == "f32_long"
     else:
         BWD_LAUNCHES += 1
         BWD_LONG_LAUNCHES += route == "long"

@@ -32,6 +32,8 @@ import tempfile
 import numpy as np
 import torch
 
+from chess_vision_tpu_torch.utils.device import resolve_device
+
 MEAN = STD = (0.5, 0.5, 0.5)
 # the JAX dryrun's model: ViT-B/16's width and depth (at tiny_config's 64 px)
 FULL_WIDTH = {"embed_dim": 768, "depth": 12, "num_heads": 12}
@@ -74,7 +76,7 @@ def random_batches(count: int, batch: int, size: int = 64, seed: int = 0,
     return out
 
 
-def train_steps(cfg: dict, batches: list, device="cpu", *, tp: int = 1,
+def train_steps(cfg: dict, batches: list, device=None, *, tp: int = 1,
                 fsdp: bool = False, state_dict: dict | None = None,
                 class_weights=None, aug: list | None = None,
                 dropout: float = 0.0, plant: str | None = None,
@@ -87,9 +89,10 @@ def train_steps(cfg: dict, batches: list, device="cpu", *, tp: int = 1,
     output, MLP hidden and output), which no config sets. ``plant`` puts a
     fault in, for the checks that must see it: ``"no_gradient_sum"`` skips
     the data axis's gradient sum, so each rank steps on its slice's
-    gradient. Returns the step losses, the parameters and buffers, full, on
-    the CPU, this rank's attention launches (K2, K3; f32 K2, K3) over the
-    steps, and how many of its parameters FSDP shards and TP cuts."""
+    gradient. Runs on the card unless ``device`` says otherwise. Returns the
+    step losses, the parameters and buffers, full, on the CPU, this rank's
+    attention launches (K2, K3; f32 K2, K3) over the steps, and how many of
+    its parameters FSDP shards and TP cuts."""
     from chess_vision_tpu_torch.models import build_model, init_weights
     from chess_vision_tpu_torch.models.layers import Dropout
     from chess_vision_tpu_torch.ops import attention as attn
@@ -97,7 +100,7 @@ def train_steps(cfg: dict, batches: list, device="cpu", *, tp: int = 1,
     from chess_vision_tpu_torch.train.loop import BatchStager, make_steps
     from chess_vision_tpu_torch.train.state import create_train_state
 
-    device = torch.device(device)
+    device = resolve_device(device)
     mesh = parallel.init_mesh(device, tp, fsdp)
     model = init_weights(build_model(cfg), seed=seed)
     if state_dict is not None:
@@ -160,12 +163,15 @@ def _worker(rank: int, world: int, port: int, device: str, backend: str,
         dist.destroy_process_group()
 
 
-def compare_ranks(world: int, runs: dict, device: str = "cpu",
+def compare_ranks(world: int, runs: dict, device: str | None = None,
                   backend: str = "gloo") -> dict:
     """Run every ``train_steps`` keyword set of ``runs`` (name -> kwargs) on
-    ``world`` spawned ranks; returns name -> rank 0's result, with every
-    rank's launches under ``launches_by_rank``."""
+    ``world`` spawned ranks, on the card unless ``device`` says otherwise;
+    returns name -> rank 0's result, with every rank's launches under
+    ``launches_by_rank``."""
     import torch.multiprocessing as mp
+
+    device = str(resolve_device(device))
 
     with tempfile.TemporaryDirectory() as tmp:
         runs_path = os.path.join(tmp, "runs.pt")
@@ -222,8 +228,6 @@ def dryrun_multichip(n_devices: int, device: str | None = None,
     from chess_vision_tpu_torch.convert.jax_params import tree_from_state_dict
     from chess_vision_tpu_torch.models import build_model, init_weights
     from chess_vision_tpu_torch.serve import Predictor
-
-    from chess_vision_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device).type
     cfg = cfg or tiny_config(mixed=True, **FULL_WIDTH)

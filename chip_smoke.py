@@ -200,8 +200,7 @@ Phases, one line each; any failure exits non-zero before the last line:
              and the checkpoint carries them into the subprocess's
              evaluation).
  20. f32     K2 and K3 on f32 inputs (``csrc/attention_f32.cu``) vs their
-             plain versions at (64, 257, 2304) and (16, 577, 2304), 12
-             heads: within F32_ATOL, the backward bit-identical twice; their
+             plain versions at (64, 257, 2304), 12 heads: within F32_ATOL, the backward bit-identical twice; their
              times beside the plain versions' and ``scaled_dot_product_
              attention``'s in f32; 4 train steps of ViT-B/16 at batch 64 with
              ``configs/vit.yaml`` values and ``training.mixed_precision=
@@ -211,7 +210,18 @@ Phases, one line each; any failure exits non-zero before the last line:
              ``Predictor`` on phase 5's boards: K1 once and f32 K2 12 times
              a batch, FENs equal to its plain path's; the CNN and square
              archs in f32 (2 train steps, a batch served: finite, K1 once,
-             no attention kernel).
+             no attention kernel). Also: the kernels (one thread-block
+             cluster per (image, head), ``f32_plan``) at N = 1, 17, 65, 300,
+             449 and 512 (8 CTAs, the cluster's limit) and 577 (past it: the
+             backward's long route, the forward's 64-key windows) with head
+             dims 16, 32 and 64, within F32_ATOL and the backward
+             bit-identical twice; the backward one kernel launch a call
+             (profiler); bound shares; the long route at (16, 577, 2304),
+             its kernels-line entry; ptxas's registers and spills; the f32
+             step with ``model.remat=true`` (24 f32 K2 and 12 f32 K3 a step)
+             in turns with false. (Another revision's f32 kernels are timed
+             in turns with these by ``experiments/kernel_ab.py --sections
+             k2f32,k3f32``.)
  21. remat   bf16 train steps at batch 64 under ``model.remat`` False,
              "attn_out" and True: (K2, K3) launches per step (12, 12),
              (12, 12) and (24, 12); the gradients of "attn_out" and True
@@ -241,8 +251,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              on phase 17's boards, its report equal to one device's.
  24. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
-             every kernel but K3's long route, which no 257-token path
-             takes, must have been launched by a main path),
+             every kernel but K3's long routes, bf16 and f32, which no
+             257-token path takes, must have been launched by a main path),
              the nvidia-smi line, then {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
@@ -361,7 +371,7 @@ K15_EARLIER_MS = {"base": 1.3138, "foldscale": 1.2960, "noshift": 0.8690,
                   "noexp": 1.2769, "fexp": 1.3298, "fexp_ns": 1.0049,
                   "bf16s": 1.3566, "normbound": 1.2766}
 # kernels of the kernels line that no main path launches
-OFF_PATH = ("fused_qkv_attention_bwd_long",)
+OFF_PATH = ("fused_qkv_attention_bwd_long", "fused_qkv_attention_bwd_f32_long")
 BATCH = 256
 SIZE = 256
 TRAIN_BATCH = 64
@@ -801,8 +811,9 @@ def report(kernels: dict, kind: str, smi: str, started: float) -> int:
     """Phase 24: the kernels line, the card and the last line."""
     import torch
 
-    # the long route of K3 takes more than 288 tokens: no main path (257
-    # tokens) runs it, so its entry keeps launches 0; phase 10 checks it
+    # the long routes of K3 take more than 288 (bf16) or 512 (f32) tokens:
+    # no main path (257 tokens) runs them, so their entries keep launches 0;
+    # phases 10 and 20 check them
     idle = [k["name"] for k in kernels.values()
             if k["launches"] < 1 and k["name"] not in OFF_PATH]
     require(not idle, f"kernels that no path launched: {idle}")
@@ -1876,6 +1887,13 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
     D = H * Dh
     qkv = torch.randn((BATCH, N, 3 * D), device=dev,
                       generator=gen).to(torch.bfloat16)
+    traced = traced_kernels(
+        "from chess_vision_tpu_torch.experiments import attn_variants as av\n"
+        f"qkv = torch.randn(({BATCH}, {N}, {3 * D}), device='cuda')"
+        ".to(torch.bfloat16)\n"
+        "for name in av.VARIANTS:\n"
+        f"    calls[name] = (lambda k: lambda: k(qkv))(av.make_variant(name, {H}, "
+        f"{N}, {D}))\n")
     for name in av.VARIANTS:
         kernel = av.make_variant(name, H, N, D)
         plain = av.variant_plain(name, H, N, D)
@@ -1889,7 +1907,7 @@ def variant_sweep_phase(args, dev, kernels: dict) -> None:
         del two, rq_, rs
         ms = cuda_ms(lambda: kernel(qkv), 20)
         plain_ms = cuda_ms(lambda: plain(qkv), 3)
-        device_kernels = profiled_kernels(lambda: kernel(qkv))
+        device_kernels = traced.get(name, [])
         atol = VARIANT_ATOL.get(name, ATTN_ATOL)
         entry = kernels[f"attn_variant_{name}"] = kernel_entry(
             f"attn_variant_{name}", "attention_variants.cu",
@@ -2052,28 +2070,41 @@ def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None) -> str:
     return f"{found.group(2)} registers, {found.group(1)} bytes spilled"
 
 
-def profiled_kernels(fn) -> list[str]:
-    """The names of the device kernels one call of fn runs, by
-    ``torch.profiler``. A trace that caught no device kernel at all is taken
-    again, up to three times: the profiler once returned no event for a call
-    whose kernel ran (K15 bf16s, timed by CUDA events in the same phase); a
-    call that launches no kernel still reads empty."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
+# The device kernels of one call each of some functions, traced by
+# torch.profiler in a process of its own: late in this long process the
+# profiler's sessions come back empty now and then, three in a row, for
+# calls whose kernels ran (K15 noshift in phase 16, an f32 backward in phase
+# 20). `setup` (Python source) puts the functions in `calls`.
+_TRACE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+calls = {}
+exec(sys.argv[1])
+found = {}
+for name, call in calls.items():
+    call()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "memset" not in e.name.lower()
-                 and "memcpy" not in e.name.lower()]
-        if names:
-            return names
-    return names
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    found[name] = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memset" not in e.name.lower()
+                   and "memcpy" not in e.name.lower()]
+print(json.dumps(found))
+"""
+
+
+def traced_kernels(setup: str) -> dict:
+    """name -> the device kernels one call of ``calls[name]`` runs, traced in
+    a child process on this checkout's library (already built)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", _TRACE, setup], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    require(r.returncode == 0, f"kernel trace exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.splitlines()[-1]) if r.returncode == 0 else {}
 
 
 def flash_work(kernel: str, n: int, head_dim: int, extra_smem: int = 0) -> str:
@@ -3181,6 +3212,145 @@ def grad_gap(grads: dict, ref: dict) -> tuple[float, str, bool]:
     return rel[worst], worst, all(torch.equal(grads[n], ref[n]) for n in ref)
 
 
+def f32_edges(dev, gen, tag: str) -> None:
+    """K2 f32 and K3 f32 against their plain versions at the cluster
+    route's ragged edges and past its limit (the backward's long route),
+    each head dim: within F32_ATOL, the backward bit-identical twice."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    rows = []
+    # 449 and 512: 8 CTAs, the cluster's limit; 577: past it
+    for n in (1, 17, 65, 300, 449, 512, 577):
+        for dh in (16, 32, 64):
+            B, H = 2, 2
+            qkv = torch.randn((B, n, 3 * H * dh), device=dev, generator=gen)
+            g = torch.randn((B, n, H * dh), device=dev, generator=gen)
+            route = attn_ops.bwd_route(n, torch.float32)
+            plan = attn_ops.f32_plan(n, backward=route == "f32")
+            err = (attn_ops.fused_qkv_attention_fwd(qkv, H)
+                   - attn_ops.reference_attention(qkv, H)).abs().max().item()
+            dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+            again = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+            derr = (dqkv - attn_ops.reference_attention_bwd(qkv, g, H)
+                    ).abs().max().item()
+            same = torch.equal(dqkv, again)
+            rows.append((n, dh, route, plan, err, derr, same))
+            require(err <= F32_ATOL and derr <= F32_ATOL and same,
+                    f"{tag} f32 attention at N={n} Dh={dh} ({route}): "
+                    f"{err}, {derr}, deterministic {same}")
+    for n, dh, route, plan, err, derr, same in rows:
+        print(f"{tag} N={n} Dh={dh}: backward route {route}, plan {plan}; "
+              f"forward max |diff| {err:.2e}, backward {derr:.2e}, twice "
+              f"bit-identical {same}", flush=True)
+
+
+def f32_kernel_checks(args, dev, kernels: dict, tag: str) -> None:
+    """Phase 20's kernels: the route's edges, the training shape (times
+    beside the plain versions' and SDPA's, bound shares, one backward
+    launch a call), the backward's long route at 577
+    tokens, ptxas's registers and spills."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    f32_edges(dev, gen, tag)
+    H, Dh = 12, 64
+    for B, n in ((TRAIN_BATCH, SIZE // 16 * SIZE // 16 + 1),):
+        qkv = torch.randn((B, n, 3 * H * Dh), device=dev, generator=gen)
+        g = torch.randn((B, n, H * Dh), device=dev, generator=gen)
+        out = attn_ops.fused_qkv_attention_fwd(qkv, H)
+        dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        again = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+        ref = attn_ops.reference_attention(qkv, H)
+        dref = attn_ops.reference_attention_bwd(qkv, g, H)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        derr = (dqkv - dref).abs().max().item()
+        same = torch.equal(dqkv, again)
+        del ref, dref, again
+        bwd_kernels = traced_kernels(
+            "from chess_vision_tpu_torch.ops import attention as attn\n"
+            f"qkv = torch.randn((4, {n}, {3 * H * Dh}), device='cuda')\n"
+            f"g = torch.randn((4, {n}, {H * Dh}), device='cuda')\n"
+            f"calls['bwd'] = lambda: attn.fused_qkv_attention_bwd(qkv, g, {H})\n"
+        ).get("bwd", [])
+        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, H), 10)
+        bwd_ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 10)
+        plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, H), 3)
+        plain_bwd_ms = cuda_ms(
+            lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
+        lib_fwd, lib_bwd = sdpa_ms(qkv, g, H)
+        ops = 2 * 2 * B * H * n * n * Dh
+        fwd_entry = kernel_entry(
+            "fused_qkv_attention_f32", "attention_f32.cu",
+            "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+            nbytes=4 * qkv.numel() * 4 // 3, ops=ops, op_type="f32",
+            library_ms=lib_fwd)
+        bwd_entry = kernel_entry(
+            "fused_qkv_attention_bwd_f32", "attention_f32.cu",
+            "chess_vision_tpu/ops/attention.py:623", derr, bwd_ms,
+            plain_bwd_ms, nbytes=4 * (2 * qkv.numel() + g.numel()),
+            ops=ops * 5 // 2, op_type="f32", library_ms=lib_bwd)
+        print(f"{tag} f32 attention {tuple(qkv.shape)} H={H}, plan "
+              f"{attn_ops.f32_plan(n)}: forward max |diff| {err}, "
+              f"backward {derr} (atol {F32_ATOL}), backward twice "
+              f"bit-identical {same}, its kernels a call {bwd_kernels}; K2 f32 "
+              f"{ms:.4f} ms (bound {fwd_entry['bound_ms']:.4f}, "
+              f"{fwd_entry['bound_ms'] / ms:.1%} of it; plain {plain_ms:.4f}, "
+              f"scaled_dot_product_attention f32 {lib_fwd:.4f}); K3 f32 "
+              f"{bwd_ms:.4f} ms (bound {bwd_entry['bound_ms']:.4f}, "
+              f"{bwd_entry['bound_ms'] / bwd_ms:.1%}; plain {plain_bwd_ms:.4f}, "
+              f"SDPA backward {lib_bwd:.4f})", flush=True)
+        require(err <= F32_ATOL and derr <= F32_ATOL and same,
+                f"{tag} f32 attention at {tuple(qkv.shape)}: {err}, {derr}, "
+                f"deterministic {same}")
+        require(len(bwd_kernels) == 1
+                and "attention_bwd_f32_kernel" in bwd_kernels[0],
+                f"{tag} the backward ran {bwd_kernels}, not one cluster launch")
+        if B == TRAIN_BATCH:
+            kernels["fused_qkv_attention_f32"] = fwd_entry
+            kernels["fused_qkv_attention_bwd_f32"] = bwd_entry
+        del qkv, g, out, dqkv
+    torch.cuda.empty_cache()
+
+    # the backward's long route: 16 images of 577 tokens (ViT-B/16 at 384
+    # px), 12 heads; the forward's 80-key ranges in 64-key windows
+    B, n = 16, 577
+    qkv = torch.randn((B, n, 3 * H * Dh), device=dev, generator=gen)
+    g = torch.randn((B, n, H * Dh), device=dev, generator=gen)
+    before = attn_ops.F32_BWD_LONG_LAUNCHES
+    dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
+    derr = (dqkv - attn_ops.reference_attention_bwd(qkv, g, H)).abs().max().item()
+    err = (attn_ops.fused_qkv_attention_fwd(qkv, H)
+           - attn_ops.reference_attention(qkv, H)).abs().max().item()
+    fwd_long_ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, H), 5)
+    require(attn_ops.F32_BWD_LONG_LAUNCHES == before + 1 and derr <= F32_ATOL
+            and err <= F32_ATOL,
+            f"{tag} the long route at {tuple(qkv.shape)}: {derr}, forward {err}")
+    long_ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 5)
+    plain_long = cuda_ms(lambda: attn_ops.reference_attention_bwd(qkv, g, H), 2)
+    _, lib_long = sdpa_ms(qkv, g, H)
+    kernels["fused_qkv_attention_bwd_f32_long"] = kernel_entry(
+        "fused_qkv_attention_bwd_f32_long", "attention_f32_long.cu",
+        "chess_vision_tpu/ops/attention.py:623", derr, long_ms, plain_long,
+        nbytes=4 * (2 * qkv.numel() + g.numel()),
+        ops=5 * 2 * B * H * n * n * Dh, op_type="f32", library_ms=lib_long)
+    print(f"{tag} long route {tuple(qkv.shape)}: max |diff| {derr}; "
+          f"{long_ms:.4f} ms (plain {plain_long:.4f}, SDPA backward "
+          f"{lib_long:.4f}); the forward there, in windows: max |diff| {err}, "
+          f"{fwd_long_ms:.4f} ms", flush=True)
+    del qkv, g, dqkv
+    torch.cuda.empty_cache()
+    for dh in (16, 32, 64):
+        print(f"{tag} ptxas Dh={dh}: attention_fwd_f32_kernel "
+              f"{ptxas_counts('attention_fwd_f32_kernel', dh)}; "
+              f"attention_bwd_f32_kernel "
+              f"{ptxas_counts('attention_bwd_f32_kernel', dh)}", flush=True)
+
+
 def f32_phase(args, cfg, params, boards, corpus, kernels: dict, kind: str,
               smi: str) -> None:
     """Phase 20: K2 and K3 on f32 inputs, the f32 trainer and Predictor."""
@@ -3194,50 +3364,7 @@ def f32_phase(args, cfg, params, boards, corpus, kernels: dict, kind: str,
     tag = "[20 f32]"
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
-    H, Dh = 12, 64
-    for B, n in ((TRAIN_BATCH, SIZE // 16 * SIZE // 16 + 1), (16, 577)):
-        qkv = torch.randn((B, n, 3 * H * Dh), device=dev, generator=gen)
-        g = torch.randn((B, n, H * Dh), device=dev, generator=gen)
-        out = attn_ops.fused_qkv_attention_fwd(qkv, H)
-        dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
-        again = attn_ops.fused_qkv_attention_bwd(qkv, g, H)
-        ref = attn_ops.reference_attention(qkv, H)
-        dref = attn_ops.reference_attention_bwd(qkv, g, H)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        derr = (dqkv - dref).abs().max().item()
-        same = torch.equal(dqkv, again)
-        del ref, dref, again
-        ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, H), 10)
-        bwd_ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, H), 10)
-        plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, H), 3)
-        plain_bwd_ms = cuda_ms(
-            lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
-        lib_fwd, lib_bwd = sdpa_ms(qkv, g, H)
-        print(f"{tag} f32 attention {tuple(qkv.shape)} H={H}: forward max "
-              f"|diff| {err}, backward {derr} (atol {F32_ATOL}), backward "
-              f"twice bit-identical {same}; K2 f32 {ms:.4f} ms (plain "
-              f"{plain_ms:.4f}, scaled_dot_product_attention f32 "
-              f"{lib_fwd:.4f}); K3 f32 {bwd_ms:.4f} ms (plain "
-              f"{plain_bwd_ms:.4f}, SDPA backward {lib_bwd:.4f})", flush=True)
-        require(err <= F32_ATOL and derr <= F32_ATOL and same,
-                f"{tag} f32 attention at {tuple(qkv.shape)}: {err}, {derr}, "
-                f"deterministic {same}")
-        if B == TRAIN_BATCH:
-            ops = 2 * 2 * B * H * n * n * Dh
-            kernels["fused_qkv_attention_f32"] = kernel_entry(
-                "fused_qkv_attention_f32", "attention_f32.cu",
-                "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
-                nbytes=4 * qkv.numel() * 4 // 3, ops=ops, op_type="f32",
-                library_ms=lib_fwd)
-            kernels["fused_qkv_attention_bwd_f32"] = kernel_entry(
-                "fused_qkv_attention_bwd_f32", "attention_f32.cu",
-                "chess_vision_tpu/ops/attention.py:623", derr, bwd_ms,
-                plain_bwd_ms, nbytes=4 * (2 * qkv.numel() + g.numel()),
-                ops=ops * 5 // 2, op_type="f32", library_ms=lib_bwd)
-        del qkv, g, out, dqkv
-    torch.cuda.empty_cache()
+    f32_kernel_checks(args, dev, kernels, tag)
 
     # the main path: 4 train steps of the f32 model, counted one by one
     f32_cfg = train_config("", remat=False)
@@ -3268,7 +3395,24 @@ def f32_phase(args, cfg, params, boards, corpus, kernels: dict, kind: str,
     require(all(math.isfinite(x) for _, x in per_step), f"{tag} losses")
     kernels["fused_qkv_attention_f32"]["launches"] += launches[2]
     kernels["fused_qkv_attention_bwd_f32"]["launches"] += launches[3]
-    del state, step
+    # the f32 step with model.remat=true (K2 again in the recompute), in
+    # turns with the step above
+    remat_cfg = train_config("", remat=True)
+    remat_cfg["training"]["mixed_precision"] = False
+    state_r, step_r, _, _ = make_trainer(remat_cfg, corpus, args.seed)
+    before = attention_counts_all()
+    step_r(batches[0])
+    per_remat = tuple(a - b for a, b in zip(attention_counts_all(), before))
+    require(per_remat == (0, 0, 24, 12), f"{tag} remat launches {per_remat}")
+    kernels["fused_qkv_attention_f32"]["launches"] += per_remat[2]
+    kernels["fused_qkv_attention_bwd_f32"]["launches"] += per_remat[3]
+    turns = [(name, timed_steps(fn, batches)) for name, fn in
+             (("false", step), ("true", step_r), ("true", step_r),
+              ("false", step))]
+    print(f"{tag} f32 step img/s in turns, model.remat "
+          f"{', '.join(f'{n} {r:.1f}' for n, r in turns)}; remat=true "
+          f"launches a step {per_remat}", flush=True)
+    del state, step, state_r, step_r
 
     # one step's gradients: f32 kernels vs plain attention on the card
     quiet = train_config("", head_dropout=0.0, drop_path_rate=0.0, remat=False)

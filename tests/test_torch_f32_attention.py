@@ -2,7 +2,7 @@
 ``csrc/attention_f32.cu``) through their plain versions on the CPU, against
 the JAX package's Pallas kernels in interpret mode on the same f32 inputs,
 at N <= 288 and N > 288 (the bf16 backward's short and long routes; in f32
-one tiled kernel pair takes every N); then an f32 ViT through the port's
+the cluster route takes up to 512 tokens); then an f32 ViT through the port's
 train step and its serving path against the JAX package's. The kernels
 themselves run on the card only (``tests/test_torch_f32_cuda.py``).
 

@@ -1,13 +1,16 @@
 """The f32 attention kernels (``csrc/attention_f32.cu``: K2's forward and
-K3's two-kernel backward on f32 inputs) against their plain PyTorch versions
-on the card. Skips without a CUDA device. On a GPU machine without JAX, run
+K3's backward on f32 inputs, one thread-block cluster per (image, head);
+above ``F32_MAX_TOKENS`` the backward's two kernels of
+``csrc/attention_f32_long.cu``) against their plain PyTorch versions on the
+card. Skips without a CUDA device. On a GPU machine without JAX, run
 without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_f32_cuda.py -q
 
 Tolerances, absolute on values of order 1: forward 5e-6 and backward 5e-6,
-IEEE f32 on both sides with the sums in another order (online max over
-64-key tiles in the kernels; read on the H100: 1.2e-6 and 3.6e-7 at most)."""
+IEEE f32 on both sides with the sums in another order (partial row
+statistics of warps and CTAs rescaled to the head's row max; read on the
+H100: 1.2e-6 at most)."""
 
 import numpy as np
 import pytest
@@ -36,8 +39,8 @@ def _inputs(B, N, H, Dh, device, seed=0):
 
 
 # the 64-row tiles' ragged edges with each head dim, the ViT's 257 tokens
-# with its 12 heads, and past the bf16 short route's 288 (one f32 route takes
-# every N); one test case per token count, the head dims inside it
+# with its 12 heads, and past the f32 cluster's 512 (the backward's long
+# route); one test case per token count, the head dims inside it
 TOKENS = (1, 17, 65, 257, 577)
 
 

@@ -97,10 +97,11 @@ def jax_dp2_tp2():
 
 @pytest.fixture(scope="module")
 def one_rank():
-    return {"vit": dryrun.train_steps(VIT, BATCHES),
-            "weights": dryrun.train_steps(VIT, BATCHES, class_weights=WEIGHTS),
-            "dropout": dryrun.train_steps(VIT, BATCHES, dropout=0.1),
-            "square": dryrun.train_steps(SQUARE, SQUARE_BATCHES)}
+    return {"vit": dryrun.train_steps(VIT, BATCHES, "cpu"),
+            "weights": dryrun.train_steps(VIT, BATCHES, "cpu",
+                                          class_weights=WEIGHTS),
+            "dropout": dryrun.train_steps(VIT, BATCHES, "cpu", dropout=0.1),
+            "square": dryrun.train_steps(SQUARE, SQUARE_BATCHES, "cpu")}
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +111,7 @@ def ranks2():
         "unsummed": dict(cfg=VIT, batches=BATCHES, plant="no_gradient_sum"),
         "weights": dict(cfg=VIT, batches=BATCHES, class_weights=WEIGHTS),
         "fsdp": dict(cfg=VIT, batches=BATCHES, fsdp=True),
-        "square": dict(cfg=SQUARE, batches=SQUARE_BATCHES)})
+        "square": dict(cfg=SQUARE, batches=SQUARE_BATCHES)}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +124,7 @@ def ranks4(jax_dp2_tp2):
         "attn_out": dict(cfg=dryrun.tiny_config(remat="attn_out"),
                          batches=BATCHES, tp=2, fsdp=True),
         "jax": dict(cfg=ref["cfg"], batches=BATCHES, tp=2,
-                    state_dict=ref["state_dict"], aug=ref["aug"])})
+                    state_dict=ref["state_dict"], aug=ref["aug"])}, device="cpu")
 
 
 def _same_run(ours, ref, params=None):
