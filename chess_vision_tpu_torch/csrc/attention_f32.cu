@@ -84,12 +84,16 @@ struct Bwd {
   const float* base;    // the head's q columns of the image
   const float* g_base;  // the head's columns of g
   float* o_base;        // the head's dq columns of dqkv
+  float* stats;         // split: the (image, head)'s [G][3][n]
+  float* parts;         // split: the (image, head)'s dQ partials [G][n][Dh]
   long long stride;     // 3 D
   int d_model;
   int n;
   int kc;               // this CTA's keys
-  int rank;
-  int ctas;
+  int rank;             // in the cluster
+  int ctas;             // of the cluster
+  int cluster;          // of the head's clusters
+  int clusters;
   float scale;
   float* ks;            // K rows of this CTA's keys
   float* vs;
@@ -113,12 +117,79 @@ __device__ __forceinline__ void bwd_stage(const Bwd<Dh>& c, int t) {
   cvt::flash_commit();
 }
 
-template <int Dh, int Rpl>
+// The head's statistics of row r of the tile at row0 from the CTAs' in
+// cst: in rank order, each rescaled by exp(m_cta - m). The long modes read
+// the cluster's CTAs twice (max, then sums) rather than hold 16 of each.
+template <int Dh, int Mode>
+__device__ __forceinline__ void head_stats(const Bwd<Dh>& c, int r, float& m, float& l,
+                                           float& ra) {
+  if constexpr (Mode == kBwdShort) {
+    float mk[kMaxCtas], lk[kMaxCtas], rk[kMaxCtas];
+    m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        const float* cst = cluster_ptr(c.cst, k);
+        mk[k] = cst[r];
+        lk[k] = cst[kTileRows + r];
+        rk[k] = cst[2 * kTileRows + r];
+        m = fmaxf(m, mk[k]);
+      }
+    }
+    l = 0.f;
+    ra = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxCtas; ++k) {
+      if (k < c.ctas) {
+        const float f = expf(mk[k] - m);
+        l = fmaf(lk[k], f, l);
+        ra = fmaf(rk[k], f, ra);
+      }
+    }
+  } else {
+    m = -INFINITY;
+#pragma unroll 4
+    for (int k = 0; k < c.ctas; ++k) m = fmaxf(m, cluster_ptr(c.cst, k)[r]);
+    l = 0.f;
+    ra = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < c.ctas; ++k) {
+      const float* cst = cluster_ptr(c.cst, k);
+      const float f = expf(cst[r] - m);
+      l = fmaf(cst[kTileRows + r], f, l);
+      ra = fmaf(cst[2 * kTileRows + r], f, ra);
+    }
+  }
+}
+
+// Row r of the tile at row0 from the split's scratch: the clusters'
+// statistics in cluster order; a row past n gets (0, 1, 0)
+template <int Dh>
+__device__ __forceinline__ void split_stats(const Bwd<Dh>& c, int r, int row0) {
+  float m = 0.f, l = 1.f, ra = 0.f;
+  const int row = row0 + r;
+  if (row < c.n) {
+    m = -INFINITY;
+    for (int k = 0; k < c.clusters; ++k) m = fmaxf(m, c.stats[(3 * k) * c.n + row]);
+    l = 0.f;
+    for (int k = 0; k < c.clusters; ++k) {
+      const float f = expf(c.stats[(3 * k) * c.n + row] - m);
+      l = fmaf(c.stats[(3 * k + 1) * c.n + row], f, l);
+      ra = fmaf(c.stats[(3 * k + 2) * c.n + row], f, ra);
+    }
+  }
+  c.fin[r] = m;
+  c.fin[kTileRows + r] = l;
+  c.fin[2 * kTileRows + r] = ra / l;
+}
+
+template <int Dh, int Rpl, int Mode>
 __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
                                          float (&dk)[KeyMap<Dh>::kKeys][KeyMap<Dh>::kCh][4],
                                          float (&dv)[KeyMap<Dh>::kKeys][KeyMap<Dh>::kCh][4]) {
   constexpr int kRows = 8 * Rpl;
   constexpr int kLd = row_ld<Dh>();
+  constexpr int kCtasMax = Mode == kBwdShort ? kMaxCtas : kMaxLongCtas;
   using M = KeyMap<Dh>;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -129,9 +200,13 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
   const float* gs = qs + kTileRows * kLd;
 
   cvt::flash_wait<0>();  // this tile's copies
+  if constexpr (Mode == kBwdSplit) {
+    if (threadIdx.x < kRows) split_stats(c, threadIdx.x, c.tiles.row0(t));
+  }
   __syncthreads();
 
   // S and dP over this warp's 16 keys; p = exp(s - the warp's row max)
+  // (the split's main pass: the head's row max, from the statistics pass)
   float s[Rpl][4], dp[Rpl][4], mw[Rpl];
   if (active) {
     if (probe(kNoProducts1)) {
@@ -149,6 +224,13 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
         const bool ok = warp * kWarpKeys + kg + 4 * j < c.kc;
         s[i][j] = ok ? __fmul_rn(s[i][j], c.scale) : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
+      }
+      if constexpr (Mode == kBwdSplit) {
+        mx = c.fin[qg + 8 * i];
+        mw[i] = mx;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = expf(s[i][j] - mx);
+        continue;
       }
       mx = warp_max4(mx);  // finite: the warp holds a key of this CTA
       mw[i] = mx;
@@ -168,7 +250,7 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
         c.wst[(2 * kWarps + warp) * kTileRows + r] = ra;
       }
     }
-  } else if (kg == 0) {
+  } else if (kg == 0 && Mode != kBwdSplit) {
 #pragma unroll
     for (int i = 0; i < Rpl; ++i) {
       const int r = qg + 8 * i;
@@ -177,56 +259,54 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
       c.wst[(2 * kWarps + warp) * kTileRows + r] = 0.f;
     }
   }
-  __syncthreads();
-  if (threadIdx.x < kRows) {  // the CTA's statistics of row threadIdx.x
-    const int r = threadIdx.x;
-    float m = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, c.wst[w * kTileRows + r]);
-    float l = 0.f, ra = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(c.wst[w * kTileRows + r] - m);  // 0 for a warp without keys
-      l = fmaf(c.wst[(kWarps + w) * kTileRows + r], f, l);
-      ra = fmaf(c.wst[(2 * kWarps + w) * kTileRows + r], f, ra);
-    }
-    c.cst[r] = m;
-    c.cst[kTileRows + r] = l;
-    c.cst[2 * kTileRows + r] = ra;
-  }
-  if (probe(kNoStats)) {
+  if constexpr (Mode != kBwdSplit) {
     __syncthreads();
-  } else {
-    cluster_sync();
-  }
-  if (threadIdx.x < kRows) {  // the head's, from every CTA in rank order
-    const int r = threadIdx.x;
-    float mk[kMaxCtas], lk[kMaxCtas], rk[kMaxCtas];
-    float m = -INFINITY;
+    if constexpr (Mode == kBwdStats) bwd_stage(c, t + 1);  // the Q and g tiles are read no more
+    if (threadIdx.x < kRows) {  // the CTA's statistics of row threadIdx.x
+      const int r = threadIdx.x;
+      float m = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < kMaxCtas; ++k) {
-      if (k < c.ctas) {
-        const float* cst = cluster_ptr(c.cst, k);
-        mk[k] = cst[r];
-        lk[k] = cst[kTileRows + r];
-        rk[k] = cst[2 * kTileRows + r];
-        m = fmaxf(m, mk[k]);
+      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, c.wst[w * kTileRows + r]);
+      float l = 0.f, ra = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(c.wst[w * kTileRows + r] - m);  // 0 for a warp without keys
+        l = fmaf(c.wst[(kWarps + w) * kTileRows + r], f, l);
+        ra = fmaf(c.wst[(2 * kWarps + w) * kTileRows + r], f, ra);
+      }
+      c.cst[r] = m;
+      c.cst[kTileRows + r] = l;
+      c.cst[2 * kTileRows + r] = ra;
+    }
+    if (probe(kNoStats)) {
+      __syncthreads();
+    } else {
+      cluster_sync();
+    }
+    if (threadIdx.x < kRows) {  // the head's (the cluster's), from every CTA in rank order
+      const int r = threadIdx.x;
+      float m, l, ra;
+      head_stats<Dh, Mode>(c, r, m, l, ra);
+      if constexpr (Mode == kBwdStats) {
+        const RowShare share(kRows, c.ctas, c.rank, c.tiles.row0(t), c.n);
+        if (r >= share.r0 && r < share.r0 + share.rows) {
+          float* at = c.stats + (3 * c.cluster) * c.n + share.row0 + r;
+          at[0] = m;
+          at[c.n] = l;
+          at[2 * c.n] = ra;
+        }
+      } else {
+        c.fin[r] = m;
+        c.fin[kTileRows + r] = l;
+        c.fin[2 * kTileRows + r] = ra / l;
       }
     }
-    float l = 0.f, ra = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxCtas; ++k) {
-      if (k < c.ctas) {
-        const float f = expf(mk[k] - m);
-        l = fmaf(lk[k], f, l);
-        ra = fmaf(rk[k], f, ra);
-      }
+    if constexpr (Mode == kBwdStats) {
+      cluster_sync();  // every CTA done with the others' statistics
+      return;
     }
-    c.fin[r] = m;
-    c.fin[kTileRows + r] = l;
-    c.fin[2 * kTileRows + r] = ra / l;
+    __syncthreads();
   }
-  __syncthreads();
 
   if (active) {
     // pn and dS into this warp's rows of the key-major tiles
@@ -278,40 +358,56 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
 
   // dQ rows of this CTA's share: the partials of every CTA and split, in
   // order (every CTA is done with them before the next tile's statistics
-  // barrier, after which pn^T is written again)
+  // barrier, after which pn^T is written again; in the split's main pass,
+  // before the barrier that ends the tile)
   const RowShare share(kRows, c.ctas, c.rank, c.tiles.row0(t), c.n);
   for (int e = threadIdx.x; e < share.rows * (Dh / 4); e += kThreads) {
     const int r = share.r0 + e / (Dh / 4);
     const int d = e % (Dh / 4) * 4;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int k = 0; k < kMaxCtas; ++k) {
+    for (int k = 0; k < kCtasMax; ++k) {
       if (k < c.ctas && !probe(kNoExchange)) {
         add_partials<Dh, kRows>(sum, cluster_ptr(c.pt, k), r, d);
       }
     }
-    *reinterpret_cast<float4*>(c.o_base + (long long)(share.row0 + r) * c.stride + d) = sum;
+    if constexpr (Mode == kBwdSplit) {
+      *reinterpret_cast<float4*>(
+          c.parts + ((long long)c.cluster * c.n + share.row0 + r) * Dh + d) = sum;
+    } else {
+      *reinterpret_cast<float4*>(c.o_base + (long long)(share.row0 + r) * c.stride + d) = sum;
+    }
+  }
+  if constexpr (Mode == kBwdSplit) {
+    cluster_sync();  // every CTA done with the others' partials
   }
 }
 
-template <int Dh>
+template <int Dh, int Mode>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ grad,
-                         float* __restrict__ dqkv, int n, int heads, float scale) {
+                         float* __restrict__ dqkv, float* __restrict__ stats,
+                         float* __restrict__ parts, int n, int heads, int clusters,
+                         float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = row_ld<Dh>();
   using M = KeyMap<Dh>;
   Bwd<Dh> c{};
   c.d_model = heads * Dh;
   c.stride = 3LL * c.d_model;
+  const long long head = (long long)blockIdx.z * heads + blockIdx.y;
   c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
   c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
   c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.clusters = clusters;
+  c.stats = Mode >= kBwdStats ? stats + head * clusters * 3 * n : nullptr;
+  c.parts = Mode == kBwdSplit ? parts + head * clusters * n * Dh : nullptr;
   c.n = n;
-  c.rank = blockIdx.x;
-  c.ctas = gridDim.x;
+  c.ctas = gridDim.x / clusters;
+  c.rank = blockIdx.x % c.ctas;
+  c.cluster = blockIdx.x / c.ctas;
   int key0;
-  cta_keys(n, c.ctas, c.rank, key0, c.kc);
+  cta_keys(n, gridDim.x, blockIdx.x, key0, c.kc);
   c.scale = scale;
   c.ks = smem;
   c.vs = c.ks + kCtaKeys * kLd;
@@ -340,12 +436,14 @@ attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict_
   }
   for (int t = 0; t < c.tiles.count; ++t) {
     if (c.tiles.is_full(t)) {
-      bwd_tile<Dh, kTileRows / 8>(c, t, dk, dv);
+      bwd_tile<Dh, kTileRows / 8, Mode>(c, t, dk, dv);
     } else {
-      bwd_tile<Dh, kUnitRows / 8>(c, t, dk, dv);
+      bwd_tile<Dh, kUnitRows / 8, Mode>(c, t, dk, dv);
     }
   }
+  cvt::flash_wait<0>();
   cluster_sync();  // no CTA leaves while another reads its partials
+  if constexpr (Mode == kBwdStats) return;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -651,7 +749,7 @@ cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, 
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_config(attention_fwd_f32_kernel<Dh>, dim3(ctas, heads, batch),
-                                   fwd_smem_bytes<Dh>(), stream, config, attr);
+                                   kThreads, ctas, fwd_smem_bytes<Dh>(), stream, config, attr);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&config, attention_fwd_f32_kernel<Dh>, static_cast<const float*>(qkv),
                             static_cast<float*>(out), n, heads, q_scale, s_scale);
@@ -662,12 +760,52 @@ cudaError_t launch_bwd(const void* qkv, const void* grad, void* dqkv, int batch,
                        int ctas, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(attention_bwd_f32_kernel<Dh>, dim3(ctas, heads, batch),
+  const auto kernel = attention_bwd_f32_kernel<Dh, kBwdShort>;
+  cudaError_t err = cluster_config(kernel, dim3(ctas, heads, batch), kThreads, ctas,
                                    bwd_smem_bytes<Dh>(), stream, config, attr);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&config, attention_bwd_f32_kernel<Dh>, static_cast<const float*>(qkv),
-                            static_cast<const float*>(grad), static_cast<float*>(dqkv), n, heads,
-                            scale);
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(qkv),
+                            static_cast<const float*>(grad), static_cast<float*>(dqkv),
+                            static_cast<float*>(nullptr), static_cast<float*>(nullptr), n, heads,
+                            1, scale);
+}
+
+// One pass of the long route: `clusters` clusters of `ctas` CTAs per
+// (image, head) on grid (clusters * ctas, heads, batch).
+template <int Dh, int Mode>
+cudaError_t launch_bwd_pass(const void* qkv, const void* grad, void* dqkv, void* stats,
+                            void* parts, int batch, int n, int heads, int clusters, int ctas,
+                            float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const auto kernel = attention_bwd_f32_kernel<Dh, Mode>;
+  cudaError_t err = cluster_config(kernel, dim3(clusters * ctas, heads, batch), kThreads, ctas,
+                                   bwd_smem_bytes<Dh>(), stream, config, attr);
+  if (err == cudaSuccess) err = cluster_fits(kernel, config);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(qkv),
+                           static_cast<const float*>(grad), static_cast<float*>(dqkv),
+                           static_cast<float*>(stats), static_cast<float*>(parts), n, heads,
+                           clusters, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int Dh>
+cudaError_t launch_bwd_long(const void* qkv, const void* grad, void* dqkv, void* stats,
+                            void* parts, int batch, int n, int heads, int clusters, int ctas,
+                            float scale, cudaStream_t stream) {
+  if (clusters == 1) {
+    return launch_bwd_pass<Dh, kBwdLong>(qkv, grad, dqkv, nullptr, nullptr, batch, n, heads, 1,
+                                         ctas, scale, stream);
+  }
+  cudaError_t err = launch_bwd_pass<Dh, kBwdStats>(qkv, grad, dqkv, stats, parts, batch, n, heads,
+                                                   clusters, ctas, scale, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_bwd_pass<Dh, kBwdSplit>(qkv, grad, dqkv, stats, parts, batch, n, heads, clusters,
+                                       ctas, scale, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dq_sum(static_cast<const float*>(parts), static_cast<float*>(dqkv), batch, n,
+                       heads, Dh, clusters, stream);
 }
 
 bool bad_shape(int batch, int n, int heads) {
@@ -713,6 +851,42 @@ extern "C" int cvt_attention_bwd_f32(const void* qkv, const void* grad, void* dq
     case 16: return (int)launch_bwd<16>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
     case 32: return (int)launch_bwd<32>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
     case 64: return (int)launch_bwd<64>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The long route (ops/attention.bwd_route "f32_long", n > 512): the same
+// kernel on `clusters` clusters of `ctas` CTAs (at most 16: non-portable
+// clusters) per (image, head), the head's 16-key steps shared out evenly
+// over the clusters * ctas CTAs, at most 64 keys each
+// (ops/attention.long_plan); a plan that does not fit returns
+// cudaErrorInvalidValue. One launch for one cluster; for clusters > 1 a
+// statistics pass, the main pass and the dQ sum through the f32 scratches
+// stats (batch, heads, clusters, 3, n) and dq_parts (batch, heads,
+// clusters, n, head_dim), null for one cluster. Returns the first launch
+// error (a cluster the card cannot hold: cudaErrorInvalidConfiguration).
+extern "C" int cvt_attention_bwd_f32_long(const void* qkv, const void* grad, void* dqkv,
+                                          void* stats, void* dq_parts, int batch, int n,
+                                          int heads, int head_dim, int clusters, int ctas,
+                                          float scale, void* stream) {
+  const int steps = (n + kWarpKeys - 1) / kWarpKeys;
+  const long long total = (long long)clusters * ctas;
+  if (bad_shape(batch, n, heads) || clusters < 1 || ctas < 1 || ctas > kMaxLongCtas ||
+      total > steps || (steps + total - 1) / total * kWarpKeys > kCtaKeys ||
+      (clusters > 1) != (stats != nullptr && dq_parts != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return (int)launch_bwd_long<16>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
+                                      ctas, scale, s);
+    case 32:
+      return (int)launch_bwd_long<32>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
+                                      ctas, scale, s);
+    case 64:
+      return (int)launch_bwd_long<64>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
+                                      ctas, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

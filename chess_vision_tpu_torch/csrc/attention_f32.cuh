@@ -44,9 +44,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kWarpKeys = 16;                  // keys a warp owns; the key granularity
 constexpr int kCtaKeys = kWarps * kWarpKeys;   // 64 keys a CTA holds
 // the portable cluster size; the backward's cluster route takes
-// kMaxCtas * kCtaKeys = 512 tokens (ops/attention.F32_MAX_TOKENS), above it
-// attention_f32_long.cu; the forward walks a longer range in 64-key windows
+// kMaxCtas * kCtaKeys = 512 tokens (ops/attention.F32_MAX_TOKENS); the
+// forward walks a longer range in 64-key windows
 constexpr int kMaxCtas = 8;
+// the backward's long route (attention_f32.cu, cvt_attention_bwd_f32_long):
+// clusters of up to 16 CTAs (non-portable, as H100 launches them), 1,024
+// tokens; above that the head's keys split over several clusters
+constexpr int kMaxLongCtas = 16;
+// What a launch of the backward kernel does: kBwdShort the one-cluster route
+// of up to kMaxCtas CTAs; kBwdLong one cluster of up to kMaxLongCtas;
+// kBwdStats / kBwdSplit the statistics and main passes of a head split over
+// several clusters (their statistics and dQ partials through f32 scratches).
+enum BwdMode { kBwdShort = 0, kBwdLong = 1, kBwdStats = 2, kBwdSplit = 3 };
 constexpr int kTileRows = 64;                  // query rows of a tile
 constexpr int kUnitRows = 16;                  // query rows of a tail tile
 constexpr int kLdT = kTileRows + 8;            // a key-major (key, rows) tile's row
@@ -249,12 +258,13 @@ __device__ __forceinline__ float warp_sum4(float x) {
 
 // a generic pointer to `local`'s place in the shared memory of the
 // cluster's CTA `rank`: plain loads through it, which the compiler may issue
-// together (they follow a cluster_sync, whose barrier orders them)
+// together (they follow a cluster_sync, whose barrier orders them), or
+// plain stores (which the next cluster_sync makes visible to that CTA)
 template <typename T>
-__device__ __forceinline__ const T* cluster_ptr(const T* local, int rank) {
+__device__ __forceinline__ T* cluster_ptr(T* local, int rank) {
   uint64_t remote;
   asm("mapa.u64 %0, %1, %2;\n" : "=l"(remote) : "l"(reinterpret_cast<uint64_t>(local)), "r"(rank));
-  return reinterpret_cast<const T*>(remote);
+  return reinterpret_cast<T*>(remote);
 }
 
 // The rows of a tile whose outputs this CTA adds up and writes: an even
@@ -296,26 +306,92 @@ __device__ __forceinline__ void cluster_sync() {
   cvt::flash_cluster_wait();
 }
 
-// The launch of a kernel on grid (ctas, heads, batch) whose ctas CTAs of an
-// (image, head) form one cluster; sets its shared memory. Returns the error.
+// The launch of `kernel` on `grid`, `threads` a block, whose CTAs form
+// clusters of `cluster_x` along x (beyond the portable 8, up to 16); sets
+// its shared memory. Returns the error.
 template <typename Kernel>
-cudaError_t cluster_config(Kernel kernel, dim3 grid, int smem_bytes, cudaStream_t stream,
-                           cudaLaunchConfig_t& config, cudaLaunchAttribute& attr) {
-  const cudaError_t err =
+cudaError_t cluster_config(Kernel kernel, dim3 grid, int threads, int cluster_x, int smem_bytes,
+                           cudaStream_t stream, cudaLaunchConfig_t& config,
+                           cudaLaunchAttribute& attr) {
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
+  if (cluster_x > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   config = {};
   config.gridDim = grid;
-  config.blockDim = dim3(kThreads);
+  config.blockDim = dim3(threads);
   config.dynamicSmemBytes = smem_bytes;
   config.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = grid.x;
+  attr.val.clusterDim.x = cluster_x;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   config.attrs = &attr;
   config.numAttrs = 1;
   return cudaSuccess;
+}
+
+// Whether the card can hold one cluster of `config`'s launch at all
+// (cudaOccupancyMaxActiveClusters): the long routes refuse a cluster that
+// fits nowhere (cudaErrorInvalidConfiguration) before anything runs.
+template <typename Kernel>
+cudaError_t cluster_fits(Kernel kernel, const cudaLaunchConfig_t& config) {
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return err;
+  return clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+
+// The long routes' split (a head's keys over several clusters): dQ of
+// (image, head, row) = the clusters' partials parts (batch, heads, clusters,
+// n, head_dim), added in cluster order, written at the head's dq columns of
+// dqkv (batch, n, 3 * heads * head_dim) in T. Grid (row groups, heads,
+// batch), 4 columns a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dq_sum_kernel(const float* __restrict__ parts, T* __restrict__ dqkv, int n, int heads,
+              int head_dim, int clusters) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * head_dim / 4) return;
+  const int row = idx / (head_dim / 4);
+  const int d = idx % (head_dim / 4) * 4;
+  const long long head = (long long)blockIdx.z * heads + blockIdx.y;
+  const float* at = parts + (head * clusters * n + row) * head_dim + d;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < clusters; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(at + (long long)k * n * head_dim);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  store4(dqkv + ((long long)blockIdx.z * n + row) * 3 * heads * head_dim + blockIdx.y * head_dim + d,
+         sum);
+}
+
+template <typename T>
+cudaError_t launch_dq_sum(const float* parts, T* dqkv, int batch, int n, int heads, int head_dim,
+                          int clusters, cudaStream_t stream) {
+  const int threads = 256;
+  const dim3 grid((n * head_dim / 4 + threads - 1) / threads, heads, batch);
+  dq_sum_kernel<T><<<grid, threads, 0, stream>>>(parts, dqkv, n, heads, head_dim, clusters);
+  return cudaGetLastError();
 }
 
 // The keys of the cluster's CTA `rank` of `ctas`: the n tokens' 16-key

@@ -57,6 +57,29 @@ Sections (``--sections``, all by default):
            each against ``reference_attention``
   k3f32    the f32 attention backward, the same shapes, against
            ``reference_attention_bwd``
+  k3long   K3's long routes at 577 tokens (a ViT-B/16 at input_size 384),
+           12 heads of 64: bf16 at (64, 577, 2304) and f32 at (16, 577,
+           2304), each library's ``cvt_attention_bwd_long`` /
+           ``cvt_attention_bwd_f32_long`` (whichever source of its csrc
+           defines it; an older revision's two-kernel form with its
+           statistics scratch, this checkout's on ``long_plan``'s
+           clusters): ms in the order other, this, this, other, beside
+           ``scaled_dot_product_attention``'s backward on the same values
+           and the bound; the max |difference| of the outputs from the
+           first's and from ``reference_attention_bwd``, and whether this
+           checkout's call is the same twice, bit for bit
+  longprobes  this checkout's ``attention_bwd_cluster.cu`` built again as
+           timing-only probes (``CVT_LONG_PROBE``, the source's
+           ``LongProbe``), each with one part of the bf16 long route taken
+           out: ``long_no_pass1`` (S, dP and the warps' statistics),
+           ``long_no_pass2`` (S and dP again, pn, dS, dV and dK),
+           ``long_no_dq`` (the dQ partial's product), ``long_no_exchange``
+           (the cluster barriers and remote reads: the CTA's own instead),
+           ``long_no_reduce`` (the dQ partials' sum and stores),
+           ``long_no_stats`` (the cluster's row statistics: the CTA's
+           own); at (64, 577, 2304), ms in the
+           order this, each probe, each probe backwards, this, as
+           ``f32probes``
   f32probes  this checkout's ``attention_f32.cu`` built again as timing-only
            probes (``CVT_F32_PROBE``, attention_f32.cuh), each with one part
            of K2 f32 and of K3 f32 taken out, forward / backward:
@@ -185,7 +208,9 @@ def build_libs(jobs: dict, out_dir: str) -> tuple[dict, dict]:
 _ATTN_KERNELS = ("attention_fwd_kernel", "attention_quant_kernel",
                  "fused_block_kernel", "attention_variant_kernel",
                  "attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
-                 "attention_bwd_dq_f32_kernel", "attention_bwd_dkv_f32_kernel")
+                 "attention_bwd_dq_f32_kernel", "attention_bwd_dkv_f32_kernel",
+                 "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
+                 "attention_bwd_cluster_kernel")
 
 
 def ptxas_counts(log: str) -> dict:
@@ -535,6 +560,99 @@ def k15_ab(libs: dict, k15_scratch: bool, name: str, case: tuple, gen,
             "bb": bb, "ms": times, "bit_identical": same}
 
 
+_LONG_ENTRIES = ("cvt_attention_bwd_long", "cvt_attention_bwd_f32_long")
+
+
+def _defining_source(csrc: str, name: str) -> str:
+    """The ``.cu`` file of ``csrc`` that defines the C function ``name``."""
+    for source in sorted(os.listdir(csrc)):
+        if source.endswith(".cu") and re.search(
+                rf'extern "C" int {name}\(', open(os.path.join(csrc, source)).read()):
+            return os.path.join(csrc, source)
+    raise SystemExit(f"no source of {csrc} defines {name}")
+
+
+def long_entries(lib: ctypes.CDLL, csrc: str) -> dict:
+    """K3's long-route entries of a library built from ``csrc``: name ->
+    (call by parameter names, the parameters' names)."""
+    out = {}
+    for name in _LONG_ENTRIES:
+        source = _defining_source(csrc, name)
+        out[name] = (c_entry(lib, source, name),
+                     {arg for _, arg in _params(source, name)})
+    return out
+
+
+def sdpa_bwd_ms(qkv: torch.Tensor, g: torch.Tensor, heads: int) -> float:
+    """``scaled_dot_product_attention``'s backward alone on contiguous
+    (B, H, N, Dh) copies of the same q, k, v and cotangent: the library
+    yardstick of K3, which the port never calls."""
+    B, n, C3 = qkv.shape
+    dh = C3 // 3 // heads
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous().requires_grad_()
+               for t in qkv.reshape(B, n, 3, heads, dh).unbind(2))
+    go = g.reshape(B, n, heads, dh).permute(0, 2, 1, 3).contiguous()
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), go,
+                                               retain_graph=True))
+
+
+def k3long_ab(entries: dict, dtype: torch.dtype, batch: int, gen,
+              order=_ORDER) -> dict:
+    """K3's long route of ``dtype`` of each of ``entries`` (name ->
+    ``long_entries``) at (batch, 577, 2304), 12 heads: ms in ``order``,
+    SDPA's backward, the bound, and the outputs' max |difference| from the
+    first entry's and from the plain version's."""
+    n, heads, dh = 577, 12, 64
+    qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device,
+                      generator=gen).to(dtype)
+    g = torch.randn((batch, n, heads * dh), device=gen.device,
+                    generator=gen).to(dtype)
+    f32 = dtype == torch.float32
+    name = _LONG_ENTRIES[f32]
+    clusters, ctas, warps = attn.long_plan(n, dtype)
+    scratch = dict(dtype=torch.float32, device=qkv.device)
+    old_stats = torch.empty((batch, heads, 3, n), **scratch)
+    split = ([torch.empty((batch, heads, clusters, 3, n), **scratch),
+              torch.empty((batch, heads, clusters, n, dh), **scratch)]
+             if clusters > 1 else None)
+    outs = {who: torch.empty_like(qkv) for who in entries}
+
+    def run(who):
+        call, params = entries[who][name]
+        args = {"qkv": qkv.data_ptr(), "grad": g.data_ptr(),
+                "dqkv": outs[who].data_ptr(), "batch": batch, "n": n,
+                "heads": heads, "head_dim": dh, "scale": dh ** -0.5,
+                "stream": torch.cuda.current_stream().cuda_stream}
+        if "clusters" in params:  # this design: the plan, no scratch in one cluster
+            args.update(stats=split and split[0].data_ptr(),
+                        dq_parts=split and split[1].data_ptr(),
+                        clusters=clusters, ctas=ctas, warps=warps)
+        else:  # the two-kernel design's statistics scratch
+            args["stats"] = old_stats.data_ptr()
+        _build.check(call(**args), f"{who}'s {name}")
+
+    times = in_turns({who: (lambda who=who: run(who)) for who in entries}, order)
+    again = outs["this"].clone()
+    run("this")
+    torch.cuda.synchronize()
+    ref = attn.reference_attention_bwd(qkv, g, heads)
+    first = outs[order[0]]
+    ops = 10 * batch * heads * n * n * dh
+    nbytes = qkv.element_size() * (2 * qkv.numel() + g.numel())
+    bound = max(nbytes / 3.35e12, ops / (67e12 if f32 else 989e12)) * 1e3
+    return {"dtype": str(dtype).removeprefix("torch."), "shape": list(qkv.shape),
+            "plan": [clusters, ctas, warps], "ms": times,
+            "sdpa_bwd_ms": sdpa_bwd_ms(qkv, g, heads), "bound_ms": bound,
+            "bound_by": "operations" if ops / (67e12 if f32 else 989e12)
+            > nbytes / 3.35e12 else "bytes",
+            "max_abs_diff": {who: (out.float() - first.float()).abs().max().item()
+                             for who, out in outs.items()},
+            "max_abs_err": {who: (out.float() - ref.float()).abs().max().item()
+                            for who, out in outs.items()},
+            "this_bit_identical_twice": torch.equal(again, outs["this"])}
+
+
 def f32_entries(lib: ctypes.CDLL, csrc: str) -> tuple:
     """The f32 forward and backward entries of a library built from
     ``csrc``'s ``attention_f32.cu``, called by parameter names."""
@@ -591,7 +709,7 @@ def f32_ab(entries: dict, backward: bool, batch: int, gen,
 
 
 _SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15", "k2f32",
-             "k3f32", "f32probes")
+             "k3f32", "k3long", "longprobes", "f32probes")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
                   "int8_matmul.cu", "fused_block.cu", "attention_variants.cu")
 # (batch, tokens, heads, head dim, images a block) of k15's bits-only cases
@@ -605,6 +723,10 @@ _PROBES = {"probe_b_once": ["-DCVT_GEMM_PROBE=1"],
 _SPLIT_PROBES = ("probe_b_once", "probe_no_epilogue_io")
 # this checkout's attention_f32.cu built with timing-only macros
 # (attention_f32.cuh's Probe)
+# this checkout's attention_bwd_cluster.cu built with timing-only macros
+# (its LongProbe)
+_LONG_PROBES = {"long_no_pass1": 1, "long_no_pass2": 2, "long_no_dq": 3,
+                "long_no_exchange": 4, "long_no_reduce": 5, "long_no_stats": 6}
 _F32_PROBES = {"no_products_1": 1, "no_products_2": 2, "no_products_3": 3,
                "no_exchange": 4, "no_stats": 5}
 
@@ -632,12 +754,18 @@ def main() -> int:
               **{name: [] for name in _SECTIONS}}
     with tempfile.TemporaryDirectory() as tmp:
         f32 = {"k2f32", "k3f32"} & set(sections)
-        jobs = {"other": (args.other_csrc,
-                          _OTHER_SOURCES + (("attention_f32.cu",) if f32 else ()),
-                          [])}
+        sources = list(_OTHER_SOURCES) + (["attention_f32.cu"] if f32 else [])
+        if "k3long" in sections:
+            sources += [os.path.basename(_defining_source(args.other_csrc, name))
+                        for name in _LONG_ENTRIES]
+        jobs = {"other": (args.other_csrc, tuple(dict.fromkeys(sources)), [])}
         if "variants" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("int8_matmul.cu",), flags)
                          for name, flags in _PROBES.items()})
+        if "longprobes" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("attention_bwd_cluster.cu",),
+                                [f"-DCVT_LONG_PROBE={number}"])
+                         for name, number in _LONG_PROBES.items()})
         if "f32probes" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("attention_f32.cu",),
                                 [f"-DCVT_F32_PROBE={number}"])
@@ -653,6 +781,11 @@ def main() -> int:
                   "([registers, spill-store bytes])", flush=True)
         f32_probes = {name: f32_entries(ctypes.CDLL(paths.pop(name)), _build.CSRC_DIR)
                       for name in _F32_PROBES if name in paths}
+        cluster_src = os.path.join(_build.CSRC_DIR, "attention_bwd_cluster.cu")
+        long_probes = {name: {_LONG_ENTRIES[0]: (
+            c_entry(ctypes.CDLL(paths.pop(name)), cluster_src, _LONG_ENTRIES[0]),
+            {arg for _, arg in _params(cluster_src, _LONG_ENTRIES[0])})}
+            for name in _LONG_PROBES if name in paths}
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
         if "k2" in sections:
@@ -697,6 +830,18 @@ def main() -> int:
                 report[section].append(f32_ab(entries, section == "k3f32",
                                               batch, gen))
                 print(section.upper(), json.dumps(report[section][-1]), flush=True)
+        if "k3long" in sections:
+            both = {"this": long_entries(libs["this"], _build.CSRC_DIR),
+                    "other": long_entries(other, args.other_csrc)}
+            for dtype, batch in ((torch.bfloat16, 64), (torch.float32, 16)):
+                report["k3long"].append(k3long_ab(both, dtype, batch, gen))
+                print("K3LONG", json.dumps(report["k3long"][-1]), flush=True)
+        if "longprobes" in sections:
+            order = ["this", *_LONG_PROBES, *reversed(_LONG_PROBES), "this"]
+            both = {"this": long_entries(libs["this"], _build.CSRC_DIR), **long_probes}
+            report["longprobes"].append(
+                {"order": order, **k3long_ab(both, torch.bfloat16, 64, gen, order)})
+            print("LONGPROBES", json.dumps(report["longprobes"][-1]), flush=True)
         if "f32probes" in sections:
             order = ["this", *_F32_PROBES, *reversed(_F32_PROBES), "this"]
             both = {"this": entries["this"], **f32_probes}

@@ -45,15 +45,14 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_float, _P],
     "cvt_attention_bwd": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
-    "cvt_attention_bwd_long": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "cvt_attention_bwd_long": [_P, _P, _P, _P, _P, *[ctypes.c_int] * 7,
+                               ctypes.c_float, _P],
     "cvt_attention_fwd_f32": [_P, _P, *[ctypes.c_int] * 5, ctypes.c_float,
                               ctypes.c_float, _P],
     "cvt_attention_bwd_f32": [_P, _P, _P, *[ctypes.c_int] * 5,
                               ctypes.c_float, _P],
-    "cvt_attention_bwd_f32_long": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                   _P],
+    "cvt_attention_bwd_f32_long": [_P, _P, _P, _P, _P, *[ctypes.c_int] * 6,
+                                   ctypes.c_float, _P],
     "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,

@@ -11,9 +11,10 @@ differentiable through a ``torch.autograd.Function`` that saves only ``qkv``
 (image, head) holds the head's Q, K, V and g in shared memory, recomputes the
 softmax statistics into registers in a first sweep over the keys and forms
 dQ, dK and dV in a second, with no scratch in device memory; above
-``BWD_MAX_TOKENS`` tokens the two kernels of ``csrc/attention_bwd_long.cu``), with
-``reference_attention_bwd`` as the plain version: the arithmetic of the JAX
-package's ``_attn_bwd_kernel`` step by step, with its rounding points.
+``BWD_MAX_TOKENS`` tokens ``csrc/attention_bwd_cluster.cu``, a thread-block
+cluster per (image, head) whose CTAs hold the head's keys, ``long_plan``),
+with ``reference_attention_bwd`` as the plain version: the arithmetic of the
+JAX package's ``_attn_bwd_kernel`` step by step, with its rounding points.
 
 f32 inputs (an f32 model: ``training.mixed_precision=false``, or an f32
 checkpoint served) take the f32 kernels of ``csrc/attention_f32.cu``, IEEE
@@ -21,9 +22,10 @@ f32 throughout (no TF32): one thread-block cluster per (image, head) whose
 CTAs hold the head's keys in ranges of at most ``F32_CTA_KEYS``
 (``f32_plan``), for the forward at every token count and for the backward
 (one launch, the five products, no scratch) up to ``F32_MAX_TOKENS``; above
-it the backward takes the two kernels of ``csrc/attention_f32_long.cu`` (dQ
-per 64-query tile, then dK/dV per 64-key tile, through an f32 (B, H, 3, N)
-statistics scratch). They count in ``F32_LAUNCHES`` and
+it the backward's long route runs the same kernel on clusters of up to 16
+CTAs (``long_plan``). Both long routes split a head's keys over several
+clusters where one cannot hold them, through a statistics pass and f32
+scratches. They count in ``F32_LAUNCHES`` and
 ``F32_BWD_LAUNCHES``, not in the bf16 counters. The plain versions are the
 same two functions, which compute in f32 for either dtype.
 
@@ -76,7 +78,14 @@ F32_CTA_KEYS = 64
 F32_MAX_CTAS = 8
 F32_MAX_TOKENS = F32_MAX_CTAS * F32_CTA_KEYS
 F32_KEY_STEP = 16  # kWarpKeys: a CTA's key range is a multiple of it
-_F32_LONG_TILE = 64  # kTile in csrc/attention_f32_long.cu
+# The long routes' clusters: f32 (csrc/attention_f32.cuh kMaxLongCtas) up
+# to 16 CTAs of 64 keys, 1,024 tokens; bf16 (csrc/attention_bwd_cluster.cu)
+# up to 8 CTAs (kMaxCtas) of 8 warps of 16 keys (kMaxWarps), 1,024 tokens.
+# Above a cluster's reach a head's keys split over several clusters.
+F32_LONG_MAX_CTAS = 16
+LONG_MAX_CTAS = 8
+LONG_MAX_WARPS = 8
+_SMEM_LIMIT = 232448  # the dynamic shared memory a Hopper block may have
 
 
 def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -163,13 +172,12 @@ def f32_plan(n: int, backward: bool = True) -> tuple[str, int]:
     the keys of each in ``f32_key_ranges``. The kernels' header
     (``csrc/attention_f32.cuh``) owns the rest of the layout and its shared
     memory, and the C entries refuse a CTA count that does not fit. Route
-    ``"f32_long"`` (the backward above ``F32_MAX_TOKENS``):
-    ``csrc/attention_f32_long.cu``, whose dK/dV kernel runs ``ctas`` blocks
-    of 64 keys a head."""
+    ``"f32_long"`` (the backward above ``F32_MAX_TOKENS``): the same kernel
+    on ``long_plan``'s clusters, ``ctas`` CTAs each."""
     if n < 1:
         raise ValueError(f"no f32 plan for {n} tokens")
     if backward and n > F32_MAX_TOKENS:
-        return "f32_long", -(-n // _F32_LONG_TILE)
+        return "f32_long", long_plan(n, torch.float32)[1]
     steps = -(-n // F32_KEY_STEP)
     return "f32", min(F32_MAX_CTAS, -(-steps // (F32_CTA_KEYS // F32_KEY_STEP)))
 
@@ -187,6 +195,47 @@ def f32_key_ranges(n: int, ctas: int) -> list[tuple[int, int]]:
         end = start + (base + (rank < extra)) * F32_KEY_STEP
         ranges.append((start, min(end, n)))
     return ranges
+
+
+def long_plan(n: int, dtype: torch.dtype = torch.bfloat16
+              ) -> tuple[int, int, int]:
+    """The long backward routes' layout for ``n`` tokens: (clusters, ctas,
+    warps) per (image, head). The head's 16-key steps go evenly to the
+    clusters * ctas CTAs (``f32_key_ranges(n, clusters * ctas)``), each warp
+    of a CTA owning 16 keys: the fewest clusters that hold the head (one up
+    to 1,024 tokens), then the fewest CTAs of ``LONG_MAX_WARPS`` warps in
+    bf16 (577 tokens: 5 CTAs of 8 warps, two such CTAs an SM; 8 CTAs of 5
+    warps, three an SM, were 7% slower), of 4 warps in f32 (577 tokens:
+    10). More than one cluster: the
+    kernels' statistics pass and f32 scratches (``fused_qkv_attention_bwd``).
+    The C entries refuse a plan that does not fit."""
+    if n < 1:
+        raise ValueError(f"no plan for {n} tokens")
+    steps = -(-n // F32_KEY_STEP)
+    if dtype == torch.float32:
+        warps = F32_CTA_KEYS // F32_KEY_STEP
+        clusters = -(-steps // (F32_LONG_MAX_CTAS * warps))
+    else:
+        clusters = -(-steps // (LONG_MAX_CTAS * LONG_MAX_WARPS))
+    per = -(-steps // clusters)  # a cluster's steps, at most
+    if dtype != torch.float32:
+        warps = min(LONG_MAX_WARPS, per)
+    return clusters, -(-per // warps), warps
+
+
+def long_smem_bytes(head_dim: int, warps: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a long-route CTA (``smem_bytes`` in
+    ``csrc/attention_bwd_cluster.cu``, ``bwd_smem_bytes`` in
+    ``csrc/attention_f32.cuh``): in bf16 K and V of the CTA's keys, the Q
+    and g tiles of 64 rows, dS^T and, in f32, the dQ slices it receives
+    and the row statistics."""
+    if dtype == torch.float32:
+        ld = head_dim + 4
+        return 4 * (2 * F32_CTA_KEYS * ld + 2 * 64 * ld + 2 * F32_CTA_KEYS * 72
+                    + 3 * 4 * 64 + 6 * 64)
+    keys, ld = warps * F32_KEY_STEP, head_dim + 8
+    return (2 * (2 * keys * ld + 2 * 64 * ld + keys * 72)
+            + 4 * (70 * head_dim + 4 * 64 + 3 * warps * 64 + 3 * 64))
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -290,10 +339,11 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The backward kernel that takes ``n`` tokens: in bf16 ``"short"``
     (``csrc/attention_bwd.cu``, a head in shared memory) up to
-    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_long.cu``) above;
-    in f32 ``"f32"`` (``csrc/attention_f32.cu``, a head's keys in one
-    thread-block cluster) up to ``F32_MAX_TOKENS``, ``"f32_long"``
-    (``csrc/attention_f32_long.cu``) above."""
+    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_cluster.cu``, a
+    head's keys in thread-block clusters, ``long_plan``) above; in f32
+    ``"f32"`` (``csrc/attention_f32.cu``, a head's keys in one cluster of up
+    to 8 CTAs) up to ``F32_MAX_TOKENS``, ``"f32_long"`` (the same kernel on
+    ``long_plan``'s clusters of up to 16) above."""
     if dtype == torch.float32:
         return "f32" if n <= F32_MAX_TOKENS else "f32_long"
     return "short" if n <= BWD_MAX_TOKENS else "long"
@@ -308,13 +358,15 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     a backward kernel (bf16 or f32, head dim 16, 32 or 64) or raises. The
     kernels are hand-written and give the same function; dtype and shape
     pick one (``bwd_route``): in bf16 up to ``BWD_MAX_TOKENS`` tokens the
-    one-block-per-head kernel of ``csrc/attention_bwd.cu``, above it the two
-    kernels of ``csrc/attention_bwd_long.cu`` (dQ per 64-query tile, then
-    dK/dV per 64-key tile, through an f32 (B, H, 3, N) statistics scratch);
-    in f32 up to ``F32_MAX_TOKENS`` the one cluster launch of
-    ``csrc/attention_f32.cu`` (``f32_plan``), above it the two kernels of
-    ``csrc/attention_f32_long.cu``, of the bf16 long route's structure.
-    ``g`` is made contiguous first (autograd may hand a strided one)."""
+    one-block-per-head kernel of ``csrc/attention_bwd.cu``, above it
+    ``csrc/attention_bwd_cluster.cu`` on ``long_plan``'s thread-block
+    clusters; in f32 up to ``F32_MAX_TOKENS`` the one cluster launch of
+    ``csrc/attention_f32.cu`` (``f32_plan``), above it the same kernel on
+    ``long_plan``'s clusters. A long route whose plan has more than one
+    cluster a head runs three launches through two f32 scratches, the
+    clusters' row statistics (B, H, clusters, 3, N) and dQ partials
+    (B, H, clusters, N, Dh). ``g`` is made contiguous first (autograd may
+    hand a strided one)."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     if g.shape != (B, N, D) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -332,21 +384,25 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
         return dqkv
     lib = _build.library()
     route = bwd_route(N, qkv.dtype)
-    tiled = route in ("long", "f32_long")
-    # the long routes' row statistics per (image, head, row): (max, 1/l, r)
-    # in bf16, (max, l, r) in f32
-    stats = (torch.empty((B, num_heads, 3, N), dtype=torch.float32,
-                         device=qkv.device) if tiled else None)
-    scratch = [stats.data_ptr()] if tiled else []
+    ptrs = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr()]
     shape = [B, N, num_heads, head_dim]
-    if route == "f32":
+    if route in ("long", "f32_long"):
+        clusters, ctas, warps = long_plan(N, qkv.dtype)
+        scratch = [None, None]
+        if clusters > 1:
+            f32 = dict(dtype=torch.float32, device=qkv.device)
+            stats = torch.empty((B, num_heads, clusters, 3, N), **f32)
+            parts = torch.empty((B, num_heads, clusters, N, head_dim), **f32)
+            scratch = [stats.data_ptr(), parts.data_ptr()]
+        ptrs += scratch
+        shape += [clusters, ctas] + ([warps] if route == "long" else [])
+    elif route == "f32":
         shape.append(f32_plan(N)[1])
     entry = {"short": lib.cvt_attention_bwd, "long": lib.cvt_attention_bwd_long,
              "f32": lib.cvt_attention_bwd_f32,
              "f32_long": lib.cvt_attention_bwd_f32_long}[route]
     with torch.cuda.device(qkv.device):
-        rc = entry(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), *scratch,
-                   *shape, 1.0 / math.sqrt(head_dim),
+        rc = entry(*ptrs, *shape, 1.0 / math.sqrt(head_dim),
                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"attention backward ({route})")
     global BWD_LAUNCHES, BWD_LONG_LAUNCHES, F32_BWD_LAUNCHES

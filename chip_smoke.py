@@ -96,9 +96,10 @@ Phases, one line each; any failure exits non-zero before the last line:
              (dK from the unscaled dS) outside it, two launches bit-identical;
              the same at N = 17, 64, 65, 257, 264 with head dims 16, 32, 64,
              and past 288 tokens, where the long route
-             (``attention_bwd_long.cu``) takes the call, at N = 289 and 577
-             with those head dims and at (64, 577, 2304), whose time goes in
-             the kernels line;
+             (``attention_bwd_cluster.cu``, thread-block clusters on
+             ``long_plan``) takes the call, at N = 289 and 577 with those
+             head dims and at (64, 577, 2304), whose time goes in the
+             kernels line with SDPA's backward on the same values;
              the products it executes and ptxas's registers and its shared
              memory per block printed;
              ``scaled_dot_product_attention`` forward and backward timed on
@@ -216,7 +217,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              backward's long route, the forward's 64-key windows) with head
              dims 16, 32 and 64, within F32_ATOL and the backward
              bit-identical twice; the backward one kernel launch a call
-             (profiler); bound shares; the long route at (16, 577, 2304),
+             (profiler); bound shares; the long route (the same kernel on
+             clusters of up to 16 CTAs, ``long_plan``) at (16, 577, 2304),
              its kernels-line entry; ptxas's registers and spills; the f32
              step with ``model.remat=true`` (24 f32 K2 and 12 f32 K3 a step)
              in turns with false. (Another revision's f32 kernels are timed
@@ -249,11 +251,26 @@ Phases, one line each; any failure exits non-zero before the last line:
              device's, the launch counts twice a batch's per shard; the
              ``serve`` CLI with ``--dp``; ``evaluate`` over two replicas
              on phase 17's boards, its report equal to one device's.
- 24. report  the kernels JSON line (every kernel with its bound and, where
+ 24. p384    ViT-B/16 at full width trained at ``model.input_size=384``
+             (577 tokens, where K3 takes its long routes): ``train()`` on
+             ``configs/vit.yaml`` values, batch 64, remat off, one epoch of 4
+             steps on 320 random boards resized to 384 px as the loader
+             resizes, with labels from random FENs: every train step must
+             launch K2 12 times and K3 12 times, every one on the ``long``
+             route, every eval step K2 12 times and K3 never; finite losses;
+             one step with dropout and drop path off and fixed augmentation
+             draws through the kernels and through plain attention: loss
+             within TRAIN_LOSS_ATOL and per-tensor gradients within
+             TRAIN_GRAD_RTOL; warm-step img/s and peak device memory. Then
+             the same in f32 (``training.mixed_precision=false``) at batch
+             16 on 80 boards: 12 f32 K2 and 12 f32 K3 a step, every K3 on
+             ``f32_long``, gradients within F32_GRAD_RTOL. The phase's
+             seconds.
+ 25. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
-             every kernel but K3's long routes, bf16 and f32, which no
-             257-token path takes, must have been launched by a main path),
-             the nvidia-smi line, then {"ok": true, "device": {...}}.
+             every kernel must have been launched by a main path: K3's long
+             routes by phase 24's), the nvidia-smi line, then
+             {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over the
@@ -370,8 +387,6 @@ VARIANT_ATOL = {"bf16s": 4e-2}
 K15_EARLIER_MS = {"base": 1.3138, "foldscale": 1.2960, "noshift": 0.8690,
                   "noexp": 1.2769, "fexp": 1.3298, "fexp_ns": 1.0049,
                   "bf16s": 1.3566, "normbound": 1.2766}
-# kernels of the kernels line that no main path launches
-OFF_PATH = ("fused_qkv_attention_bwd_long", "fused_qkv_attention_bwd_f32_long")
 BATCH = 256
 SIZE = 256
 TRAIN_BATCH = 64
@@ -802,24 +817,21 @@ def main() -> int:
         remat_phase(args, corpus, kind, smi)
         multi_device_phase(args, workdir, kind, smi)
         dp_phase(args, cfg, params, boards, train_ckpt, workdir, kind, smi)
+        p384_phase(args, kernels, kind, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 24: the kernels line, the card and the last line."""
+    """Phase 25: the kernels line, the card and the last line."""
     import torch
 
-    # the long routes of K3 take more than 288 (bf16) or 512 (f32) tokens:
-    # no main path (257 tokens) runs them, so their entries keep launches 0;
-    # phases 10 and 20 check them
-    idle = [k["name"] for k in kernels.values()
-            if k["launches"] < 1 and k["name"] not in OFF_PATH]
+    idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[24 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[25 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -1220,6 +1232,7 @@ def reset_counts() -> None:
     pre_ops.LAUNCHES = rq.LAUNCHES = fb.LAUNCHES = 0
     attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = attn_ops.QUANT_LAUNCHES = 0
     attn_ops.FLAT_LAUNCHES = attn_ops.F32_LAUNCHES = attn_ops.F32_BWD_LAUNCHES = 0
+    attn_ops.BWD_LONG_LAUNCHES = attn_ops.F32_BWD_LONG_LAUNCHES = 0
     for counts in (mm.LAUNCHES, av.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -2001,7 +2014,9 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
         plain_ms = cuda_ms(
             lambda: attn_ops.reference_attention_bwd(qkv, g, H), 3)
         route = attn_ops.bwd_route(n)
-        work = k3_work(n, Dh) if route == "short" else "the two-kernel long route"
+        work = (k3_work(n, Dh) if route == "short" else
+                f"the long route, (clusters, CTAs, warps) {attn_ops.long_plan(n)}"
+                f" a head; {ptxas_counts('attention_bwd_cluster_kernel', Dh, 0)}")
         print(f"[10 K3] attention backward {tuple(qkv.shape)} H={H}: max |diff| "
               f"{errs} (atol {K3_ATOL}), planted unscaled dK {planted}, two "
               f"launches bit-identical {same}; kernel {ms:.4f} ms, plain "
@@ -2022,7 +2037,7 @@ def attention_bwd_phase(args, dev, kernels: dict) -> None:
                     else "fused_qkv_attention_bwd_long")
             kernels[name] = kernel_entry(
                 name, "attention_bwd.cu" if route == "short"
-                else "attention_bwd_long.cu",
+                else "attention_bwd_cluster.cu",
                 "chess_vision_tpu/ops/attention.py:623", max(errs.values()),
                 ms, plain_ms, nbytes=2 * (2 * qkv.numel() + g.numel()),
                 ops=10 * B * H * n * n * Dh, op_type="bf16", library_ms=bwd_ms)
@@ -2054,8 +2069,8 @@ def k3_work(n: int, head_dim: int) -> str:
 
 def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None) -> str:
     """ptxas's registers and spills of one instantiation of a kernel (K15's
-    of one variant), from this process's build (empty when an up-to-date
-    library was reused)."""
+    of one variant, K3's long and f32 backward of one mode), from this
+    process's build (empty when an up-to-date library was reused)."""
     import re
 
     from chess_vision_tpu_torch.ops import _build
@@ -2126,12 +2141,17 @@ class MemoryCorpus:
     """An in-memory dataset with the interface of ``data.ChessDataset``:
     random uint8 boards, labels from random legal-looking FENs."""
 
-    def __init__(self, count: int, seed: int):
+    def __init__(self, count: int, seed: int, size: int = SIZE):
         from chess_vision_tpu_torch.fen import parse_full_fen
 
         rng = np.random.default_rng(seed)
-        self.input_size = SIZE
+        self.input_size = size
         self.boards = rng.integers(0, 256, (count, SIZE, SIZE, 3), dtype=np.uint8)
+        if size != SIZE:  # resized as data.ChessDataset resizes to input_size
+            from PIL import Image
+
+            self.boards = np.stack([np.asarray(Image.fromarray(b).resize(
+                (size, size), Image.BILINEAR)) for b in self.boards])
         self.samples = [{"filename": f"{i:06d}.png", "fen": random_fen(rng),
                          "legal": "1"} for i in range(count)]
         self._parse = parse_full_fen
@@ -2218,7 +2238,8 @@ def attention_counts() -> tuple[int, int]:
     return attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES
 
 
-def make_trainer(cfg: dict, corpus, seed: int, steps_per_epoch: int = 4):
+def make_trainer(cfg: dict, corpus, seed: int, steps_per_epoch: int = 4,
+                 batch: int = TRAIN_BATCH):
     """A fresh model, train state and steps from ``cfg``, with the pieces the
     trainer's ``train`` uses, and device batches of the corpus."""
     import torch
@@ -2239,7 +2260,7 @@ def make_trainer(cfg: dict, corpus, seed: int, steps_per_epoch: int = 4):
     train_step, eval_step = make_steps(
         state, cfg, compute_class_weights(corpus.samples), data_cfg["mean"],
         data_cfg["std"], seed=seed)
-    loader = BatchLoader(corpus, np.arange(len(corpus)), TRAIN_BATCH,
+    loader = BatchLoader(corpus, np.arange(len(corpus)), batch,
                          num_workers=4, drop_remainder=True)
     stager = BatchStager(dev, slots=len(loader))
     batches = [stager(b) for b in loader]
@@ -3317,7 +3338,8 @@ def f32_kernel_checks(args, dev, kernels: dict, tag: str) -> None:
     torch.cuda.empty_cache()
 
     # the backward's long route: 16 images of 577 tokens (ViT-B/16 at 384
-    # px), 12 heads; the forward's 80-key ranges in 64-key windows
+    # px), 12 heads, on clusters of 10 CTAs; the forward's 80-key ranges in
+    # 64-key windows
     B, n = 16, 577
     qkv = torch.randn((B, n, 3 * H * Dh), device=dev, generator=gen)
     g = torch.randn((B, n, H * Dh), device=dev, generator=gen)
@@ -3334,11 +3356,12 @@ def f32_kernel_checks(args, dev, kernels: dict, tag: str) -> None:
     plain_long = cuda_ms(lambda: attn_ops.reference_attention_bwd(qkv, g, H), 2)
     _, lib_long = sdpa_ms(qkv, g, H)
     kernels["fused_qkv_attention_bwd_f32_long"] = kernel_entry(
-        "fused_qkv_attention_bwd_f32_long", "attention_f32_long.cu",
+        "fused_qkv_attention_bwd_f32_long", "attention_f32.cu",
         "chess_vision_tpu/ops/attention.py:623", derr, long_ms, plain_long,
         nbytes=4 * (2 * qkv.numel() + g.numel()),
         ops=5 * 2 * B * H * n * n * Dh, op_type="f32", library_ms=lib_long)
-    print(f"{tag} long route {tuple(qkv.shape)}: max |diff| {derr}; "
+    print(f"{tag} long route {tuple(qkv.shape)}, (clusters, CTAs, warps) "
+          f"{attn_ops.long_plan(n, torch.float32)} a head: max |diff| {derr}; "
           f"{long_ms:.4f} ms (plain {plain_long:.4f}, SDPA backward "
           f"{lib_long:.4f}); the forward there, in windows: max |diff| {err}, "
           f"{fwd_long_ms:.4f} ms", flush=True)
@@ -3348,7 +3371,9 @@ def f32_kernel_checks(args, dev, kernels: dict, tag: str) -> None:
         print(f"{tag} ptxas Dh={dh}: attention_fwd_f32_kernel "
               f"{ptxas_counts('attention_fwd_f32_kernel', dh)}; "
               f"attention_bwd_f32_kernel "
-              f"{ptxas_counts('attention_bwd_f32_kernel', dh)}", flush=True)
+              f"{ptxas_counts('attention_bwd_f32_kernel', dh, 0)}, on the long "
+              f"route {ptxas_counts('attention_bwd_f32_kernel', dh, 1)}",
+              flush=True)
 
 
 def f32_phase(args, cfg, params, boards, corpus, kernels: dict, kind: str,
@@ -3773,6 +3798,120 @@ def dp_phase(args, cfg, params, boards, train_ckpt: str, workdir: str,
     require(two_text == one_text and loss_gap <= 1e-6
             and all(two_m[k] == one_m[k] for k in one_m if k != "loss"),
             f"{tag} the two-replica evaluation differs")
+
+def long_counts() -> tuple[int, int, int, int, int, int]:
+    """(K2, K3, K3 on the long route) in bf16, then the same in f32."""
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    return (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES, attn_ops.BWD_LONG_LAUNCHES,
+            attn_ops.F32_LAUNCHES, attn_ops.F32_BWD_LAUNCHES,
+            attn_ops.F32_BWD_LONG_LAUNCHES)
+
+
+def p384_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
+             kind: str, smi: str) -> int:
+    """Phase 24, one precision: ``train()`` for one epoch of 4 steps at
+    input_size 384 (launches counted a step, every K3 on the long route),
+    then one step through the kernels against one through plain attention.
+    Returns the long route's launches in the ``train()`` run."""
+    import torch
+
+    from chess_vision_tpu_torch.augment import draw_params
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.train.__main__ import train
+
+    dev = torch.device("cuda")
+    depth, size = 12, corpus.input_size
+    save_dir = os.path.join(workdir, f"p384_{'f32' if f32 else 'bf16'}")
+    cfg = train_config(save_dir, input_size=size, remat=False)
+    cfg["training"].update(epochs=1, batch_size=batch, mixed_precision=not f32)
+    per_step = []
+
+    def on_step(step_kind, sums):
+        torch.cuda.synchronize()
+        per_step.append((step_kind, long_counts(), time.perf_counter(),
+                         float(sums.get("step_loss", sums["loss_sum"]))))
+        reset_counts()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = train(cfg, corpus, seed=args.seed, device="cuda", on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del result
+    torch.cuda.empty_cache()
+    # (K2, K3, K3 long) of the step's precision
+    counts = {k: sorted({s[1][3:] if f32 else s[1][:3] for s in per_step
+                         if s[0] == k}) for k in ("train", "eval")}
+    other = sorted({s[1][:3] if f32 else s[1][3:] for s in per_step})
+    losses = [s[3] for s in per_step if s[0] == "train"]
+    gaps = [b[2] - a[2] for a, b in zip(per_step, per_step[1:])
+            if a[0] == b[0] == "train"]
+    warm = batch * len(gaps) / sum(gaps) if gaps else float("nan")
+    route = attn_ops.bwd_route((size // 16) ** 2 + 1,
+                               torch.float32 if f32 else torch.bfloat16)
+    print(f"{tag} ViT-B/16 {size}px {'f32' if f32 else 'bf16'} full width, "
+          f"batch {batch}, remat off: {len(losses)} train steps in "
+          f"{train_s:.1f} s (evaluation and checkpoint included); (K2, K3, K3 "
+          f"on {route}) per step {counts}, the other precision's {other}; "
+          f"step losses {[round(x, 4) for x in losses]}; warm train img/s "
+          f"{warm:.1f} ({len(gaps)} step intervals); peak device memory "
+          f"{peak_gib:.2f} GiB; {kind}, {smi}", flush=True)
+    require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+            f"{tag} train step losses {losses}")
+    require(counts == {"train": [(depth, depth, depth)], "eval": [(depth, 0, 0)]}
+            and other == [(0, 0, 0)], f"{tag} launches per step {counts}, {other}")
+
+    # one step's gradients: the kernels against plain attention
+    quiet = train_config("", input_size=size, head_dropout=0.0,
+                         drop_path_rate=0.0, remat=False)
+    quiet["training"]["mixed_precision"] = not f32
+    quiet["scheduler"]["warmup_epochs"] = 0  # lr(0) is the base rate
+    state_k, step_k, _, batches = make_trainer(quiet, corpus, args.seed, batch=batch)
+    state_p, step_p, _, _ = make_trainer(quiet, corpus, args.seed, batch=batch)
+    aug = draw_params(batch, torch.Generator(device=dev).manual_seed(args.seed))
+    reset_counts()
+    grads_k, loss_k = step_with_grads(state_k, step_k, batches[0], aug)
+    moved = long_counts()
+    with plain_attention():
+        grads_p, loss_p = step_with_grads(state_p, step_p, batches[0], aug)
+    require(long_counts() == moved, f"{tag} the plain step launched a kernel")
+    worst, name, _ = grad_gap(grads_k, grads_p)
+    bound = F32_GRAD_RTOL if f32 else TRAIN_GRAD_RTOL
+    loss_ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) if f32
+               else abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL)
+    print(f"{tag} one step, kernels vs plain attention on the card: loss "
+          f"{loss_k} vs {loss_p}; worst per-tensor max |grad diff| / max "
+          f"|grad| {worst:.3e} at {name} (bound {bound}); launches "
+          f"{moved}", flush=True)
+    require(math.isfinite(loss_k) and loss_ok, f"{tag} losses {loss_k}, {loss_p}")
+    require(all(torch.isfinite(g).all() for g in grads_k.values()),
+            f"{tag} a kernel-path gradient is not finite")
+    require(worst <= bound, f"{tag} gradient of {name}: {worst}")
+    del state_k, state_p, step_k, step_p, grads_k, grads_p, batches
+    torch.cuda.empty_cache()
+    return sum(s[1][5 if f32 else 2] for s in per_step)
+
+
+def p384_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
+    """Phase 24: ViT-B/16 trained at input_size 384 (577 tokens), where K3
+    takes its long routes: bf16 at batch 64, f32 at batch 16."""
+    tag = "[24 p384]"
+    t_phase = time.perf_counter()
+    size = 384
+    kernels["fused_qkv_attention_bwd_long"]["launches"] += p384_run(
+        tag, args, MemoryCorpus(320, args.seed, size), TRAIN_BATCH, False,
+        workdir, kind, smi)
+    kernels["fused_qkv_attention_bwd_f32_long"]["launches"] += p384_run(
+        tag, args, MemoryCorpus(80, args.seed, size), 16, True, workdir, kind,
+        smi)
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
 
 if __name__ == "__main__":
     try:

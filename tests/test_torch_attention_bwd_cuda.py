@@ -1,5 +1,5 @@
 """The attention backward kernels (csrc/attention_bwd.cu, and above
-BWD_MAX_TOKENS tokens csrc/attention_bwd_long.cu) against their plain
+BWD_MAX_TOKENS tokens csrc/attention_bwd_cluster.cu) against their plain
 PyTorch version on the card. Skips without a CUDA device. On a GPU machine
 without JAX, run without the JAX test configuration:
 

@@ -1,7 +1,7 @@
 """The f32 attention kernels (``csrc/attention_f32.cu``: K2's forward and
 K3's backward on f32 inputs, one thread-block cluster per (image, head);
-above ``F32_MAX_TOKENS`` the backward's two kernels of
-``csrc/attention_f32_long.cu``) against their plain PyTorch versions on the
+above ``F32_MAX_TOKENS`` the backward's long route, the same kernel on
+clusters of up to 16 CTAs) against their plain PyTorch versions on the
 card. Skips without a CUDA device. On a GPU machine without JAX, run
 without the JAX test configuration:
 

@@ -28,14 +28,14 @@ NS = range(1, 2049)
 @pytest.mark.parametrize("backward", (True, False))
 def test_key_ranges_partition_the_tokens(backward):
     """Every CTA's range is whole 16-key steps (the last may be short),
-    none is empty, and they tile [0, N); on the cluster route of the
-    backward none holds more than a CTA's 64 keys."""
+    none is empty, and they tile [0, N); on the backward's routes (one
+    cluster up to 512 tokens, ``long_plan``'s clusters above) none holds
+    more than a CTA's 64 keys."""
     for n in NS:
         route, ctas = attn.f32_plan(n, backward)
-        if route == "f32_long":  # one block a 64 keys
-            ranges = [(c * 64, min(n, (c + 1) * 64)) for c in range(ctas)]
-        else:
-            ranges = attn.f32_key_ranges(n, ctas)
+        if route == "f32_long":  # over the long plan's clusters
+            ctas *= attn.long_plan(n, torch.float32)[0]
+        ranges = attn.f32_key_ranges(n, ctas)
         assert ranges[0][0] == 0 and ranges[-1][1] == n
         assert all(a < b for a, b in ranges), (n, ranges)  # none empty
         assert all(ranges[i][1] == ranges[i + 1][0] for i in range(ctas - 1))
@@ -46,8 +46,10 @@ def test_key_ranges_partition_the_tokens(backward):
 
 def test_cluster_size_and_the_long_route():
     """At most 8 CTAs a cluster, the fewest that hold the keys at 64 a CTA;
-    the backward's cluster route takes exactly the counts up to 512 tokens;
-    the forward takes every count on the cluster (64-key windows above)."""
+    the backward's cluster route takes exactly the counts up to 512 tokens,
+    its long route clusters of up to 16 CTAs of 64 keys (the fewest
+    clusters, then the fewest CTAs); the forward takes every count on the
+    cluster (64-key windows above)."""
     for n in NS:
         route, ctas = attn.f32_plan(n)
         assert route == attn.bwd_route(n, torch.float32)
@@ -55,7 +57,9 @@ def test_cluster_size_and_the_long_route():
         if route == "f32":
             assert ctas == -(-n // attn.F32_CTA_KEYS) <= attn.F32_MAX_CTAS
         else:
-            assert ctas == -(-n // 64)  # one block a 64 keys
+            clusters = -(-n // (attn.F32_LONG_MAX_CTAS * attn.F32_CTA_KEYS))
+            per = -(-(-(-n // 16)) // clusters)  # a cluster's 16-key steps
+            assert ctas == -(-per // 4) <= attn.F32_LONG_MAX_CTAS
         route, ctas = attn.f32_plan(n, backward=False)
         assert route == "f32" and ctas == min(-(-n // 64), attn.F32_MAX_CTAS)
     assert attn.f32_plan(257) == ("f32", 5)
@@ -83,8 +87,10 @@ def test_plan_constants_and_shared_memory_match_the_kernel_source():
                  "fwd_smem_bytes<64>() <= kMaxSmemBytes,"):
         assert line in text, line
     assert attn.F32_CTA_KEYS == 128 // 32 * attn.F32_KEY_STEP
-    long_src = open(os.path.join(_build.CSRC_DIR, "attention_f32_long.cu")).read()
-    assert "constexpr int kTile = 64;" in long_src  # the long route's plan
+    # the long route's plan: the same CTAs, clusters of up to 16
+    assert f"constexpr int kMaxLongCtas = {attn.F32_LONG_MAX_CTAS};" in text
+    assert "ctas > kMaxLongCtas" in open(
+        os.path.join(_build.CSRC_DIR, "attention_f32.cu")).read()
 
 
 def _heads(x, H, parts):

@@ -1,7 +1,8 @@
 """The f32 attention kernels on their thread-block cluster
 (``csrc/attention_f32.cu``: K2 and K3 on f32 inputs, one cluster per (image,
 head) holding the head's keys, ``ops/attention.f32_plan``) and the backward's
-long route above ``F32_MAX_TOKENS`` (``csrc/attention_f32_long.cu``), against
+long route above ``F32_MAX_TOKENS`` (the same kernel on clusters of up to
+16 CTAs, ``ops/attention.long_plan``), against
 their plain PyTorch versions on the card. Skips without a CUDA device. On a
 GPU machine without JAX, run without the JAX test configuration:
 
