@@ -40,7 +40,10 @@
 // ptxas (CUDA 12.8, sm_90a): 168 registers at Dh = 64 with 116 bytes
 // spilled, 168 at Dh = 32, 160 at Dh = 16; chip_smoke.py phase 4 prints the
 // counts of its own build. Of the shapes tried, 2 warps x 4 blocks and 4 x 3
-// were slower and 4 x 4 spilled.
+// were slower and 4 x 4 spilled. Head dims 80 and 128 (ViT-Huge's 80) run
+// the same loop on fewer blocks an SM (min_blocks); a head dim between two
+// instantiations runs the larger (cvt::flash_head_dim). Phase 25 of
+// chip_smoke.py prints their counts and times.
 //
 // What bounds it now: not bytes. At the serving shape it takes about 3.3x
 // its byte bound, while its products and exponentials each need under 0.1
@@ -62,17 +65,26 @@
 namespace {
 
 constexpr int kWarps = 3;      // warps a block, 32 query rows each
-constexpr int kMinBlocks = 4;  // blocks an SM: 12 warps, 168 registers a thread
-constexpr int kStages = 2;     // K/V tiles in the ring (4 blocks fit 228 KB)
+constexpr int kStages = 2;     // K/V tiles in the ring
+
+// Blocks an SM: 4 up to Dh = 64 (12 warps, 168 registers a thread; 4 blocks
+// of 50,688 bytes fit 228 KB). Above, the accumulators o[2][Dh / 8][4] and
+// Q's fragments grow (120 registers at 80, 192 at 128) and so does the
+// block's shared memory (61,952 bytes at 80, 95,744 at 128): 3 blocks (227
+// registers) at 80, 2 (255) at 128.
+template <int Dh>
+constexpr int min_blocks() {
+  return Dh <= 64 ? 4 : Dh <= 80 ? 3 : 2;
+}
 
 template <int Dh>
-__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
+__global__ void __launch_bounds__(32 * kWarps, min_blocks<Dh>())
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                     int n, int heads, float scale_log2) {
+                     int n, int heads, int dh, float scale_log2) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int kLd = Dh + cvt::kFlashPad;
-  const int d_model = heads * Dh;
+  const int d_model = heads * dh;
   const long long row_stride = 3LL * d_model;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -80,14 +92,14 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
   const int cb = cvt::flash_chunk_blocks(n, gridDim.x);  // row blocks of a chunk
   const int row0 = chunk * cb * 16;
   const int cblocks = min(cb, (n + 15) / 16 - chunk * cb);
-  const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * Dh;
+  const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * dh;
 
   float o[2][Dh / 8][4];
   float l[2][2];
   bool has[2];
   cvt::flash_attention_rows<Dh, kWarps, kStages, false>(q_base, row_stride, d_model, row0, cblocks, n,
                                                n, scale_log2, 0.f, false, smem, o, l, has,
-                                               threadIdx.x, 0);
+                                               threadIdx.x, 0, dh);
 
   // the warp's rows, rounded to bf16, into its own rows of the Q tile, then
   // to device memory 16 bytes a lane
@@ -96,7 +108,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
   const int g = lane / 4;
   const int t = lane % 4;
   __nv_bfloat16* stage = smem + cvt::flash_q_offset<Dh, kStages>();
-  __nv_bfloat16* o_base = out + (long long)b * n * d_model + h * Dh;
+  __nv_bfloat16* o_base = out + (long long)b * n * d_model + h * dh;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if (!has[j]) continue;
@@ -117,7 +129,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
     for (int idx = lane; idx < 16 * kChunks; idx += 32) {
       const int r = rb * 16 + idx / kChunks;
       const int c = (idx % kChunks) * 8;
-      if (row0 + r < n) {
+      if (row0 + r < n && c < dh) {  // columns past dh are zero, not the head's
         *reinterpret_cast<uint4*>(o_base + (long long)(row0 + r) * d_model + c) =
             *reinterpret_cast<const uint4*>(stage + r * kLd + c);
       }
@@ -126,25 +138,26 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
 }
 
 template <int Dh>
-cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads, float scale_log2,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads, int dh,
+                   float scale_log2, cudaStream_t stream) {
   const int bytes = 2 * cvt::flash_smem_elems<Dh, kWarps, kStages>();
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<Dh>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(cvt::flash_chunks(n, kWarps), heads, batch);
   attention_fwd_kernel<Dh><<<grid, 32 * kWarps, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, heads,
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, heads, dh,
       scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv: bf16 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned.
-// out: bf16 (batch, n, heads * head_dim). scale: the softmax temperature
-// (1 / sqrt(head_dim) for standard attention). Returns the launch's
-// cudaError_t.
+// qkv: bf16 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned;
+// head_dim a multiple of 8 up to 128 (cvt::flash_head_dim names the
+// instantiation that runs it). out: bf16 (batch, n, heads * head_dim).
+// scale: the softmax temperature (1 / sqrt(head_dim) for standard
+// attention). Returns the launch's cudaError_t.
 extern "C" int cvt_attention_fwd(const void* qkv, void* out, int batch, int n, int heads,
                                  int head_dim, float scale, void* stream) {
   if (batch < 1 || n < 1 || heads < 1 || batch > 65535 || heads > 65535) {
@@ -152,10 +165,13 @@ extern "C" int cvt_attention_fwd(const void* qkv, void* out, int batch, int n, i
   }
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return (int)launch<16>(qkv, out, batch, n, heads, scale_log2, s);
-    case 32: return (int)launch<32>(qkv, out, batch, n, heads, scale_log2, s);
-    case 64: return (int)launch<64>(qkv, out, batch, n, heads, scale_log2, s);
+  const int dh = head_dim;
+  switch (cvt::flash_head_dim(dh)) {
+    case 16: return (int)launch<16>(qkv, out, batch, n, heads, dh, scale_log2, s);
+    case 32: return (int)launch<32>(qkv, out, batch, n, heads, dh, scale_log2, s);
+    case 64: return (int)launch<64>(qkv, out, batch, n, heads, dh, scale_log2, s);
+    case 80: return (int)launch<80>(qkv, out, batch, n, heads, dh, scale_log2, s);
+    case 128: return (int)launch<128>(qkv, out, batch, n, heads, dh, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -151,7 +151,7 @@ template <int Dh>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                      const __nv_bfloat16* __restrict__ grad,
-                     __nv_bfloat16* __restrict__ dqkv, int n, int heads, float scale,
+                     __nv_bfloat16* __restrict__ dqkv, int n, int heads, int dh, float scale,
                      float scale_log2) {
   static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
   constexpr int kLd = Dh + kPad;
@@ -166,25 +166,26 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   __nv_bfloat16* ps = gs + np * kLd;         // bf16(pn), (np, 32) per step
   __nv_bfloat16* dss = ps + np * kStageLd;   // dS, (np, 32) per step
 
-  const int d_model = heads * Dh;
+  const int d_model = heads * dh;  // dh <= Dh: the columns past dh are zero
   const long long row_stride = 3LL * d_model;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * Dh;
-  const __nv_bfloat16* g_base = grad + (long long)b * n * d_model + h * Dh;
-  __nv_bfloat16* o_base = dqkv + (long long)b * n * row_stride + h * Dh;
+  const __nv_bfloat16* q_base = qkv + (long long)b * n * row_stride + h * dh;
+  const __nv_bfloat16* g_base = grad + (long long)b * n * d_model + h * dh;
+  __nv_bfloat16* o_base = dqkv + (long long)b * n * row_stride + h * dh;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
 
-  // the head's four operands, once; rows at or past n are zero-filled
+  // the head's four operands, once; rows at or past n and columns at or
+  // past dh are zero-filled
   constexpr int kChunks = Dh / 8;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < np * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    const bool ok = r < n;
+    const bool ok = r < n && c < dh;
     const __nv_bfloat16* src = q_base + (long long)(ok ? r : 0) * row_stride + c;
     cp_async16(qs + r * kLd + c, src, ok);
     cp_async16(ks + r * kLd + c, src + d_model, ok);
@@ -362,6 +363,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
           if (key >= n) continue;
 #pragma unroll
           for (int nb = 0; nb < kPartD / 8; ++nb) {
+            if (part * kPartD + nb * 8 >= dh) continue;
             *reinterpret_cast<uint32_t*>(out + (long long)key * row_stride + nb * 8) =
                 pack_bf16x2(acc[nb][2 * i], acc[nb][2 * i + 1]);
           }
@@ -381,6 +383,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
       if (r >= n) continue;
 #pragma unroll
       for (int nb = 0; nb < Dh / 8; ++nb) {
+        if (nb * 8 >= dh) continue;
         *reinterpret_cast<uint32_t*>(o_base + (long long)r * row_stride + nb * 8 + t * 2) =
             pack_bf16x2(dq[j][nb][2 * i], dq[j][nb][2 * i + 1]);
       }
@@ -390,7 +393,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 template <int Dh>
 cudaError_t launch(const void* qkv, const void* grad, void* dqkv, int batch, int n, int heads,
-                   float scale, cudaStream_t stream) {
+                   int dh, float scale, cudaStream_t stream) {
   const int np = (n + 15) / 16 * 16;
   const int bytes = 2 * np * (4 * (Dh + kPad) + 2 * kStageLd);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<Dh>,
@@ -399,7 +402,7 @@ cudaError_t launch(const void* qkv, const void* grad, void* dqkv, int batch, int
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   attention_bwd_kernel<Dh><<<dim3(heads, batch), kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(grad),
-      static_cast<__nv_bfloat16*>(dqkv), n, heads, scale, scale_log2);
+      static_cast<__nv_bfloat16*>(dqkv), n, heads, dh, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -407,7 +410,9 @@ cudaError_t launch(const void* qkv, const void* grad, void* dqkv, int batch, int
 
 // qkv: bf16 (batch, n, 3 * heads * head_dim); grad: bf16 (batch, n, heads *
 // head_dim); dqkv: bf16, the shape of qkv. All contiguous and 16-byte
-// aligned; n at most 288 (a head's operands stay in shared memory). scale:
+// aligned; n at most 288 (a head's operands stay in shared memory), head_dim
+// a multiple of 8 up to 64 (8 runs the 16 instantiation, 24 the 32, 40 to
+// 56 the 64; above 64 the backward takes attention_bwd_cluster.cu). scale:
 // the softmax temperature (1 / sqrt(head_dim)). Returns the launch's
 // cudaError_t.
 extern "C" int cvt_attention_bwd(const void* qkv, const void* grad, void* dqkv,
@@ -417,10 +422,11 @@ extern "C" int cvt_attention_bwd(const void* qkv, const void* grad, void* dqkv,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return (int)launch<16>(qkv, grad, dqkv, batch, n, heads, scale, s);
-    case 32: return (int)launch<32>(qkv, grad, dqkv, batch, n, heads, scale, s);
-    case 64: return (int)launch<64>(qkv, grad, dqkv, batch, n, heads, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+  const int dh = head_dim;
+  if (dh < 8 || dh > 64 || dh % 8) return (int)cudaErrorInvalidValue;
+  switch (dh <= 16 ? 16 : dh <= 32 ? 32 : 64) {
+    case 16: return (int)launch<16>(qkv, grad, dqkv, batch, n, heads, dh, scale, s);
+    case 32: return (int)launch<32>(qkv, grad, dqkv, batch, n, heads, dh, scale, s);
+    default: return (int)launch<64>(qkv, grad, dqkv, batch, n, heads, dh, scale, s);
   }
 }

@@ -126,26 +126,36 @@ __host__ __device__ constexpr int row_ld() {  // bf16 row of K, V, Q and g
 constexpr int kRecvRows = 70;
 
 // A dQ slice's column `col` of slot `slot` lies at col ^ swizzle: the
-// float2 stores of a warp's 8 row groups then fall in distinct banks
+// float2 stores of a warp's 8 row groups then fall in distinct banks. The
+// xor stays below Dh's lowest set bit, so col ^ swizzle < Dh (Dh = 80: 8)
 template <int Dh>
 __host__ __device__ constexpr int recv_swizzle(int slot) {
-  return (slot & (Dh / 8 - 1 < 3 ? Dh / 8 - 1 : 3)) << 3;
+  constexpr int kLow = (Dh & -Dh) / 8 - 1;
+  return (slot & (kLow < 3 ? kLow : 3)) << 3;
 }
 
 // Shared memory of a CTA of `warps` warps: K and V (16 rows a warp), the
 // Q and g tiles (64 rows each), dS^T (key-major), the dQ slices received
 // ([70][Dh] f32), the CTA's row statistics ([64] float4), the warps' [3]
 // [warps][64] and the head's [3][64]. 76,544 bytes at Dh = 64 and 5 warps
-// (three CTAs an SM), 99,584 at 8 warps (two). ops/attention
-// .long_smem_bytes mirrors it.
+// (three CTAs an SM), 99,584 at 8 warps (two); 116,352 at Dh = 80 and
+// 166,656 at Dh = 128 with 8 warps (one). ops/attention.long_smem_bytes
+// mirrors it.
 template <int Dh>
 __host__ __device__ constexpr int smem_bytes(int warps) {
   return 2 * (2 * warps * kWarpKeys * row_ld<Dh>() + 2 * kTileRows * row_ld<Dh>() +
               warps * kWarpKeys * kLdT) +
          4 * (kRecvRows * Dh + 4 * kTileRows + 3 * warps * kTileRows + 3 * kTileRows);
 }
-static_assert(smem_bytes<64>(kMaxWarps) <= cvt_f32::kMaxSmemBytes,
-              "a CTA's shared memory exceeds the block limit");
+static_assert(smem_bytes<128>(kMaxWarps) <= cvt_f32::kMaxSmemBytes,
+              "a CTA's shared memory exceeds the block limit");  // the largest head dim
+
+// CTAs an SM: two up to Dh = 64 (128 registers a thread: dK and dV hold 64),
+// one above (255: dK and dV hold 80 at Dh = 80, 128 at 128)
+template <int Dh>
+constexpr int min_blocks() {
+  return Dh <= 64 ? 2 : 1;
+}
 
 template <int Dh>
 struct Ctx {
@@ -156,6 +166,7 @@ struct Ctx {
   float* parts;        // split: the (image, head)'s dQ partials [G][n][Dh]
   long long stride;    // 3 D
   int d_model;
+  int dh;              // the head's columns (up to Dh; the rest are zero)
   int n;
   int kc;              // this CTA's keys
   int rank;            // in the cluster
@@ -177,15 +188,16 @@ struct Ctx {
 };
 
 // rows [row0, row0 + rows) x Dh of src (row stride `stride`) into dst by
-// cp.async, 16 bytes a thread; rows at or past `limit` become zeros
+// cp.async, 16 bytes a thread; rows at or past `limit` and columns at or
+// past dh become zeros
 template <int Dh>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride, int row0,
-                                           int rows, int limit) {
+                                           int rows, int limit, int dh) {
   constexpr int kChunks = Dh / 8;
   for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    const bool ok = row0 + r < limit;
+    const bool ok = row0 + r < limit && c < dh;
     cvt::flash_cp16(dst + r * row_ld<Dh>() + c,
                     ok ? src + (long long)(row0 + r) * stride + c : src, ok);
   }
@@ -199,8 +211,8 @@ __device__ __forceinline__ void stage_tile(const Ctx<Dh>& c, int t) {
     bf16* st = c.qs;
     const int rows = c.tiles.is_full(t) ? kTileRows : kUnitRows;
     const int row0 = c.tiles.row0(t);
-    stage_rows<Dh>(st, c.base, c.stride, row0, rows, c.n);
-    stage_rows<Dh>(st + kTileRows * row_ld<Dh>(), c.g_base, c.d_model, row0, rows, c.n);
+    stage_rows<Dh>(st, c.base, c.stride, row0, rows, c.n, c.dh);
+    stage_rows<Dh>(st + kTileRows * row_ld<Dh>(), c.g_base, c.d_model, row0, rows, c.n, c.dh);
   }
   cvt::flash_commit();
 }
@@ -391,10 +403,11 @@ __device__ __forceinline__ void reduce_dq(const Ctx<Dh>& c, int u) {
       sum.w += v.w;
     }
     const int r = share.r0 + slot;
+    if (d >= c.dh) continue;
     if constexpr (Mode == kOne) {
       cvt_f32::store4(c.o_base + (long long)(row0 + r) * c.stride + d, sum);
     } else {
-      cvt_f32::store4(c.parts + ((long long)c.cluster * c.n + row0 + r) * Dh + d, sum);
+      cvt_f32::store4(c.parts + ((long long)c.cluster * c.n + row0 + r) * c.dh + d, sum);
     }
   }
 }
@@ -434,7 +447,17 @@ __device__ __forceinline__ void bwd_tile(const Ctx<Dh>& c, int t, float (&dk)[Dh
   __syncthreads();
 
   if constexpr (Mode != kSplit) {
-    if (active && !probe(kProbePass1)) {  // pass 1: S^T and dP^T, 16 rows at a time, for the statistics
+    if (active && !probe(kProbePass1) && Dh > 64) {
+      // pass 1 above Dh = 64: the A fragments read as they are used (held,
+      // they would take Dh / 2 registers beside dK and dV's Dh)
+#pragma unroll
+      for (int kk = 0; kk < Rows / 16; ++kk) {
+        float s[2][4], dp[2][4];
+        block_scores<Dh>(s, kw, qs, kk, lane);
+        block_scores<Dh>(dp, vw, gs, kk, lane);
+        warp_stats<Dh>(c, s, dp, lo_ok, hi_ok, kk, warp, lane);
+      }
+    } else if (active && !probe(kProbePass1)) {  // pass 1: S^T and dP^T, 16 rows at a time, for the statistics
       uint32_t kf[Dh / 16][4], vf[Dh / 16][4];  // the warp's K and V rows, held for the pass
 #pragma unroll
       for (int j = 0; j < Dh / 16; ++j) {
@@ -576,24 +599,25 @@ __device__ __forceinline__ void bwd_tile(const Ctx<Dh>& c, int t, float (&dk)[Dh
 }
 
 template <int Dh, int Mode>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+__global__ void __launch_bounds__(kMaxThreads, min_blocks<Dh>())
 attention_bwd_cluster_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
                              bf16* __restrict__ dqkv, float* __restrict__ stats,
-                             float* __restrict__ parts, int n, int heads, int clusters,
+                             float* __restrict__ parts, int n, int heads, int dh, int clusters,
                              float scale, float scale_log2) {
-  static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
+  static_assert(cvt::flash_head_dim(Dh) == Dh, "Dh must be an instantiated head dim");
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int kLd = row_ld<Dh>();
   Ctx<Dh> c{};
-  c.d_model = heads * Dh;
+  c.dh = dh;
+  c.d_model = heads * dh;
   c.stride = 3LL * c.d_model;
   const long long head = (long long)blockIdx.z * heads + blockIdx.y;
-  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
-  c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
-  c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * dh;
+  c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * dh;
+  c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * dh;
   c.clusters = clusters;
   c.stats = Mode == kOne ? nullptr : stats + head * clusters * 3 * n;
-  c.parts = Mode == kSplit ? parts + head * clusters * n * Dh : nullptr;
+  c.parts = Mode == kSplit ? parts + head * clusters * n * dh : nullptr;
   c.n = n;
   c.ctas = gridDim.x / clusters;
   c.rank = blockIdx.x % c.ctas;
@@ -616,8 +640,8 @@ attention_bwd_cluster_kernel(const bf16* __restrict__ qkv, const bf16* __restric
 
   // K and V once, with tile 0 in the first group
   const int kc_pad = (c.kc + kWarpKeys - 1) / kWarpKeys * kWarpKeys;
-  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
-  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
+  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, key0, kc_pad, key0 + c.kc, dh);
+  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, key0, kc_pad, key0 + c.kc, dh);
   stage_tile(c, 0);
 
   float dk[Dh / 8][4], dv[Dh / 8][4];
@@ -644,6 +668,7 @@ attention_bwd_cluster_kernel(const bf16* __restrict__ qkv, const bf16* __restric
       bf16* row = c.o_base + (long long)(key0 + key) * c.stride + 2 * (lane % 4);
 #pragma unroll
       for (int nb = 0; nb < Dh / 8; ++nb) {
+        if (nb * 8 >= dh) continue;
         *reinterpret_cast<uint32_t*>(row + c.d_model + nb * 8) =
             cvt::flash_pack(dk[nb][2 * i], dk[nb][2 * i + 1]);
         *reinterpret_cast<uint32_t*>(row + 2 * c.d_model + nb * 8) =
@@ -660,7 +685,7 @@ struct Args {
   void* dqkv;
   void* stats;
   void* parts;
-  int batch, n, heads, clusters, ctas, warps;
+  int batch, n, heads, dh, clusters, ctas, warps;
   float scale;
   cudaStream_t stream;
 };
@@ -678,7 +703,7 @@ cudaError_t launch_mode(const Args& a) {
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const bf16*>(a.qkv),
                            static_cast<const bf16*>(a.grad), static_cast<bf16*>(a.dqkv),
                            static_cast<float*>(a.stats), static_cast<float*>(a.parts), a.n,
-                           a.heads, a.clusters, a.scale, a.scale * 1.4426950408889634f);
+                           a.heads, a.dh, a.clusters, a.scale, a.scale * 1.4426950408889634f);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -690,14 +715,15 @@ cudaError_t launch(const Args& a) {
   err = launch_mode<Dh, kSplit>(a);
   if (err != cudaSuccess) return err;
   return cvt_f32::launch_dq_sum(static_cast<const float*>(a.parts), static_cast<bf16*>(a.dqkv),
-                                a.batch, a.n, a.heads, Dh, a.clusters, a.stream);
+                                a.batch, a.n, a.heads, a.dh, a.clusters, a.stream);
 }
 
 }  // namespace
 
 // qkv: bf16 (batch, n, 3 * heads * head_dim); grad: bf16 (batch, n, heads *
 // head_dim); dqkv: bf16, the shape of qkv; all contiguous and 16-byte
-// aligned. The plan (ops/attention.long_plan): `clusters` clusters of `ctas`
+// aligned; head_dim a multiple of 8 up to 128, run by the instantiation
+// cvt::flash_head_dim names. The plan (ops/attention.long_plan): `clusters` clusters of `ctas`
 // CTAs (at most 8) of `warps` warps (at most 9) per (image, head), the
 // head's 16-key steps shared out evenly over the clusters * ctas CTAs, none
 // holding more than 16 * warps keys or none; a plan that does not fit
@@ -718,12 +744,14 @@ extern "C" int cvt_attention_bwd_long(const void* qkv, const void* grad, void* d
   const int steps = (n + kWarpKeys - 1) / kWarpKeys;
   const long long total = (long long)clusters * ctas;
   if (total > steps || (steps + total - 1) / total > warps) return (int)cudaErrorInvalidValue;
-  const Args a{qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters, ctas, warps, scale,
-               static_cast<cudaStream_t>(stream)};
-  switch (head_dim) {
+  const Args a{qkv,     grad,  dqkv,  stats, dq_parts, batch, n, heads, head_dim, clusters, ctas,
+               warps,   scale, static_cast<cudaStream_t>(stream)};
+  switch (cvt::flash_head_dim(head_dim)) {
     case 16: return (int)launch<16>(a);
     case 32: return (int)launch<32>(a);
     case 64: return (int)launch<64>(a);
+    case 80: return (int)launch<80>(a);
+    case 128: return (int)launch<128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -88,6 +88,7 @@ struct Bwd {
   float* parts;         // split: the (image, head)'s dQ partials [G][n][Dh]
   long long stride;     // 3 D
   int d_model;
+  int dh;               // the head's columns (up to Dh; the rest are zero)
   int n;
   int kc;               // this CTA's keys
   int rank;             // in the cluster
@@ -111,8 +112,9 @@ __device__ __forceinline__ void bwd_stage(const Bwd<Dh>& c, int t) {
   if (t < c.tiles.count) {
     float* qs = c.stages;
     const int rows = c.tiles.is_full(t) ? kTileRows : kUnitRows;
-    stage_rows<Dh>(qs, c.base, c.stride, c.tiles.row0(t), rows, c.n);
-    stage_rows<Dh>(qs + kTileRows * row_ld<Dh>(), c.g_base, c.d_model, c.tiles.row0(t), rows, c.n);
+    stage_rows<Dh>(qs, c.base, c.stride, c.tiles.row0(t), rows, c.n, c.dh);
+    stage_rows<Dh>(qs + kTileRows * row_ld<Dh>(), c.g_base, c.d_model, c.tiles.row0(t), rows, c.n,
+                   c.dh);
   }
   cvt::flash_commit();
 }
@@ -335,20 +337,26 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
   bwd_stage(c, t + 1);  // the Q and g tiles are read no more
 
   // this CTA's partial dQ = dS K, in splits of its keys, over pn^T's place
-  const SplitMap<Dh, kRows> sm;
-  float acc[8][4];
+  using SM = SplitMap<Dh, kRows>;
+  const SM sm;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int it = 0; it < SM::kItems; ++it) {
+    if (!sm.has(it)) continue;
+    float acc[8][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-  if (!probe(kNoProducts3)) {
-    rows_by_d<Dh>(acc, c.dst, c.ks, sm.begin(c.kc), sm.end(c.kc), sm.qg, sm.dc);
-  }
-  float* part = c.pt + sm.offset();
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<float4*>(part + i * Dh) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    }
+    if (!probe(kNoProducts3)) {
+      rows_by_d<Dh>(acc, c.dst, c.ks, sm.begin(c.kc), sm.end(c.kc), sm.qg(it), sm.dc(it));
+    }
+    float* part = c.pt + sm.offset(it);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<float4*>(part + i * Dh) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
   }
   if (probe(kNoExchange)) {
     __syncthreads();
@@ -364,6 +372,7 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
   for (int e = threadIdx.x; e < share.rows * (Dh / 4); e += kThreads) {
     const int r = share.r0 + e / (Dh / 4);
     const int d = e % (Dh / 4) * 4;
+    if (d >= c.dh) continue;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < kCtasMax; ++k) {
@@ -373,7 +382,7 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
     }
     if constexpr (Mode == kBwdSplit) {
       *reinterpret_cast<float4*>(
-          c.parts + ((long long)c.cluster * c.n + share.row0 + r) * Dh + d) = sum;
+          c.parts + ((long long)c.cluster * c.n + share.row0 + r) * c.dh + d) = sum;
     } else {
       *reinterpret_cast<float4*>(c.o_base + (long long)(share.row0 + r) * c.stride + d) = sum;
     }
@@ -383,25 +392,39 @@ __device__ __forceinline__ void bwd_tile(const Bwd<Dh>& c, int t,
   }
 }
 
+// CTAs an SM the kernels ask registers for: up to Dh = 64 the backward two
+// (111 KB each) and the forward three (75.5 KB); above, their shared memory
+// leaves one or two, and either gets 255 registers a thread
+template <int Dh>
+constexpr int bwd_min_blocks() {
+  return Dh <= 64 ? 2 : 1;
+}
+
+template <int Dh>
+constexpr int fwd_min_blocks() {
+  return Dh <= 64 ? 3 : 2;
+}
+
 template <int Dh, int Mode>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<Dh>())
 attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ grad,
                          float* __restrict__ dqkv, float* __restrict__ stats,
-                         float* __restrict__ parts, int n, int heads, int clusters,
+                         float* __restrict__ parts, int n, int heads, int dh, int clusters,
                          float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = row_ld<Dh>();
   using M = KeyMap<Dh>;
   Bwd<Dh> c{};
-  c.d_model = heads * Dh;
+  c.dh = dh;
+  c.d_model = heads * dh;
   c.stride = 3LL * c.d_model;
   const long long head = (long long)blockIdx.z * heads + blockIdx.y;
-  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
-  c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
-  c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
+  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * dh;
+  c.g_base = grad + (long long)blockIdx.z * n * c.d_model + blockIdx.y * dh;
+  c.o_base = dqkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * dh;
   c.clusters = clusters;
   c.stats = Mode >= kBwdStats ? stats + head * clusters * 3 * n : nullptr;
-  c.parts = Mode == kBwdSplit ? parts + head * clusters * n * Dh : nullptr;
+  c.parts = Mode == kBwdSplit ? parts + head * clusters * n * dh : nullptr;
   c.n = n;
   c.ctas = gridDim.x / clusters;
   c.rank = blockIdx.x % c.ctas;
@@ -413,7 +436,7 @@ attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict_
   c.vs = c.ks + kCtaKeys * kLd;
   c.stages = c.vs + kCtaKeys * kLd;
   c.pt = c.stages + 2 * kTileRows * kLd;
-  c.dst = c.pt + kCtaKeys * kLdT;
+  c.dst = c.pt + pt_floats<Dh>();
   c.wst = c.dst + kCtaKeys * kLdT;
   c.cst = c.wst + 3 * kWarps * kTileRows;
   c.fin = c.cst + 3 * kTileRows;
@@ -421,8 +444,8 @@ attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict_
 
   // K and V once, in the first tile's group
   const int kc_pad = (c.kc + kWarpKeys - 1) / kWarpKeys * kWarpKeys;
-  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
-  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, key0, kc_pad, key0 + c.kc);
+  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, key0, kc_pad, key0 + c.kc, dh);
+  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, key0, kc_pad, key0 + c.kc, dh);
   bwd_stage(c, 0);
 
   float dk[M::kKeys][M::kCh][4], dv[M::kKeys][M::kCh][4];
@@ -457,6 +480,7 @@ attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict_
 #pragma unroll
     for (int ch = 0; ch < M::kCh; ++ch) {
       const int d = (dg + M::kDG * ch) * 4;
+      if (d >= dh) continue;
       *reinterpret_cast<float4*>(row + c.d_model + d) =
           make_float4(dk[j][ch][0], dk[j][ch][1], dk[j][ch][2], dk[j][ch][3]);
       *reinterpret_cast<float4*>(row + 2 * c.d_model + d) =
@@ -473,6 +497,7 @@ struct Fwd {
   float* o_base;      // the head's columns of out
   long long stride;
   int d_model;
+  int dh;             // the head's columns (up to Dh; the rest are zero)
   int n;
   int key0;           // this CTA's first key
   int kc;             // its keys (above kCtaKeys: walked in windows)
@@ -495,7 +520,7 @@ template <int Dh>
 __device__ __forceinline__ void fwd_stage(const Fwd<Dh>& c, int t) {
   if (t < c.tiles.count) {
     stage_rows<Dh>(c.stages, c.base, c.stride,
-                   c.tiles.row0(t), c.tiles.is_full(t) ? kTileRows : kUnitRows, c.n);
+                   c.tiles.row0(t), c.tiles.is_full(t) ? kTileRows : kUnitRows, c.n, c.dh);
   }
   cvt::flash_commit();
 }
@@ -505,8 +530,8 @@ __device__ __forceinline__ void fwd_stage_kv(const Fwd<Dh>& c, int w0) {
   const int kw = min(kCtaKeys, c.kc - w0);
   const int rows = (kw + kWarpKeys - 1) / kWarpKeys * kWarpKeys;
   const int first = c.key0 + w0;
-  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, first, rows, first + kw);
-  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, first, rows, first + kw);
+  stage_rows<Dh>(c.ks, c.base + c.d_model, c.stride, first, rows, first + kw, c.dh);
+  stage_rows<Dh>(c.vs, c.base + 2 * c.d_model, c.stride, first, rows, first + kw, c.dh);
 }
 
 // the new running max of a row: the old one and every warp's of this window
@@ -528,22 +553,27 @@ __device__ __forceinline__ void fwd_tile(const Fwd<Dh>& c, int t) {
   const int qg = lane / 4;
   const int kg = lane % 4;
   const float* qs = c.stages;
-  const SplitMap<Dh, kRows> sm;
+  using SM = SplitMap<Dh, kRows>;
+  const SM sm;
   const bool windowed = c.kc > kCtaKeys;
 
   cvt::flash_wait<0>();
   __syncthreads();
   // running row maxima, as three roles see them (the same values): this
-  // lane's rows of S, this thread's 8 rows of O, and row threadIdx.x's sum
-  float m_s[Rpl], m_o[8], m_row = -INFINITY, l_row = 0.f;
-  float acc[8][4];
+  // lane's rows of S, the 8 rows of each of this thread's cells of O, and
+  // row threadIdx.x's sum
+  float m_s[Rpl], m_o[SM::kItems][8], m_row = -INFINITY, l_row = 0.f;
+  float acc[SM::kItems][8][4];
 #pragma unroll
   for (int i = 0; i < Rpl; ++i) m_s[i] = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m_o[i] = -INFINITY;
+  for (int it = 0; it < SM::kItems; ++it) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int i = 0; i < 8; ++i) {
+      m_o[it][i] = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[it][i][e] = 0.f;
+    }
   }
   for (int w0 = 0; w0 < c.kc; w0 += kCtaKeys) {
     const int kw = min(kCtaKeys, c.kc - w0);
@@ -603,15 +633,19 @@ __device__ __forceinline__ void fwd_tile(const Fwd<Dh>& c, int t) {
     // O += P V over this thread's split of the window's keys, rescaled to
     // the new row max (by 0 on the first window)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float m_new = window_max(c.wmx, 8 * sm.qg + i, m_o[i]);
-      const float alpha = expf(m_o[i] - m_new);
-      m_o[i] = m_new;
+    for (int it = 0; it < SM::kItems; ++it) {
+      if (!sm.has(it)) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
-    }
-    if (!probe(kNoProducts2)) {
-      rows_by_d<Dh>(acc, c.pt, c.vs, sm.begin(kw), sm.end(kw), sm.qg, sm.dc);
+      for (int i = 0; i < 8; ++i) {
+        const float m_new = window_max(c.wmx, 8 * sm.qg(it) + i, m_o[it][i]);
+        const float alpha = expf(m_o[it][i] - m_new);
+        m_o[it][i] = m_new;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[it][i][e] *= alpha;
+      }
+      if (!probe(kNoProducts2)) {
+        rows_by_d<Dh>(acc[it], c.pt, c.vs, sm.begin(kw), sm.end(kw), sm.qg(it), sm.dc(it));
+      }
     }
     if (threadIdx.x < kRows) {
       const int r = threadIdx.x;
@@ -624,10 +658,15 @@ __device__ __forceinline__ void fwd_tile(const Fwd<Dh>& c, int t) {
   }
   fwd_stage(c, t + 1);  // the Q tile is read no more
   __syncthreads();      // nor P^T: the partials go in its place
-  float* part = c.pt + sm.offset();
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<float4*>(part + i * Dh) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int it = 0; it < SM::kItems; ++it) {
+    if (!sm.has(it)) continue;
+    float* part = c.pt + sm.offset(it);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<float4*>(part + i * Dh) =
+          make_float4(acc[it][i][0], acc[it][i][1], acc[it][i][2], acc[it][i][3]);
+    }
   }
   if (threadIdx.x < kRows) {
     c.cst[threadIdx.x] = m_row;
@@ -683,6 +722,7 @@ __device__ void fwd_reduce(const Fwd<Dh>& c, int t) {
   for (int e = threadIdx.x; e < share.rows * (Dh / 4); e += kThreads) {
     const int r = share.r0 + e / (Dh / 4);
     const int d = e % (Dh / 4) * 4;
+    if (d >= c.dh) continue;
     const float* f = fac + (e / (Dh / 4)) * (kMaxCtas + 1);
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -703,16 +743,17 @@ __device__ void fwd_reduce(const Fwd<Dh>& c, int t) {
 }
 
 template <int Dh>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<Dh>())
 attention_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n,
-                         int heads, float q_scale, float s_scale) {
+                         int heads, int dh, float q_scale, float s_scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = row_ld<Dh>();
   Fwd<Dh> c{};
-  c.d_model = heads * Dh;
+  c.dh = dh;
+  c.d_model = heads * dh;
   c.stride = 3LL * c.d_model;
-  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * Dh;
-  c.o_base = out + (long long)blockIdx.z * n * c.d_model + blockIdx.y * Dh;
+  c.base = qkv + (long long)blockIdx.z * n * c.stride + blockIdx.y * dh;
+  c.o_base = out + (long long)blockIdx.z * n * c.d_model + blockIdx.y * dh;
   c.n = n;
   c.rank = blockIdx.x;
   c.ctas = gridDim.x;
@@ -723,7 +764,7 @@ attention_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
   c.vs = c.ks + kCtaKeys * kLd;
   c.stages = c.vs + kCtaKeys * kLd;
   c.pt = c.stages + kTileRows * kLd;
-  c.wmx = c.pt + kCtaKeys * kLdT;
+  c.wmx = c.pt + pt_floats<Dh>();
   c.wsm = c.wmx + kWarps * kTileRows;
   c.cst = c.wsm + kWarps * kTileRows;
   c.fac = c.cst + 2 * kTileRows;
@@ -744,7 +785,7 @@ attention_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 // ------------------------------------------------------------------ launches
 
 template <int Dh>
-cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, int ctas,
+cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, int dh, int ctas,
                        float q_scale, float s_scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
@@ -752,12 +793,12 @@ cudaError_t launch_fwd(const void* qkv, void* out, int batch, int n, int heads, 
                                    kThreads, ctas, fwd_smem_bytes<Dh>(), stream, config, attr);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&config, attention_fwd_f32_kernel<Dh>, static_cast<const float*>(qkv),
-                            static_cast<float*>(out), n, heads, q_scale, s_scale);
+                            static_cast<float*>(out), n, heads, dh, q_scale, s_scale);
 }
 
 template <int Dh>
 cudaError_t launch_bwd(const void* qkv, const void* grad, void* dqkv, int batch, int n, int heads,
-                       int ctas, float scale, cudaStream_t stream) {
+                       int dh, int ctas, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   const auto kernel = attention_bwd_f32_kernel<Dh, kBwdShort>;
@@ -767,15 +808,15 @@ cudaError_t launch_bwd(const void* qkv, const void* grad, void* dqkv, int batch,
   return cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(qkv),
                             static_cast<const float*>(grad), static_cast<float*>(dqkv),
                             static_cast<float*>(nullptr), static_cast<float*>(nullptr), n, heads,
-                            1, scale);
+                            dh, 1, scale);
 }
 
 // One pass of the long route: `clusters` clusters of `ctas` CTAs per
 // (image, head) on grid (clusters * ctas, heads, batch).
 template <int Dh, int Mode>
 cudaError_t launch_bwd_pass(const void* qkv, const void* grad, void* dqkv, void* stats,
-                            void* parts, int batch, int n, int heads, int clusters, int ctas,
-                            float scale, cudaStream_t stream) {
+                            void* parts, int batch, int n, int heads, int dh, int clusters,
+                            int ctas, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   const auto kernel = attention_bwd_f32_kernel<Dh, Mode>;
@@ -786,26 +827,26 @@ cudaError_t launch_bwd_pass(const void* qkv, const void* grad, void* dqkv, void*
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(qkv),
                            static_cast<const float*>(grad), static_cast<float*>(dqkv),
                            static_cast<float*>(stats), static_cast<float*>(parts), n, heads,
-                           clusters, scale);
+                           dh, clusters, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int Dh>
 cudaError_t launch_bwd_long(const void* qkv, const void* grad, void* dqkv, void* stats,
-                            void* parts, int batch, int n, int heads, int clusters, int ctas,
-                            float scale, cudaStream_t stream) {
+                            void* parts, int batch, int n, int heads, int dh, int clusters,
+                            int ctas, float scale, cudaStream_t stream) {
   if (clusters == 1) {
-    return launch_bwd_pass<Dh, kBwdLong>(qkv, grad, dqkv, nullptr, nullptr, batch, n, heads, 1,
-                                         ctas, scale, stream);
+    return launch_bwd_pass<Dh, kBwdLong>(qkv, grad, dqkv, nullptr, nullptr, batch, n, heads, dh,
+                                         1, ctas, scale, stream);
   }
   cudaError_t err = launch_bwd_pass<Dh, kBwdStats>(qkv, grad, dqkv, stats, parts, batch, n, heads,
-                                                   clusters, ctas, scale, stream);
+                                                   dh, clusters, ctas, scale, stream);
   if (err != cudaSuccess) return err;
-  err = launch_bwd_pass<Dh, kBwdSplit>(qkv, grad, dqkv, stats, parts, batch, n, heads, clusters,
-                                       ctas, scale, stream);
+  err = launch_bwd_pass<Dh, kBwdSplit>(qkv, grad, dqkv, stats, parts, batch, n, heads, dh,
+                                       clusters, ctas, scale, stream);
   if (err != cudaSuccess) return err;
   return launch_dq_sum(static_cast<const float*>(parts), static_cast<float*>(dqkv), batch, n,
-                       heads, Dh, clusters, stream);
+                       heads, dh, clusters, stream);
 }
 
 bool bad_shape(int batch, int n, int heads) {
@@ -814,7 +855,9 @@ bool bad_shape(int batch, int n, int heads) {
 
 }  // namespace
 
-// qkv: f32 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned.
+// qkv: f32 (batch, n, 3 * heads * head_dim), contiguous, 16-byte aligned;
+// head_dim a multiple of 8 up to 128, run by the instantiation
+// cvt::flash_head_dim names (its extra columns zero, never stored).
 // out: f32 (batch, n, heads * head_dim). ctas: the CTAs of an (image,
 // head)'s cluster (ops/attention.f32_plan; at most 8, each holding at least
 // one 16-key step; another count returns cudaErrorInvalidValue). q_scale
@@ -828,10 +871,14 @@ extern "C" int cvt_attention_fwd_f32(const void* qkv, void* out, int batch, int 
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return (int)launch_fwd<16>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
-    case 32: return (int)launch_fwd<32>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
-    case 64: return (int)launch_fwd<64>(qkv, out, batch, n, heads, ctas, q_scale, s_scale, s);
+  const int dh = head_dim;
+  switch (cvt::flash_head_dim(dh)) {
+    case 16: return (int)launch_fwd<16>(qkv, out, batch, n, heads, dh, ctas, q_scale, s_scale, s);
+    case 32: return (int)launch_fwd<32>(qkv, out, batch, n, heads, dh, ctas, q_scale, s_scale, s);
+    case 64: return (int)launch_fwd<64>(qkv, out, batch, n, heads, dh, ctas, q_scale, s_scale, s);
+    case 80: return (int)launch_fwd<80>(qkv, out, batch, n, heads, dh, ctas, q_scale, s_scale, s);
+    case 128:
+      return (int)launch_fwd<128>(qkv, out, batch, n, heads, dh, ctas, q_scale, s_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -847,10 +894,13 @@ extern "C" int cvt_attention_bwd_f32(const void* qkv, const void* grad, void* dq
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return (int)launch_bwd<16>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
-    case 32: return (int)launch_bwd<32>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
-    case 64: return (int)launch_bwd<64>(qkv, grad, dqkv, batch, n, heads, ctas, scale, s);
+  const int dh = head_dim;
+  switch (cvt::flash_head_dim(dh)) {
+    case 16: return (int)launch_bwd<16>(qkv, grad, dqkv, batch, n, heads, dh, ctas, scale, s);
+    case 32: return (int)launch_bwd<32>(qkv, grad, dqkv, batch, n, heads, dh, ctas, scale, s);
+    case 64: return (int)launch_bwd<64>(qkv, grad, dqkv, batch, n, heads, dh, ctas, scale, s);
+    case 80: return (int)launch_bwd<80>(qkv, grad, dqkv, batch, n, heads, dh, ctas, scale, s);
+    case 128: return (int)launch_bwd<128>(qkv, grad, dqkv, batch, n, heads, dh, ctas, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -877,16 +927,23 @@ extern "C" int cvt_attention_bwd_f32_long(const void* qkv, const void* grad, voi
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
+  const int dh = head_dim;
+  switch (cvt::flash_head_dim(dh)) {
     case 16:
-      return (int)launch_bwd_long<16>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
-                                      ctas, scale, s);
+      return (int)launch_bwd_long<16>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, dh,
+                                      clusters, ctas, scale, s);
     case 32:
-      return (int)launch_bwd_long<32>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
-                                      ctas, scale, s);
+      return (int)launch_bwd_long<32>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, dh,
+                                      clusters, ctas, scale, s);
     case 64:
-      return (int)launch_bwd_long<64>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, clusters,
-                                      ctas, scale, s);
+      return (int)launch_bwd_long<64>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, dh,
+                                      clusters, ctas, scale, s);
+    case 80:
+      return (int)launch_bwd_long<80>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, dh,
+                                      clusters, ctas, scale, s);
+    case 128:
+      return (int)launch_bwd_long<128>(qkv, grad, dqkv, stats, dq_parts, batch, n, heads, dh,
+                                       clusters, ctas, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -65,28 +65,38 @@ __host__ __device__ constexpr int row_ld() {
   return Dh + 4;
 }
 
+// Floats of the key-major P^T / pn^T tile, whose place the products over the
+// keys reuse for their partials: kCtaKeys x kLdT, or a 64-row tile's
+// partials (one split, 64 x Dh) where that is more (Dh > 72).
+template <int Dh>
+__host__ __device__ constexpr int pt_floats() {
+  return kCtaKeys * kLdT > kTileRows * Dh ? kCtaKeys * kLdT : kTileRows * Dh;
+}
+
 // Shared memory of the backward: K, V (kCtaKeys rows each), the Q and g
 // tiles (one stage: the next tile's copies start when this one's last
-// product over the rows is done), pn^T and dS^T (kCtaKeys x kLdT each; the
-// dQ partials reuse pn^T's), per-warp row statistics (3 x kWarps x 64), the
-// CTA's (3 x 64) and the head's (3 x 64). 111 KB at Dh = 64: two CTAs an SM.
+// product over the rows is done), pn^T (the dQ partials reuse its place)
+// and dS^T, per-warp row statistics (3 x kWarps x 64), the CTA's (3 x 64)
+// and the head's (3 x 64). 111 KB at Dh = 64: two CTAs an SM; 129,536
+// bytes at Dh = 80 and 190,976 at 128: one.
 template <int Dh>
 __host__ __device__ constexpr int bwd_smem_bytes() {
-  return 4 * (2 * kCtaKeys * row_ld<Dh>() + 2 * kTileRows * row_ld<Dh>() +
-              2 * kCtaKeys * kLdT + 3 * kWarps * kTileRows + 6 * kTileRows);
+  return 4 * (2 * kCtaKeys * row_ld<Dh>() + 2 * kTileRows * row_ld<Dh>() + pt_floats<Dh>() +
+              kCtaKeys * kLdT + 3 * kWarps * kTileRows + 6 * kTileRows);
 }
 
 // Shared memory of the forward: K, V, the Q tile, P^T (the O partials
-// reuse it), per-warp row maxima and sums, the CTA's (max, sum) per row, and
-// the reduction's per-row factors. 75.5 KB at Dh = 64: three CTAs an SM.
+// reuse its place), per-warp row maxima and sums, the CTA's (max, sum) per
+// row, and the reduction's per-row factors. 75.5 KB at Dh = 64: three CTAs
+// an SM; 89,856 bytes at Dh = 80 (two) and 139,008 at 128 (one).
 template <int Dh>
 __host__ __device__ constexpr int fwd_smem_bytes() {
-  return 4 * (2 * kCtaKeys * row_ld<Dh>() + kTileRows * row_ld<Dh>() + kCtaKeys * kLdT +
+  return 4 * (2 * kCtaKeys * row_ld<Dh>() + kTileRows * row_ld<Dh>() + pt_floats<Dh>() +
               2 * kWarps * kTileRows + 2 * kTileRows + kTileRows * (kMaxCtas + 1));
 }
 
 constexpr int kMaxSmemBytes = 232448;  // the dynamic shared memory a block may have
-static_assert(bwd_smem_bytes<64>() <= kMaxSmemBytes && fwd_smem_bytes<64>() <= kMaxSmemBytes,
+static_assert(bwd_smem_bytes<128>() <= kMaxSmemBytes && fwd_smem_bytes<128>() <= kMaxSmemBytes,
               "a CTA's shared memory exceeds the block limit");  // the largest head dim
 
 // Timing-only builds (experiments/kernel_ab.py --sections f32probes) define
@@ -112,15 +122,16 @@ struct Tiles {
 };
 
 // rows [row0, row0 + rows) x Dh of src (row stride `stride` floats) into dst
-// (rows of row_ld<Dh>), by cp.async; rows at or past `limit` become zeros
+// (rows of row_ld<Dh>), by cp.async; rows at or past `limit` and columns at
+// or past dh (a head dim run on the next larger instantiation) become zeros
 template <int Dh>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, long long stride,
-                                           int row0, int rows, int limit) {
+                                           int row0, int rows, int limit, int dh) {
   constexpr int kChunks = Dh / 4;
   for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 4;
-    const bool ok = row0 + r < limit;
+    const bool ok = row0 + r < limit && c < dh;
     cvt::flash_cp16(dst + r * row_ld<Dh>() + c,
                     ok ? src + (long long)(row0 + r) * stride + c : src, ok);
   }
@@ -160,9 +171,12 @@ __device__ __forceinline__ void rows_by_keys(float (&acc)[Rpl][4], const float* 
 
 // Lanes over a warp's 16 keys by the head dim: lane = kKG-group kg times
 // kDG + dg; keys kg + kKG j (j < kKeys), 16-byte columns dg + kDG c (c < kCh).
+// kDG: the 16-byte columns' largest power of two up to 8 that divides
+// them (Dh = 80: 4 groups of 5 columns, 8 groups of 2 keys).
 template <int Dh>
 struct KeyMap {
-  static constexpr int kDG = Dh / 4 < 8 ? Dh / 4 : 8;
+  static constexpr int kLow = (Dh / 4) & -(Dh / 4);
+  static constexpr int kDG = kLow < 8 ? kLow : 8;
   static constexpr int kKG = 32 / kDG;
   static constexpr int kKeys = kWarpKeys / kKG;
   static constexpr int kCh = Dh / 4 / kDG;
@@ -226,24 +240,36 @@ __device__ __forceinline__ void rows_by_d(float (&acc)[8][4], const float* at, c
   }
 }
 
-// The thread's place in a product over the keys for a tile of Rows rows:
-// split, 8-row group, 16-byte column; kSplits splits of the CTA's keys.
+// The thread's places in a product over the keys for a tile of Rows rows:
+// cells of 8 rows by a 16-byte column, kGroups of them. Fewer cells than
+// threads: kSplits splits of the CTA's keys, a thread one cell of one split
+// (threads past kSplits * kGroups idle: Dh = 80 on a 16-row tile). More
+// (Dh > 64 on a 64-row tile): one split, a thread kItems cells, item i the
+// cell threadIdx.x + i kThreads where it exists.
 template <int Dh, int Rows>
 struct SplitMap {
   static constexpr int kGroups = Rows / 8 * Dh / 4;
-  static constexpr int kSplits = kThreads / kGroups;
-  int split, qg, dc;
+  static constexpr int kSplits = kGroups < kThreads ? kThreads / kGroups : 1;
+  static constexpr int kItems = (kGroups + kThreads - 1) / kThreads;
+  int split, cell;
   __device__ SplitMap()
-      : split(threadIdx.x / kGroups),
-        qg(threadIdx.x / (Dh / 4) % (Rows / 8)),
-        dc(threadIdx.x % (Dh / 4)) {}
+      : split(kSplits > 1 ? threadIdx.x / kGroups : 0),
+        cell(kSplits > 1 ? threadIdx.x % kGroups : threadIdx.x) {}
+  // whether item i is a cell of this thread's (always, where the cells
+  // divide the threads)
+  __device__ bool has(int i) const {
+    if (kThreads % kGroups == 0 || kGroups % kThreads == 0) return true;
+    return split < kSplits && cell + i * kThreads < kGroups;
+  }
+  __device__ int qg(int i) const { return (cell + i * kThreads) / (Dh / 4); }
+  __device__ int dc(int i) const { return (cell + i * kThreads) % (Dh / 4); }
   // this split's keys of `keys`, cut evenly
   __device__ int begin(int keys) const { return min(keys, split * ((keys + kSplits - 1) / kSplits)); }
   __device__ int end(int keys) const {
     return min(keys, (split + 1) * ((keys + kSplits - 1) / kSplits));
   }
-  // where this thread's 8 rows go in a set of partials laid out (split, row, Dh)
-  __device__ int offset() const { return (split * Rows + 8 * qg) * Dh + 4 * dc; }
+  // where item i's 8 rows go in a set of partials laid out (split, row, Dh)
+  __device__ int offset(int i) const { return (split * Rows + 8 * qg(i)) * Dh + 4 * dc(i); }
 };
 
 __device__ __forceinline__ float warp_max4(float x) {  // over the 4 lanes of a kg group

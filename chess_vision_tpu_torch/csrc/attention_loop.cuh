@@ -59,6 +59,21 @@ namespace cvt {
 constexpr int kFlashKTile = 64;  // keys per step (the online max's rescaling step)
 constexpr int kFlashPad = 8;     // bf16 padding per shared-memory row
 
+// The instantiation of the attention kernels (K2, K3, bf16 and f32) that
+// runs head dim dh: the smallest of 16, 32, 64, 80 and 128 that holds it,
+// for dh a multiple of 8 up to 128 (0 for another dh). A head dim between
+// two runs the larger one with its extra columns zero in shared memory: a
+// zero column adds an exact zero to every dot product, and is never stored.
+// The quantizing kernels (K4/K5, K14, K15) take 16, 32 and 64 alone.
+__host__ __device__ constexpr int flash_head_dim(int dh) {
+  return dh < 8 || dh > 128 || dh % 8 ? 0
+         : dh <= 16                   ? 16
+         : dh <= 32                   ? 32
+         : dh <= 64                   ? 64
+         : dh <= 80                   ? 80
+                                      : 128;
+}
+
 // What flash_sub_scores does to a score before the mask: nothing (K2, which
 // scales inside its exp2; K15's variants that fold the scale into q),
 // fl(s * scale) (K4, K15's base), or a rounding to bf16 (K15's bf16s).
@@ -135,34 +150,37 @@ __host__ __device__ __forceinline__ int flash_chunk_blocks(int n, int chunks) {
 }
 
 // Keys k0 .. k0 + 63 of one head into ring stage `st`; keys >= n_keys are
-// zero. kV: V too (a walk that takes scores alone copies K only).
+// zero, and so are the columns at or past the head's dh (a head dim that
+// runs on the next larger instantiation Dh). kV: V too (a walk that takes
+// scores alone copies K only).
 template <int Dh, int W, bool kV = true>
 __device__ __forceinline__ void flash_copy_kv(__nv_bfloat16* st, const __nv_bfloat16* q_base,
                                               long long row_stride, int d_model, int k0,
-                                              int n_keys, int tid) {
+                                              int n_keys, int tid, int dh = Dh) {
   constexpr int kLd = Dh + kFlashPad;
   constexpr int kChunks = Dh / 8;
   for (int idx = tid; idx < kFlashKTile * kChunks; idx += 32 * W) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    const bool ok = k0 + r < n_keys;
+    const bool ok = k0 + r < n_keys && c < dh;
     const __nv_bfloat16* src = q_base + (long long)(ok ? k0 + r : 0) * row_stride + c;
     flash_cp16(st + r * kLd + c, src + d_model, ok);
     if (kV) flash_cp16(st + (kFlashKTile + r) * kLd + c, src + 2 * d_model, ok);
   }
 }
 
-// The chunk's Q rows row0 .. row0 + 16 cblocks - 1 into qs; rows >= n are zero.
+// The chunk's Q rows row0 .. row0 + 16 cblocks - 1 into qs; rows >= n and
+// columns >= dh are zero.
 template <int Dh, int W>
 __device__ __forceinline__ void flash_copy_q(__nv_bfloat16* qs, const __nv_bfloat16* q_base,
                                              long long row_stride, int row0, int cblocks, int n,
-                                             int tid) {
+                                             int tid, int dh = Dh) {
   constexpr int kLd = Dh + kFlashPad;
   constexpr int kChunks = Dh / 8;
   for (int idx = tid; idx < cblocks * 16 * kChunks; idx += 32 * W) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    const bool ok = row0 + r < n;
+    const bool ok = row0 + r < n && c < dh;
     flash_cp16(qs + r * kLd + c, q_base + (long long)(ok ? row0 + r : 0) * row_stride + c, ok);
   }
 }
@@ -449,14 +467,15 @@ __device__ __forceinline__ void flash_for_rows(const bool (&has)[2], bool full, 
 // P V and l the full row sums of warp row block j (j = 0, 1: blocks w and
 // w + W of the chunk) for rows g (index 0) and g + 8 (index 1); has[j] says
 // whether the block lies in the chunk. tid: the thread's index among the 32 W
-// that run the loop; bar: their barrier (flash_sync).
+// that run the loop; bar: their barrier (flash_sync). dh: the head's columns
+// (up to Dh; the rest of Q, K and V is zero).
 template <int Dh, int W, int Stages, bool kQuant>
 __device__ __forceinline__ void flash_attention_rows(
     const __nv_bfloat16* __restrict__ q_base, long long row_stride, int d_model, int row0,
     int cblocks, int n, int n_keys, float scale, float fixed_shift, bool fixed,
     __nv_bfloat16* smem, float (&o)[2][Dh / 8][4], float (&l)[2][2], bool (&has)[2], int tid,
-    int bar) {
-  static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
+    int bar, int dh = Dh) {
+  static_assert(flash_head_dim(Dh) == Dh, "Dh must be an instantiated head dim");
   constexpr int kLd = Dh + kFlashPad;
   constexpr int kStages = Stages;
   static_assert(kStages >= 2, "the ring needs two stages");
@@ -465,13 +484,13 @@ __device__ __forceinline__ void flash_attention_rows(
   __nv_bfloat16* qs = smem + flash_q_offset<Dh, Stages>();
 
   // Q of the chunk, then the first tiles of the ring
-  flash_copy_q<Dh, W>(qs, q_base, row_stride, row0, cblocks, n, tid);
+  flash_copy_q<Dh, W>(qs, q_base, row_stride, row0, cblocks, n, tid, dh);
   const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < ntiles) {
       flash_copy_kv<Dh, W>(smem + st * 2 * kFlashKTile * kLd, q_base, row_stride, d_model,
-                           st * kFlashKTile, n_keys, tid);
+                           st * kFlashKTile, n_keys, tid, dh);
     }
     flash_commit();
   }
@@ -499,7 +518,7 @@ __device__ __forceinline__ void flash_attention_rows(
       const int next = tile + kStages - 1;
       if (next < ntiles) {
         flash_copy_kv<Dh, W>(smem + (next % kStages) * 2 * kFlashKTile * kLd, q_base,
-                             row_stride, d_model, next * kFlashKTile, n_keys, tid);
+                             row_stride, d_model, next * kFlashKTile, n_keys, tid, dh);
       }
       flash_commit();
     }
@@ -551,7 +570,7 @@ template <int Dh, int W, int Stages, bool kV, typename First, typename Step>
 __device__ __forceinline__ void flash_walk(const __nv_bfloat16* q_base, long long row_stride,
                                            int d_model, int n_keys, __nv_bfloat16* smem,
                                            int tid, int bar, First&& first, Step&& step) {
-  static_assert(Dh == 16 || Dh == 32 || Dh == 64, "head dim must be 16, 32 or 64");
+  static_assert(flash_head_dim(Dh) == Dh, "Dh must be an instantiated head dim");
   static_assert(Stages >= 2, "the ring needs two stages");
   constexpr int kLd = Dh + kFlashPad;
   const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;

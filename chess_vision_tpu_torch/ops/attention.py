@@ -64,9 +64,16 @@ F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
 F32_BWD_LAUNCHES = 0  # of the f32 backward, one a call on either route
 F32_BWD_LONG_LAUNCHES = 0  # of F32_BWD_LAUNCHES, those of the long route
 
-_HEAD_DIMS = (16, 32, 64)  # instantiations in csrc/attention*.cu
+# The attention kernels' (K2, K3) instantiations in csrc/attention*.cu
+# (cvt::flash_head_dim): a head dim that is a multiple of 8 up to 128 runs
+# the smallest that holds it, its extra columns zero (``kernel_head_dim``).
+# The quantizing kernels (K4/K5) take QUANT_HEAD_DIMS alone, as the JAX
+# int8 path.
+HEAD_DIMS = (16, 32, 64, 80, 128)
+QUANT_HEAD_DIMS = (16, 32, 64)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
+BWD_SHORT_MAX_HEAD_DIM = 64  # attention_bwd.cu's largest instantiation
 QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
 _MAX_GRID_YZ = 65535
 # The f32 kernels' cluster (csrc/attention_f32.cuh): a CTA holds at most
@@ -83,7 +90,7 @@ F32_KEY_STEP = 16  # kWarpKeys: a CTA's key range is a multiple of it
 # up to 8 CTAs (kMaxCtas) of 8 warps of 16 keys (kMaxWarps), 1,024 tokens.
 # Above a cluster's reach a head's keys split over several clusters.
 F32_LONG_MAX_CTAS = 16
-LONG_MAX_CTAS = 8
+LONG_MAX_CTAS = 8  # also the f32 long route's above a head dim of 64
 LONG_MAX_WARPS = 8
 _SMEM_LIMIT = 232448  # the dynamic shared memory a Hopper block may have
 
@@ -138,10 +145,25 @@ def _accum_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+def kernel_head_dim(head_dim: int) -> int:
+    """The instantiation of K2 and K3 that runs ``head_dim``: the smallest of
+    ``HEAD_DIMS`` that holds it (48 -> 64, 72 -> 80, 96 -> 128). Raises for
+    a head dim that is not a multiple of 8 from 8 to 128: the kernels copy
+    a head's columns 16 bytes at a time from column h * head_dim, which must
+    stay 16-byte aligned in bf16."""
+    if head_dim % 8 or not 8 <= head_dim <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {head_dim} is not a multiple of 8 from 8 "
+                         f"to {HEAD_DIMS[-1]}: the attention kernels do not "
+                         "take it")
+    return next(d for d in HEAD_DIMS if d >= head_dim)
+
+
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
-                        dtypes: tuple = _KERNEL_DTYPES) -> int:
+                        dtypes: tuple = _KERNEL_DTYPES,
+                        head_dims: tuple | None = None) -> int:
     """Raise on what the attention kernels do not take (the quantizing ones
-    take bf16 alone, as the JAX int8 path); returns the head dim."""
+    take bf16 alone and ``QUANT_HEAD_DIMS``, as the JAX int8 path; K2 and
+    K3 any head dim ``kernel_head_dim`` takes); returns the head dim."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype not in dtypes:
@@ -154,8 +176,10 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
     B, N, C3 = qkv.shape
     D = C3 // 3
     head_dim = D // num_heads
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
+    if head_dims is None:
+        kernel_head_dim(head_dim)
+    elif head_dim not in head_dims:
+        raise ValueError(f"head dim {head_dim} not in {head_dims}")
     if B > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or heads {num_heads} exceed the grid")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -163,7 +187,8 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
     return head_dim
 
 
-def f32_plan(n: int, backward: bool = True) -> tuple[str, int]:
+def f32_plan(n: int, backward: bool = True,
+             head_dim: int = 64) -> tuple[str, int]:
     """The f32 kernels' layout for ``n`` tokens: (route, ctas).
 
     Route ``"f32"``: one thread-block cluster of ``ctas`` CTAs per (image,
@@ -177,7 +202,7 @@ def f32_plan(n: int, backward: bool = True) -> tuple[str, int]:
     if n < 1:
         raise ValueError(f"no f32 plan for {n} tokens")
     if backward and n > F32_MAX_TOKENS:
-        return "f32_long", long_plan(n, torch.float32)[1]
+        return "f32_long", long_plan(n, torch.float32, head_dim)[1]
     steps = -(-n // F32_KEY_STEP)
     return "f32", min(F32_MAX_CTAS, -(-steps // (F32_CTA_KEYS // F32_KEY_STEP)))
 
@@ -197,8 +222,8 @@ def f32_key_ranges(n: int, ctas: int) -> list[tuple[int, int]]:
     return ranges
 
 
-def long_plan(n: int, dtype: torch.dtype = torch.bfloat16
-              ) -> tuple[int, int, int]:
+def long_plan(n: int, dtype: torch.dtype = torch.bfloat16,
+              head_dim: int = 64) -> tuple[int, int, int]:
     """The long backward routes' layout for ``n`` tokens: (clusters, ctas,
     warps) per (image, head). The head's 16-key steps go evenly to the
     clusters * ctas CTAs (``f32_key_ranges(n, clusters * ctas)``), each warp
@@ -206,15 +231,19 @@ def long_plan(n: int, dtype: torch.dtype = torch.bfloat16
     to 1,024 tokens), then the fewest CTAs of ``LONG_MAX_WARPS`` warps in
     bf16 (577 tokens: 5 CTAs of 8 warps, two such CTAs an SM; 8 CTAs of 5
     warps, three an SM, were 7% slower), of 4 warps in f32 (577 tokens:
-    10). More than one cluster: the
-    kernels' statistics pass and f32 scratches (``fused_qkv_attention_bwd``).
-    The C entries refuse a plan that does not fit."""
+    10). Above a head dim of 64 an f32 CTA fills an SM, so its clusters keep
+    to the portable 8 CTAs (512 tokens; 577 tokens: 2 clusters of 5). More
+    than one cluster: the kernels' statistics pass and f32 scratches
+    (``fused_qkv_attention_bwd``). The C entries refuse a plan that does
+    not fit."""
     if n < 1:
         raise ValueError(f"no plan for {n} tokens")
     steps = -(-n // F32_KEY_STEP)
     if dtype == torch.float32:
         warps = F32_CTA_KEYS // F32_KEY_STEP
-        clusters = -(-steps // (F32_LONG_MAX_CTAS * warps))
+        most = (F32_LONG_MAX_CTAS if kernel_head_dim(head_dim) <= 64
+                else LONG_MAX_CTAS)
+        clusters = -(-steps // (most * warps))
     else:
         clusters = -(-steps // (LONG_MAX_CTAS * LONG_MAX_WARPS))
     per = -(-steps // clusters)  # a cluster's steps, at most
@@ -226,12 +255,14 @@ def long_plan(n: int, dtype: torch.dtype = torch.bfloat16
 def long_smem_bytes(head_dim: int, warps: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of a long-route CTA (``smem_bytes`` in
     ``csrc/attention_bwd_cluster.cu``, ``bwd_smem_bytes`` in
-    ``csrc/attention_f32.cuh``): in bf16 K and V of the CTA's keys, the Q
-    and g tiles of 64 rows, dS^T and, in f32, the dQ slices it receives
-    and the row statistics."""
+    ``csrc/attention_f32.cuh``) for an instantiated ``head_dim``: in bf16 K
+    and V of the CTA's keys, the Q and g tiles of 64 rows, dS^T and, in
+    f32, pn^T (its place, which the dQ partials reuse, at least 64 x
+    head_dim), the dQ slices it receives and the row statistics."""
     if dtype == torch.float32:
         ld = head_dim + 4
-        return 4 * (2 * F32_CTA_KEYS * ld + 2 * 64 * ld + 2 * F32_CTA_KEYS * 72
+        pt = max(F32_CTA_KEYS * 72, 64 * head_dim)
+        return 4 * (2 * F32_CTA_KEYS * ld + 2 * 64 * ld + pt + F32_CTA_KEYS * 72
                     + 3 * 4 * 64 + 6 * 64)
     keys, ld = warps * F32_KEY_STEP, head_dim + 8
     return (2 * (2 * keys * ld + 2 * 64 * ld + keys * 72)
@@ -244,7 +275,8 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     A CPU tensor takes ``reference_attention`` (and
     ``reference_attention_bwd`` for its gradient); a CUDA tensor launches the
-    kernels (bf16 or f32, head dim 16, 32 or 64) or raises."""
+    kernels (bf16 or f32, a head dim that is a multiple of 8 up to 128) or
+    raises."""
     if qkv.requires_grad and torch.is_grad_enabled():
         return _FusedAttention.apply(qkv, num_heads)
     return fused_qkv_attention_fwd(qkv, num_heads)
@@ -322,7 +354,7 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             q_scale, s_scale = (scale, 1.0) if _pow2(scale) else (1.0, scale)
             rc = lib.cvt_attention_fwd_f32(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
-                f32_plan(N, backward=False)[1], q_scale, s_scale, stream)
+                f32_plan(N, False, head_dim)[1], q_scale, s_scale, stream)
         else:
             rc = lib.cvt_attention_fwd(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
@@ -336,17 +368,22 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
-def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16) -> str:
-    """The backward kernel that takes ``n`` tokens: in bf16 ``"short"``
-    (``csrc/attention_bwd.cu``, a head in shared memory) up to
-    ``BWD_MAX_TOKENS``, ``"long"`` (``csrc/attention_bwd_cluster.cu``, a
-    head's keys in thread-block clusters, ``long_plan``) above; in f32
-    ``"f32"`` (``csrc/attention_f32.cu``, a head's keys in one cluster of up
-    to 8 CTAs) up to ``F32_MAX_TOKENS``, ``"f32_long"`` (the same kernel on
-    ``long_plan``'s clusters of up to 16) above."""
+def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16,
+              head_dim: int = 64) -> str:
+    """The backward kernel that takes ``n`` tokens of ``head_dim``: in bf16
+    ``"short"`` (``csrc/attention_bwd.cu``, a head in shared memory) up to
+    ``BWD_MAX_TOKENS`` and a head dim of ``BWD_SHORT_MAX_HEAD_DIM``,
+    ``"long"`` (``csrc/attention_bwd_cluster.cu``, a head's keys in
+    thread-block clusters, ``long_plan``) otherwise: above 64 a head's four
+    tiles alone outgrow a block's shared memory (191,488 bytes at 257
+    tokens and 80). In f32 ``"f32"`` (``csrc/attention_f32.cu``, a head's
+    keys in one cluster of up to 8 CTAs) up to ``F32_MAX_TOKENS``,
+    ``"f32_long"`` (the same kernel on ``long_plan``'s clusters) above."""
     if dtype == torch.float32:
         return "f32" if n <= F32_MAX_TOKENS else "f32_long"
-    return "short" if n <= BWD_MAX_TOKENS else "long"
+    short = (n <= BWD_MAX_TOKENS
+             and kernel_head_dim(head_dim) <= BWD_SHORT_MAX_HEAD_DIM)
+    return "short" if short else "long"
 
 
 def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -355,10 +392,11 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     dqkv (B, N, 3*H*Dh).
 
     A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
-    a backward kernel (bf16 or f32, head dim 16, 32 or 64) or raises. The
-    kernels are hand-written and give the same function; dtype and shape
-    pick one (``bwd_route``): in bf16 up to ``BWD_MAX_TOKENS`` tokens the
-    one-block-per-head kernel of ``csrc/attention_bwd.cu``, above it
+    a backward kernel (bf16 or f32, a head dim that is a multiple of 8 up to
+    128) or raises. The kernels are hand-written and give the same function;
+    dtype and shape pick one (``bwd_route``): in bf16 up to
+    ``BWD_MAX_TOKENS`` tokens and a head dim of 64 the one-block-per-head
+    kernel of ``csrc/attention_bwd.cu``, otherwise
     ``csrc/attention_bwd_cluster.cu`` on ``long_plan``'s thread-block
     clusters; in f32 up to ``F32_MAX_TOKENS`` the one cluster launch of
     ``csrc/attention_f32.cu`` (``f32_plan``), above it the same kernel on
@@ -383,11 +421,11 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if dqkv.numel() == 0:
         return dqkv
     lib = _build.library()
-    route = bwd_route(N, qkv.dtype)
+    route = bwd_route(N, qkv.dtype, head_dim)
     ptrs = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr()]
     shape = [B, N, num_heads, head_dim]
     if route in ("long", "f32_long"):
-        clusters, ctas, warps = long_plan(N, qkv.dtype)
+        clusters, ctas, warps = long_plan(N, qkv.dtype, head_dim)
         scratch = [None, None]
         if clusters > 1:
             f32 = dict(dtype=torch.float32, device=qkv.device)
@@ -397,7 +435,7 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
         ptrs += scratch
         shape += [clusters, ctas] + ([warps] if route == "long" else [])
     elif route == "f32":
-        shape.append(f32_plan(N)[1])
+        shape.append(f32_plan(N, True, head_dim)[1])
     entry = {"short": lib.cvt_attention_bwd, "long": lib.cvt_attention_bwd_long,
              "f32": lib.cvt_attention_bwd_f32,
              "f32_long": lib.cvt_attention_bwd_f32_long}[route]
@@ -486,7 +524,8 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     head dim 16, 32 or 64) or raises."""
     if qkv.device.type == "cpu":
         return reference_attention_quant(qkv, num_heads, softmax_shift)
-    head_dim = _check_kernel_input(qkv, num_heads, (torch.bfloat16,))
+    head_dim = _check_kernel_input(qkv, num_heads, (torch.bfloat16,),
+                                   QUANT_HEAD_DIMS)
     B, N, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)
@@ -551,7 +590,7 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     head_dim = _check_kernel_input(qkv.view(images, NP, -1), num_heads,
-                                   (torch.bfloat16,))
+                                   (torch.bfloat16,), QUANT_HEAD_DIMS)
     M, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)

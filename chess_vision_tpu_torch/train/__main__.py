@@ -61,6 +61,11 @@ from chess_vision_tpu_torch.config import (
     load_config,
 )
 from chess_vision_tpu_torch.convert.jax_params import state_dict_from_tree
+from chess_vision_tpu_torch.convert.timm import (
+    backbone_state_dict,
+    check_state_dict,
+    load_timm_file,
+)
 from chess_vision_tpu_torch.data import BatchLoader, ChessDataset, seeded_split
 from chess_vision_tpu_torch.data_device import DeviceBatchLoader, DeviceData
 from chess_vision_tpu_torch.models import (
@@ -96,22 +101,34 @@ from chess_vision_tpu_torch.utils.logging import (
 
 def maybe_load_pretrained(model, cfg: dict) -> bool:
     """Load pretrained backbone weights when ``model.pretrained`` asks for
-    them: a checkpoint in the shared layout at ``model.pretrained_path`` (or
-    ``pretrained/<model name>.ckpt``), either a converted backbone or a whole
-    model's checkpoint. A missing file means random init, with a warning."""
+    them, from ``model.pretrained_path`` (or ``pretrained/<model
+    name>.ckpt``): a checkpoint in the shared layout (a converted backbone
+    or a whole model's), or a timm backbone ``.pth`` converted on the fly at
+    ``model.input_size`` (``convert/timm.py``). A missing file means random
+    init, with a warning. A file that lacks a backbone tensor the model has,
+    or holds one it has not, raises ``ValueError`` naming them, as the JAX
+    package's restore does: a partial backbone never loads."""
     if not cfg["model"].get("pretrained", False):
         return False
     path = cfg["model"].get("pretrained_path") or os.path.join(
         "pretrained", cfg["model"]["name"] + ".ckpt")
     if not os.path.exists(path):
-        print(f"WARNING: pretrained weights not found at {path}; "
-              "using random init (run the timm->jax converter to create them)")
+        print(f"WARNING: pretrained weights not found at {path}; using random "
+              "init (python -m chess_vision_tpu_torch.convert.timm converts "
+              "timm weights)")
         return False
-    ckpt = load_checkpoint(path)
-    params, stats = ckpt["params"], ckpt.get("batch_stats") or {}
-    sd = state_dict_from_tree({"backbone": params.get("backbone", params)})
-    sd.update(state_dict_from_tree({"backbone": stats.get("backbone", stats)}))
-    model.load_state_dict(sd, strict=False)
+    if path.endswith(".pth"):
+        sd = backbone_state_dict(load_timm_file(path),
+                                 cfg["model"].get("arch", "vit"),
+                                 cfg["model"].get("input_size") or 224)
+    else:
+        ckpt = load_checkpoint(path)
+        params, stats = ckpt["params"], ckpt.get("batch_stats") or {}
+        sd = state_dict_from_tree({"backbone": params.get("backbone", params)})
+        sd.update(state_dict_from_tree({"backbone": stats.get("backbone", stats)}))
+    want = {k: v for k, v in model.state_dict().items() if k.startswith("backbone.")}
+    check_state_dict(sd, want, f"the pretrained backbone at {path}")
+    model.load_state_dict(sd, strict=False)  # the heads keep their init
     print(f"Loaded pretrained backbone from {path}")
     return True
 

@@ -9,7 +9,8 @@ same payload. Arrays above flax's chunk size are split into
 ``{"__msgpack_chunked_array__": ..., "shape": ..., "chunks": ...}`` maps
 (read here; the writer refuses an array that large, the model has none).
 
-``save_checkpoint`` writes {epoch, step, params, opt_state, batch_stats,
+``save_checkpoint`` (through ``write_checkpoint``, which also writes the
+converter's checkpoints) writes {epoch, step, params, opt_state, batch_stats,
 best_val_acc, config_json} with the parameters and the BatchNorm running
 statistics (``batch_stats``, empty for a model without BatchNorm) carried
 through the inverse weight bridge and the AdamW moments laid out as the state optax gives
@@ -137,8 +138,6 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
     """Write ``state`` (``train.state.TrainState``) in the JAX package's
     checkpoint layout, atomically. A sharded state is gathered (every rank
     must call this) and rank 0 writes."""
-    import msgpack
-
     from chess_vision_tpu_torch.parallel.mesh import full_state
 
     sd, mu, nu = full_state(state)
@@ -147,14 +146,28 @@ def save_checkpoint(path: str, state, epoch: int, best_val_acc: float,
         return
     variables = variables_from_state_dict(sd)
     params_tree = variables["params"]
+    write_checkpoint(path, params_tree, variables["batch_stats"],
+                     step=state.step, epoch=epoch, best_val_acc=best_val_acc,
+                     config=config,
+                     opt_state=optax_state_dict(state, params_tree, (mu, nu)))
+
+
+def write_checkpoint(path: str, params: dict, batch_stats: dict, *, step: int,
+                     epoch: int, best_val_acc: float, config: dict,
+                     opt_state: dict | None = None) -> None:
+    """Write trees in the JAX layout (nested dicts of numpy arrays) as the
+    JAX package's ``save_checkpoint`` does, atomically; ``opt_state`` empty
+    unless given (a converted checkpoint has none)."""
+    import msgpack
+
     payload = {
-        "step": int(state.step),
+        "step": int(step),
         "epoch": int(epoch),
         "best_val_acc": float(best_val_acc),
         "config_json": json.dumps(config),
-        "params": params_tree,
-        "opt_state": optax_state_dict(state, params_tree, (mu, nu)),
-        "batch_stats": variables["batch_stats"],
+        "params": params,
+        "opt_state": opt_state or {},
+        "batch_stats": batch_stats,
     }
     blob = msgpack.packb(payload, default=_ext_pack, strict_types=True)
     tmp = path + ".tmp"

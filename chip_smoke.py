@@ -266,11 +266,37 @@ Phases, one line each; any failure exits non-zero before the last line:
              16 on 80 boards: 12 f32 K2 and 12 f32 K3 a step, every K3 on
              ``f32_long``, gradients within F32_GRAD_RTOL. The phase's
              seconds.
- 25. report  the kernels JSON line (every kernel with its bound and, where
+ 25. head dims  weights from ``.pth`` and K2/K3 at head dims 80 and 128.
+             (a) a random timm-layout ViT-B/16 backbone at 224 px from --seed,
+             saved with ``torch.save``, reaches ``train()`` through
+             ``model.pretrained_path`` (batch 64, 2 steps): before the first
+             step the backbone equals ``convert.timm.backbone_state_dict``'s
+             bit for bit, ``pos_embed`` at 16 x 16, and the steps launch K2
+             and K3; a random reference ``.pth`` (``model`` and ``config``)
+             goes through ``python -m chess_vision_tpu_torch.convert.timm``
+             into ``Predictor``: its FENs on --boards boards equal those of
+             the same weights loaded straight; a ``.pth`` without one tensor
+             is refused. (b) K2 and K3, bf16 and f32, at head dims 80 (16
+             heads) and 128 (6 heads) at (64, 257, 3 D) and on the long routes
+             at (16, 577, 3 D), against their plain versions within the bounds
+             of head dim 64, every backward twice bit-identical; times by
+             CUDA events beside plain and SDPA's; routes, plans, ptxas's
+             registers and spills, shared memory. (c) ViT-Huge's widths
+             (1280 wide, 32 blocks, 16 heads of 80) at 256 px with random
+             weights: bf16 ``Predictor`` on --boards boards at batch 256 held
+             to plain as phase 5 (32 K2 a batch); ``train()`` in bf16 at batch
+             64 for 4 steps (32 K2 and 32 K3 on the cluster route a step,
+             its checkpoint left out), warm img/s and peak memory; one bf16
+             step at batch 64 and one f32 step at batch 16 against plain
+             attention within TRAIN_GRAD_RTOL and F32_GRAD_RTOL. (d)
+             ``train()`` with ViT-B/16's widths on 6 heads of 128, bf16,
+             batch 64, 2 steps: every K3 on the cluster route. The phase's
+             seconds.
+ 26. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel must have been launched by a main path: K3's long
-             routes by phase 24's), the nvidia-smi line, then
-             {"ok": true, "device": {...}}.
+             routes by phase 24's, the head dims 80 and 128 by phase 25's),
+             the nvidia-smi line, then {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over the
@@ -818,20 +844,21 @@ def main() -> int:
         multi_device_phase(args, workdir, kind, smi)
         dp_phase(args, cfg, params, boards, train_ckpt, workdir, kind, smi)
         p384_phase(args, kernels, kind, smi, workdir)
+        head_dims_phase(args, kernels, kind, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 25: the kernels line, the card and the last line."""
+    """Phase 26: the kernels line, the card and the last line."""
     import torch
 
     idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[25 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[26 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -2514,15 +2541,23 @@ def device_cache_runs(args, corpus, workdir: str, kind: str, smi: str) -> None:
             f"bytes, not its index row")
 
 
-def step_with_grads(state, train_step, batch, aug):
-    """One train step; returns the gradients it applied and its loss."""
+def step_with_grads(state, train_step, batch, aug, update: bool = True):
+    """One train step; returns its gradients and its loss. ``update`` False
+    leaves the update out, so that a second step (through plain attention)
+    starts from the same weights and step."""
+    import torch
+
     grads = {}
     apply = state.apply_gradients
 
     def capture():
         grads.update({n: p.grad.detach().clone()
                       for n, p in zip(state.names, state.params)})
-        return apply()
+        if update:
+            return apply()
+        for p in state.params:
+            p.grad = None
+        return torch.zeros((), device=state.params[0].device)
 
     state.apply_gradients = capture
     try:
@@ -3808,23 +3843,29 @@ def long_counts() -> tuple[int, int, int, int, int, int]:
             attn_ops.F32_BWD_LONG_LAUNCHES)
 
 
-def p384_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
-             kind: str, smi: str) -> int:
-    """Phase 24, one precision: ``train()`` for one epoch of 4 steps at
-    input_size 384 (launches counted a step, every K3 on the long route),
-    then one step through the kernels against one through plain attention.
-    Returns the long route's launches in the ``train()`` run."""
+def vit_train_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
+                  kind: str, smi: str, write_checkpoint: bool = True,
+                  **model) -> int:
+    """``train()`` for one epoch on ``corpus`` (``configs/vit.yaml`` values
+    with ``model`` overrides, remat off): every train step must launch K2
+    and K3 once a block, K3 on the route ``bwd_route`` gives the model's
+    tokens and head dim, every eval step K2 alone; finite losses; warm
+    img/s and peak memory printed. ``write_checkpoint`` False leaves out the
+    epoch's checkpoint (ViT-Huge's would be 7.6 GB). Returns the run's K2
+    and K3 launches."""
     import torch
 
-    from chess_vision_tpu_torch.augment import draw_params
     from chess_vision_tpu_torch.ops import attention as attn_ops
-    from chess_vision_tpu_torch.train.__main__ import train
+    from chess_vision_tpu_torch.train import __main__ as trainer
 
-    dev = torch.device("cuda")
-    depth, size = 12, corpus.input_size
-    save_dir = os.path.join(workdir, f"p384_{'f32' if f32 else 'bf16'}")
-    cfg = train_config(save_dir, input_size=size, remat=False)
+    save_dir = os.path.join(workdir, f"run_{'f32' if f32 else 'bf16'}")
+    cfg = train_config(save_dir, input_size=corpus.input_size, remat=False,
+                       **model)
     cfg["training"].update(epochs=1, batch_size=batch, mixed_precision=not f32)
+    depth, heads = cfg["model"]["depth"], cfg["model"]["num_heads"]
+    n = (corpus.input_size // 16) ** 2 + 1
+    route = attn_ops.bwd_route(n, torch.float32 if f32 else torch.bfloat16,
+                               cfg["model"]["embed_dim"] // heads)
     per_step = []
 
     def on_step(step_kind, sums):
@@ -3836,11 +3877,16 @@ def p384_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        result = train(cfg, corpus, seed=args.seed, device="cuda", on_step=on_step)
-        torch.cuda.synchronize()
-    finally:
-        shutil.rmtree(save_dir, ignore_errors=True)
+    with ExitStack() as stack:
+        if not write_checkpoint:
+            stack.enter_context(mock.patch.object(
+                trainer, "save_checkpoint", lambda *a, **k: None))
+        try:
+            result = trainer.train(cfg, corpus, seed=args.seed, device="cuda",
+                                   on_step=on_step)
+            torch.cuda.synchronize()
+        finally:
+            shutil.rmtree(save_dir, ignore_errors=True)
     train_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     del result
@@ -3853,49 +3899,85 @@ def p384_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
     gaps = [b[2] - a[2] for a, b in zip(per_step, per_step[1:])
             if a[0] == b[0] == "train"]
     warm = batch * len(gaps) / sum(gaps) if gaps else float("nan")
-    route = attn_ops.bwd_route((size // 16) ** 2 + 1,
-                               torch.float32 if f32 else torch.bfloat16)
-    print(f"{tag} ViT-B/16 {size}px {'f32' if f32 else 'bf16'} full width, "
-          f"batch {batch}, remat off: {len(losses)} train steps in "
-          f"{train_s:.1f} s (evaluation and checkpoint included); (K2, K3, K3 "
-          f"on {route}) per step {counts}, the other precision's {other}; "
-          f"step losses {[round(x, 4) for x in losses]}; warm train img/s "
-          f"{warm:.1f} ({len(gaps)} step intervals); peak device memory "
-          f"{peak_gib:.2f} GiB; {kind}, {smi}", flush=True)
-    require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+    m = cfg["model"]
+    print(f"{tag} ViT {m['embed_dim']} wide, {depth} blocks, {heads} heads of "
+          f"{m['embed_dim'] // heads}, {corpus.input_size}px "
+          f"{'f32' if f32 else 'bf16'}, batch {batch}, remat off: "
+          f"{len(losses)} train steps in {train_s:.1f} s (evaluation "
+          f"included, checkpoint {'written' if write_checkpoint else 'left out'}"
+          f"); (K2, K3, K3 on {route}) per step {counts}, the other "
+          f"precision's {other}; step losses {[round(x, 4) for x in losses]}; "
+          f"warm train img/s {warm:.1f} ({len(gaps)} step intervals); peak "
+          f"device memory {peak_gib:.2f} GiB; {kind}, {smi}", flush=True)
+    steps = len(corpus) * 4 // 5 // batch
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
             f"{tag} train step losses {losses}")
-    require(counts == {"train": [(depth, depth, depth)], "eval": [(depth, 0, 0)]}
+    long = depth if route in ("long", "f32_long") else 0
+    require(counts == {"train": [(depth, depth, long)], "eval": [(depth, 0, 0)]}
             and other == [(0, 0, 0)], f"{tag} launches per step {counts}, {other}")
+    return (sum(s[1][3 if f32 else 0] for s in per_step),
+            sum(s[1][4 if f32 else 1] for s in per_step))
 
-    # one step's gradients: the kernels against plain attention
-    quiet = train_config("", input_size=size, head_dropout=0.0,
-                         drop_path_rate=0.0, remat=False)
+
+def vit_grads_check(tag: str, args, corpus, batch: int, f32: bool,
+                    **model) -> tuple:
+    """One train step with dropout and drop path off and fixed augmentation
+    draws, through the kernels and through plain attention on the same
+    weights: loss and per-tensor gradients within the bounds of phase 11
+    (bf16) or 20 (f32); the kernel step launches K2 and K3 once a block.
+    Returns the kernel step's ``long_counts()``."""
+    import torch
+
+    from chess_vision_tpu_torch.augment import draw_params
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    dev = torch.device("cuda")
+    quiet = train_config("", input_size=corpus.input_size, head_dropout=0.0,
+                         drop_path_rate=0.0, remat=False, **model)
     quiet["training"]["mixed_precision"] = not f32
     quiet["scheduler"]["warmup_epochs"] = 0  # lr(0) is the base rate
-    state_k, step_k, _, batches = make_trainer(quiet, corpus, args.seed, batch=batch)
-    state_p, step_p, _, _ = make_trainer(quiet, corpus, args.seed, batch=batch)
+    state, step, _, batches = make_trainer(quiet, corpus, args.seed, batch=batch)
     aug = draw_params(batch, torch.Generator(device=dev).manual_seed(args.seed))
     reset_counts()
-    grads_k, loss_k = step_with_grads(state_k, step_k, batches[0], aug)
+    grads_k, loss_k = step_with_grads(state, step, batches[0], aug, update=False)
     moved = long_counts()
     with plain_attention():
-        grads_p, loss_p = step_with_grads(state_p, step_p, batches[0], aug)
+        grads_p, loss_p = step_with_grads(state, step, batches[0], aug,
+                                          update=False)
     require(long_counts() == moved, f"{tag} the plain step launched a kernel")
+    depth, heads = quiet["model"]["depth"], quiet["model"]["num_heads"]
+    route = attn_ops.bwd_route((corpus.input_size // 16) ** 2 + 1,
+                               torch.float32 if f32 else torch.bfloat16,
+                               quiet["model"]["embed_dim"] // heads)
+    want = (depth, depth, depth if route in ("long", "f32_long") else 0)
+    require(moved == ((0, 0, 0) + want if f32 else want + (0, 0, 0)),
+            f"{tag} the kernel step's launches {moved}")
     worst, name, _ = grad_gap(grads_k, grads_p)
     bound = F32_GRAD_RTOL if f32 else TRAIN_GRAD_RTOL
     loss_ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) if f32
                else abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL)
-    print(f"{tag} one step, kernels vs plain attention on the card: loss "
-          f"{loss_k} vs {loss_p}; worst per-tensor max |grad diff| / max "
-          f"|grad| {worst:.3e} at {name} (bound {bound}); launches "
-          f"{moved}", flush=True)
+    print(f"{tag} one {'f32' if f32 else 'bf16'} step at batch {batch}, kernels "
+          f"vs plain attention on the card: loss {loss_k} vs {loss_p}; worst "
+          f"per-tensor max |grad diff| / max |grad| {worst:.3e} at {name} "
+          f"(bound {bound}); launches {moved}", flush=True)
     require(math.isfinite(loss_k) and loss_ok, f"{tag} losses {loss_k}, {loss_p}")
     require(all(torch.isfinite(g).all() for g in grads_k.values()),
             f"{tag} a kernel-path gradient is not finite")
     require(worst <= bound, f"{tag} gradient of {name}: {worst}")
-    del state_k, state_p, step_k, step_p, grads_k, grads_p, batches
+    del state, step, grads_k, grads_p, batches
     torch.cuda.empty_cache()
-    return sum(s[1][5 if f32 else 2] for s in per_step)
+    return moved
+
+
+def p384_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
+             kind: str, smi: str) -> int:
+    """Phase 24, one precision: ``train()`` for one epoch of 4 steps at
+    input_size 384 (launches counted a step, every K3 on the long route),
+    then one step through the kernels against one through plain attention.
+    Returns the long route's launches in the ``train()`` run."""
+    launches = vit_train_run(tag, args, corpus, batch, f32, workdir, kind, smi)[1]
+    vit_grads_check(tag, args, corpus, batch, f32)
+    return launches
 
 
 def p384_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
@@ -3911,6 +3993,281 @@ def p384_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
         tag, args, MemoryCorpus(80, args.seed, size), 16, True, workdir, kind,
         smi)
     print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ViT-Huge's widths (Dosovitskiy et al., 2021, Table 1): 32 blocks, width
+# 1280, MLP 5120, 16 heads of 80; and ViT-B/16's widths on 6 heads of 128
+HUGE = {"embed_dim": 1280, "depth": 32, "num_heads": 16}
+HEADS_128 = {"num_heads": 6}
+
+
+def timm_vit_sd(seed: int, size: int = 224) -> dict:
+    """A random timm-layout ViT-B/16 backbone ``state_dict`` at ``size`` px
+    (14 x 14 positions at 224): the port's own backbone, whose names and
+    layouts are timm's, initialized from ``seed``."""
+    from chess_vision_tpu_torch.models import build_model, init_weights
+
+    model = init_weights(build_model(
+        {"model": {**FULL_WIDTH, "input_size": size},
+         "training": {"mixed_precision": False}}), seed=seed)
+    return {k[len("backbone."):]: v for k, v in model.state_dict().items()
+            if k.startswith("backbone.")}
+
+
+def pth_weights(args, workdir: str, kind: str, smi: str) -> None:
+    """Phase 25 (a): a timm ``.pth`` through ``model.pretrained_path`` into
+    ``train()``, a reference ``.pth`` through the converter's CLI into
+    ``Predictor``, and a ``.pth`` missing one tensor refused."""
+    import torch
+
+    from chess_vision_tpu_torch.convert import timm as tconv
+    from chess_vision_tpu_torch.convert.jax_params import variables_from_state_dict
+    from chess_vision_tpu_torch.models import build_model, init_weights
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.serve import Predictor
+    from chess_vision_tpu_torch.train import __main__ as trainer
+
+    tag = "[25a pth]"
+    sd = timm_vit_sd(args.seed)
+    pth = os.path.join(workdir, "vit_base_patch16_224.pth")
+    torch.save(sd, pth)
+    want = tconv.backbone_state_dict(sd, "vit", SIZE)
+    loaded = {}
+    original = trainer.maybe_load_pretrained
+
+    def checked(model, cfg):  # the backbone as the first step will find it
+        ok = original(model, cfg)
+        got = model.state_dict()
+        loaded["equal"] = ok and all(torch.equal(got[k], v) for k, v in want.items())
+        loaded["pos_embed"] = tuple(got["backbone.pos_embed"].shape)
+        return ok
+
+    corpus = MemoryCorpus(160, args.seed)
+    with mock.patch.object(trainer, "maybe_load_pretrained", checked):
+        launches = vit_train_run(tag, args, corpus, TRAIN_BATCH, False, workdir,
+                                 kind, smi, pretrained=True, pretrained_path=pth)
+    print(f"{tag} train() from a timm .pth at 224 px: backbone before the "
+          f"first step equal to backbone_state_dict's bit for bit "
+          f"{loaded.get('equal')}, pos_embed {loaded.get('pos_embed')}; (K2, "
+          f"K3) launches {launches}", flush=True)
+    require(loaded.get("equal") and loaded["pos_embed"] == (1, 257, 768),
+            f"{tag} the loaded backbone: {loaded}")
+
+    # a reference training checkpoint through the CLI, served
+    cfg = {"model": dict(FULL_WIDTH), "training": {"mixed_precision": True}}
+    model_sd = init_weights(build_model(cfg), seed=args.seed + 1).state_dict()
+    ref = os.path.join(workdir, "best.pth")
+    torch.save({"model": {**model_sd, "class_to_type": torch.arange(13)},
+                "config": cfg, "epoch": 3, "best_val_acc": 0.5}, ref)
+    out = os.path.join(workdir, "converted.ckpt")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "chess_vision_tpu_torch.convert.timm",
+                        "--reference-ckpt", ref, "--out", out], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    require(r.returncode == 0, f"{tag} converter exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    boards = np.random.default_rng(args.seed + 25).integers(
+        0, 256, (args.boards, SIZE, SIZE, 3), dtype=np.uint8)
+    attn_ops.LAUNCHES = 0
+    fens = Predictor(out, batch_size=BATCH, device="cuda").predict_array(boards)
+    served = attn_ops.LAUNCHES
+    straight = Predictor((cfg, variables_from_state_dict(model_sd)["params"]),
+                         batch_size=BATCH, device="cuda").predict_array(boards)
+    same = sum(a == b for a, b in zip(fens, straight))
+    print(f"{tag} reference .pth -> CLI -> Predictor: {same}/{len(boards)} FENs "
+          f"equal to the same weights loaded straight; K2 launches {served}",
+          flush=True)
+    require(same == len(boards) == len(fens) and served > 0,
+            f"{tag} converted reference FENs: {same}/{len(boards)}")
+
+    # planted: one tensor taken out of the .pth
+    partial = os.path.join(workdir, "partial.pth")
+    torch.save({k: v for k, v in sd.items() if k != "blocks.3.attn.qkv.weight"},
+               partial)
+    pcfg = train_config("", pretrained=True, pretrained_path=partial)
+    try:
+        trainer.maybe_load_pretrained(build_model(pcfg), pcfg)
+        refused = "loaded"
+    except ValueError as err:
+        refused = str(err)
+    print(f"{tag} planted: a .pth without blocks.3.attn.qkv.weight -> {refused}",
+          flush=True)
+    require("blocks.3.attn.qkv.weight" in refused, f"{tag} the partial .pth loaded")
+    torch.cuda.empty_cache()
+
+
+def head_dim_kernels(args, dev, kernels: dict) -> None:
+    """Phase 25 (b): K2 and K3, bf16 and f32, at head dims 80 (16 heads,
+    ViT-Huge) and 128 (6 heads, ViT-B/16's width) at (64, 257, 3 D), and the
+    long routes at (16, 577, 3 D): each against its plain version within
+    the bound it keeps at 64, every backward twice bit-identical; times by
+    CUDA events beside plain and SDPA's; routes, plans, ptxas's counts. The
+    (64, 257) readings become the kernels line's entries at these head dims
+    (their launches counted by (c) and (d))."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    tag = "[25b head dims]"
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    for dh, heads in ((80, HUGE["num_heads"]), (128, HEADS_128["num_heads"])):
+        for B, n in ((TRAIN_BATCH, SIZE // 16 * SIZE // 16 + 1), (16, 577)):
+            for dtype in (torch.bfloat16, torch.float32):
+                f32 = dtype == torch.float32
+                D = heads * dh
+                qkv = torch.randn((B, n, 3 * D), device=dev, generator=gen).to(dtype)
+                g = torch.randn((B, n, D), device=dev, generator=gen).to(dtype)
+                out = attn_ops.fused_qkv_attention_fwd(qkv, heads)
+                dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, heads)
+                again = attn_ops.fused_qkv_attention_bwd(qkv, g, heads)
+                ref = attn_ops.reference_attention(qkv, heads)
+                dref = attn_ops.reference_attention_bwd(qkv, g, heads)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                derr = (dqkv.float() - dref.float()).abs().max().item()
+                same = torch.equal(dqkv, again)
+                del ref, dref, again, out, dqkv
+                fwd_bound = F32_ATOL if f32 else ATTN_ATOL
+                bwd_bound = F32_ATOL if f32 else K3_ATOL
+                ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, heads), 5)
+                bwd_ms = cuda_ms(
+                    lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, heads), 5)
+                plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, heads), 2)
+                plain_bwd = cuda_ms(
+                    lambda: attn_ops.reference_attention_bwd(qkv, g, heads), 2)
+                lib_fwd, lib_bwd = sdpa_ms(qkv, g, heads)
+                route = attn_ops.bwd_route(n, dtype, dh)
+                plan = (attn_ops.long_plan(n, dtype, dh) if "long" in route
+                        else attn_ops.f32_plan(n, True, dh))
+                size = 4 if f32 else 2
+                ops = 2 * 2 * B * heads * n * n * dh
+                op_type = "f32" if f32 else "bf16"
+                fwd_entry = kernel_entry(
+                    "", "attention_f32.cu" if f32 else "attention.cu",
+                    "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+                    nbytes=size * qkv.numel() * 4 // 3, ops=ops,
+                    op_type=op_type, library_ms=lib_fwd)
+                bwd_entry = kernel_entry(
+                    "", "attention_f32.cu" if f32 else "attention_bwd_cluster.cu",
+                    "chess_vision_tpu/ops/attention.py:623", derr, bwd_ms,
+                    plain_bwd, nbytes=size * (2 * qkv.numel() + g.numel()),
+                    ops=ops * 5 // 2, op_type=op_type, library_ms=lib_bwd)
+                mode = {"long": 0, "f32": 0, "f32_long": 1 if plan[0] == 1 else 3}
+                fwd_kernel = "attention_fwd_f32_kernel" if f32 else "attention_fwd_kernel"
+                bwd_kernel = ("attention_bwd_f32_kernel" if f32
+                              else "attention_bwd_cluster_kernel")
+                warps = plan[2] if "long" in route else 4
+                smem = attn_ops.long_smem_bytes(dh, warps, dtype)
+                ld = dh + 4  # the f32 forward's layout (attention_f32.cuh)
+                fwd_smem = (4 * (3 * 64 * ld + max(64 * 72, 64 * dh) + 640 + 576)
+                            if f32 else 2 * (2 * 2 * 64 + 96) * (dh + 8))
+                print(f"{tag} {op_type} {tuple(qkv.shape)} {heads} heads of {dh}: "
+                      f"K2 max |diff| {err} (bound {fwd_bound}), {ms:.4f} ms "
+                      f"(bound {fwd_entry['bound_ms']:.4f}, plain {plain_ms:.4f}, "
+                      f"SDPA {lib_fwd:.4f}; {ptxas_counts(fwd_kernel, dh)}, "
+                      f"{fwd_smem} bytes of shared memory a block); K3 on "
+                      f"{route} plan {plan}: max |diff| {derr} (bound {bwd_bound}), "
+                      f"twice bit-identical {same}, {bwd_ms:.4f} ms (bound "
+                      f"{bwd_entry['bound_ms']:.4f}, plain {plain_bwd:.4f}, SDPA "
+                      f"backward {lib_bwd:.4f}; "
+                      f"{ptxas_counts(bwd_kernel, dh, mode[route])}, {smem} "
+                      "bytes of shared memory a CTA)",
+                      flush=True)
+                require(err <= fwd_bound and derr <= bwd_bound and same,
+                        f"{tag} {op_type} at {tuple(qkv.shape)}, head dim {dh}: "
+                        f"{err}, {derr}, deterministic {same}")
+                if n == 257:
+                    suffix = f"{'_f32' if f32 else ''}_dh{dh}"
+                    for name, entry in ((f"fused_qkv_attention{suffix}", fwd_entry),
+                                        (f"fused_qkv_attention_bwd{suffix}"
+                                         if f32 else
+                                         f"fused_qkv_attention_bwd_long_dh{dh}",
+                                         bwd_entry)):
+                        if dh == 128 and f32:
+                            continue  # no main path trains ViT-B widths on 6 heads in f32
+                        entry["name"] = name
+                        kernels[name] = entry
+                del qkv, g
+                torch.cuda.empty_cache()
+
+
+def huge_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
+    """Phase 25 (c): ViT-Huge's widths at 256 px (257 tokens, 16 heads of
+    80) with random weights: bf16 serving held to plain, ``train()`` in bf16,
+    and an f32 step against plain."""
+    import torch
+
+    from chess_vision_tpu_torch.experiments.plain import forward_logits
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    tag = "[25c ViT-Huge]"
+    depth = HUGE["depth"]
+    cfg = {"model": {**FULL_WIDTH, **HUGE}, "training": {"mixed_precision": True}}
+    t0 = time.perf_counter()
+    predictor = Predictor((cfg, random_jax_params(cfg, args.seed)),
+                          batch_size=BATCH, device="cuda")
+    params = sum(p.numel() for p in predictor.model.parameters())
+    boards = np.random.default_rng(args.seed + 26).integers(
+        0, 256, (args.boards, SIZE, SIZE, 3), dtype=np.uint8)
+    predictor.predict_array(boards[:BATCH])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    fens = predictor.predict_array(boards)
+    serve_s = time.perf_counter() - t0
+    served = attn_ops.LAUNCHES
+    batches = math.ceil(args.boards / BATCH)
+    with plain_ops(attn_ops, pre_ops):
+        fens_plain = predictor.predict_array(boards)
+    logits_k = forward_logits(predictor, boards)
+    with plain_ops(attn_ops, pre_ops):
+        logits_p = forward_logits(predictor, boards)
+    print(f"{tag} {params:,} parameters; bf16 Predictor, {args.boards} boards in "
+          f"{batches} batches of {BATCH}: K2 launches {served} ({depth} a batch "
+          f"wanted), {args.boards / serve_s:.1f} boards/s; set-up {setup_s:.1f} s",
+          flush=True)
+    require(served == depth * batches, f"{tag} K2 launches {served}")
+    require_logits(tag, fens, fens_plain, logits_k, logits_p, SQUARES_ULPS)
+    kernels["fused_qkv_attention_dh80"]["launches"] += served
+    del predictor
+    torch.cuda.empty_cache()
+
+    corpus = MemoryCorpus(320, args.seed)
+    k2, k3 = vit_train_run(tag, args, corpus, TRAIN_BATCH, False, workdir, kind,
+                           smi, write_checkpoint=False, **HUGE)
+    kernels["fused_qkv_attention_dh80"]["launches"] += k2
+    kernels["fused_qkv_attention_bwd_long_dh80"]["launches"] += k3
+    vit_grads_check(tag, args, corpus, TRAIN_BATCH, False, **HUGE)
+    moved = vit_grads_check(tag, args, MemoryCorpus(16, args.seed), 16, True,
+                            **HUGE)
+    kernels["fused_qkv_attention_f32_dh80"]["launches"] += moved[3]
+    kernels["fused_qkv_attention_bwd_f32_dh80"]["launches"] += moved[4]
+
+
+def head128_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
+    """Phase 25 (d): ``train()`` with ViT-B/16's widths on 6 heads of 128,
+    bf16, batch 64, 2 steps: every K3 on the cluster route."""
+    tag = "[25d heads of 128]"
+    k2, k3 = vit_train_run(tag, args, MemoryCorpus(160, args.seed), TRAIN_BATCH,
+                           False, workdir, kind, smi, **HEADS_128)
+    kernels["fused_qkv_attention_dh128"]["launches"] += k2
+    kernels["fused_qkv_attention_bwd_long_dh128"]["launches"] += k3
+
+
+def head_dims_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
+    """Phase 25: weights from .pth, K2 and K3 at head dims 80 and 128,
+    ViT-Huge's widths, and ViT-B/16's widths on heads of 128."""
+    import torch
+
+    t_phase = time.perf_counter()
+    pth_weights(args, workdir, kind, smi)
+    head_dim_kernels(args, torch.device("cuda"), kernels)
+    huge_phase(args, kernels, kind, smi, workdir)
+    head128_phase(args, kernels, kind, smi, workdir)
+    print(f"[25 head dims] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

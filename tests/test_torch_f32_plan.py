@@ -75,7 +75,8 @@ def test_cluster_size_and_the_long_route():
 def test_plan_constants_and_shared_memory_match_the_kernel_source():
     """The Python plan's constants are the header's, whose static_assert
     holds a CTA's shared memory, forward and backward, to the 232,448 bytes
-    a Hopper block may have (the header owns the layout and its bytes)."""
+    a Hopper block may have at the largest instantiated head dim, 128 (the
+    header owns the layout and its bytes)."""
     text = open(os.path.join(_build.CSRC_DIR, "attention_f32.cuh")).read()
     for line in ("constexpr int kThreads = 128;",
                  "constexpr int kWarps = kThreads / 32;",
@@ -83,8 +84,9 @@ def test_plan_constants_and_shared_memory_match_the_kernel_source():
                  "constexpr int kCtaKeys = kWarps * kWarpKeys;",
                  f"constexpr int kMaxCtas = {attn.F32_MAX_CTAS};",
                  "constexpr int kMaxSmemBytes = 232448;",
-                 "static_assert(bwd_smem_bytes<64>() <= kMaxSmemBytes && "
-                 "fwd_smem_bytes<64>() <= kMaxSmemBytes,"):
+                 f"static_assert(bwd_smem_bytes<{attn.HEAD_DIMS[-1]}>() <= "
+                 f"kMaxSmemBytes && fwd_smem_bytes<{attn.HEAD_DIMS[-1]}>() <= "
+                 "kMaxSmemBytes,"):
         assert line in text, line
     assert attn.F32_CTA_KEYS == 128 // 32 * attn.F32_KEY_STEP
     # the long route's plan: the same CTAs, clusters of up to 16

@@ -71,16 +71,17 @@ def test_plan_covers_the_tokens_within_a_clusters_reach(dtype):
 
 def test_shared_memory_fits_and_matches_the_sources():
     """Every long plan from 289 (bf16) or 513 (f32) to 2,049 tokens fits the
-    232,448 bytes a Hopper block may have at head dims 16, 32 and 64; the
-    Python mirror is the kernels' formula (the sources' static_asserts and
-    their stated sizes)."""
+    232,448 bytes a Hopper block may have at every instantiated head dim (16,
+    32, 64, 80 and 128); the Python mirror is the kernels' formula (the
+    sources' static_asserts, at the largest head dim, and their stated
+    sizes)."""
     for dtype in DTYPES:
         for n in NS[dtype]:
-            warps = attn.long_plan(n, dtype)[2]
-            for dh in (16, 32, 64):
+            for dh in attn.HEAD_DIMS:
+                warps = attn.long_plan(n, dtype, dh)[2]
                 assert attn.long_smem_bytes(dh, warps, dtype) <= 232448, (n, dh)
     src = open(os.path.join(_build.CSRC_DIR, "attention_bwd_cluster.cu")).read()
-    assert "static_assert(smem_bytes<64>(kMaxWarps) <= cvt_f32::kMaxSmemBytes," in src
+    assert "static_assert(smem_bytes<128>(kMaxWarps) <= cvt_f32::kMaxSmemBytes," in src
     assert "76,544 bytes at Dh = 64 and 5 warps" in src and "99,584 at 8 warps" in src
     assert attn.long_smem_bytes(64, 5, torch.bfloat16) == 76544
     assert attn.long_smem_bytes(64, 8, torch.bfloat16) == 99584
