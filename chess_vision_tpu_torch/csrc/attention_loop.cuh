@@ -61,7 +61,8 @@ constexpr int kFlashPad = 8;     // bf16 padding per shared-memory row
 
 // The instantiation of the attention kernels (K2, K3, bf16 and f32) that
 // runs head dim dh: the smallest of 16, 32, 64, 80 and 128 that holds it,
-// for dh a multiple of 8 up to 128 (0 for another dh). A head dim between
+// for dh a multiple of 8 up to 128 (0 for another dh, which the
+// any-head-dim kernels of attention_any.cu run). A head dim between
 // two runs the larger one with its extra columns zero in shared memory: a
 // zero column adds an exact zero to every dot product, and is never stored.
 // The quantizing kernels (K4/K5, K14, K15) take 16, 32 and 64 alone.

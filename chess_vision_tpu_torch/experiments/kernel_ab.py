@@ -110,6 +110,12 @@ epilogue gets an f32 (rows, 3072) scratch either way. The f32 sections read
 the other revision's ``attention_f32.cu`` (present since the f32 kernels
 were ported) and call its entries by their parameters' names: the two-kernel
 backward's statistics scratch, a cluster's CTA count, whichever it takes.
+``--head-dims 64,80,128`` runs the sections k2, k3, k2f32, k3f32 and k3long
+at each of those head dims on ViT-B/16's width of 768 (6 heads of 128) or,
+where 768 does not split, ViT-Huge's 1280 (16 heads of 80); above a head dim
+of 64, k3 times the bf16 backward's cluster route at 257 tokens
+(``cvt_attention_bwd_long``), as ``bwd_route`` sends it. A record of these
+sections carries its head dim.
 The first line is the card's name and power limit (nvidia-smi); the last is
 one JSON object with every number.
 """
@@ -285,8 +291,14 @@ def in_turns(runs: dict, order=_ORDER) -> dict:
     return times
 
 
-def k2_ab(libs: dict, batch: int, gen) -> dict:
-    n, heads, dh = 257, 12, 64
+def model_heads(dh: int) -> int:
+    """Heads of head dim ``dh`` on ViT-B/16's width of 768, or on
+    ViT-Huge's 1280 where 768 does not split into them (80: 16 heads)."""
+    return 768 // dh if 768 % dh == 0 else 1280 // dh
+
+
+def k2_ab(libs: dict, batch: int, gen, dh: int = 64) -> dict:
+    n, heads = 257, model_heads(dh)
     qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device,
                       generator=gen).bfloat16()
     outs = {name: torch.empty((batch, n, heads * dh), device=gen.device,
@@ -299,7 +311,7 @@ def k2_ab(libs: dict, batch: int, gen) -> dict:
         _build.check(rc, f"{name}'s attention forward")
 
     times = in_turns({name: (lambda name=name: run(name)) for name in libs})
-    return {"shape": list(qkv.shape), "ms": times,
+    return {"shape": list(qkv.shape), "head_dim": dh, "ms": times,
             "bit_identical": torch.equal(outs["this"], outs["other"]),
             "max_abs_diff": (outs["this"].float()
                              - outs["other"].float()).abs().max().item()}
@@ -362,7 +374,7 @@ def k3_ab(libs: dict, with_stats: bool, batch: int, gen) -> dict:
 
     times = in_turns({name: (lambda name=name: run(name)) for name in libs})
     ref = attn.reference_attention_bwd(qkv, g, heads).float()
-    return {"shape": list(qkv.shape), "ms": times,
+    return {"shape": list(qkv.shape), "head_dim": dh, "ms": times,
             "max_abs_diff": (outs["this"].float()
                              - outs["other"].float()).abs().max().item(),
             "max_abs_err": {name: (out.float() - ref).abs().max().item()
@@ -598,19 +610,20 @@ def sdpa_bwd_ms(qkv: torch.Tensor, g: torch.Tensor, heads: int) -> float:
 
 
 def k3long_ab(entries: dict, dtype: torch.dtype, batch: int, gen,
-              order=_ORDER) -> dict:
+              order=_ORDER, n: int = 577, dh: int = 64) -> dict:
     """K3's long route of ``dtype`` of each of ``entries`` (name ->
-    ``long_entries``) at (batch, 577, 2304), 12 heads: ms in ``order``,
-    SDPA's backward, the bound, and the outputs' max |difference| from the
-    first entry's and from the plain version's."""
-    n, heads, dh = 577, 12, 64
+    ``long_entries``) at (batch, n, 3 D), ``model_heads(dh)`` heads (577
+    tokens, 12 heads of 64 by default): ms in ``order``, SDPA's backward,
+    the bound, and the outputs' max |difference| from the first entry's and
+    from the plain version's."""
+    heads = model_heads(dh)
     qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device,
                       generator=gen).to(dtype)
     g = torch.randn((batch, n, heads * dh), device=gen.device,
                     generator=gen).to(dtype)
     f32 = dtype == torch.float32
     name = _LONG_ENTRIES[f32]
-    clusters, ctas, warps = attn.long_plan(n, dtype)
+    clusters, ctas, warps = attn.long_plan(n, dtype, dh)
     scratch = dict(dtype=torch.float32, device=qkv.device)
     old_stats = torch.empty((batch, heads, 3, n), **scratch)
     split = ([torch.empty((batch, heads, clusters, 3, n), **scratch),
@@ -642,7 +655,7 @@ def k3long_ab(entries: dict, dtype: torch.dtype, batch: int, gen,
     nbytes = qkv.element_size() * (2 * qkv.numel() + g.numel())
     bound = max(nbytes / 3.35e12, ops / (67e12 if f32 else 989e12)) * 1e3
     return {"dtype": str(dtype).removeprefix("torch."), "shape": list(qkv.shape),
-            "plan": [clusters, ctas, warps], "ms": times,
+            "head_dim": dh, "plan": [clusters, ctas, warps], "ms": times,
             "sdpa_bwd_ms": sdpa_bwd_ms(qkv, g, heads), "bound_ms": bound,
             "bound_by": "operations" if ops / (67e12 if f32 else 989e12)
             > nbytes / 3.35e12 else "bytes",
@@ -676,17 +689,18 @@ def f32_args(qkv: torch.Tensor, heads: int) -> dict:
 
 
 def f32_ab(entries: dict, backward: bool, batch: int, gen,
-           order=_ORDER) -> dict:
+           order=_ORDER, dh: int = 64) -> dict:
     """K2 f32 (or K3 f32) of each of ``entries`` (name -> (forward,
-    backward)) on the same f32 inputs at (batch, 257, 2304), 12 heads: ms
-    in ``order``, and each output's max |difference| from the first
-    entry's and from the plain version's."""
-    n, heads, dh = 257, 12, 64
+    backward)) on the same f32 inputs at (batch, 257, 3 D),
+    ``model_heads(dh)`` heads (12 of 64 by default): ms in ``order``, and
+    each output's max |difference| from the first entry's and from the
+    plain version's."""
+    n, heads = 257, model_heads(dh)
     qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device, generator=gen)
     g = torch.randn((batch, n, heads * dh), device=gen.device, generator=gen)
     args = f32_args(qkv, heads)
     args["grad"] = g.data_ptr()
-    args["ctas"] = attn.f32_plan(n, backward=backward)[1]
+    args["ctas"] = attn.f32_plan(n, backward=backward, head_dim=dh)[1]
     outs = {name: torch.empty_like(qkv if backward else g) for name in entries}
 
     def run(name):
@@ -701,7 +715,7 @@ def f32_ab(entries: dict, backward: bool, batch: int, gen,
     ref = (attn.reference_attention_bwd(qkv, g, heads) if backward
            else attn.reference_attention(qkv, heads))
     first = outs[order[0]]
-    return {"shape": list(qkv.shape), "ms": times,
+    return {"shape": list(qkv.shape), "head_dim": dh, "ms": times,
             "max_abs_diff": {name: (out - first).abs().max().item()
                              for name, out in outs.items()},
             "max_abs_err": {name: (out - ref).abs().max().item()
@@ -739,7 +753,11 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sections", default=",".join(_SECTIONS),
                         help=f"comma-separated subset of {','.join(_SECTIONS)}")
+    parser.add_argument("--head-dims", default="64",
+                        help="comma-separated head dims of the sections k2, "
+                             "k3, k2f32, k3f32 and k3long")
     args = parser.parse_args()
+    dims = [int(d) for d in args.head_dims.split(",")]
     sections = args.sections.split(",")
     if not set(sections) <= set(_SECTIONS):
         raise SystemExit(f"unknown sections {sections}; expected {_SECTIONS}")
@@ -755,7 +773,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         f32 = {"k2f32", "k3f32"} & set(sections)
         sources = list(_OTHER_SOURCES) + (["attention_f32.cu"] if f32 else [])
-        if "k3long" in sections:
+        if "k3long" in sections or ("k3" in sections and set(dims) != {64}):
             sources += [os.path.basename(_defining_source(args.other_csrc, name))
                         for name in _LONG_ENTRIES]
         jobs = {"other": (args.other_csrc, tuple(dict.fromkeys(sources)), [])}
@@ -788,18 +806,25 @@ def main() -> int:
             for name in _LONG_PROBES if name in paths}
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
-        if "k2" in sections:
+        for dh in dims if "k2" in sections else ():
             for batch in (args.batch, 64):
-                report["k2"].append(k2_ab(libs, batch, gen))
+                report["k2"].append(k2_ab(libs, batch, gen, dh))
                 print("K2", json.dumps(report["k2"][-1]), flush=True)
         if "k4" in sections:
             for np_, fixed in ((257, False), (257, True), (288, True)):
                 report["k4"].append(k4_ab(libs, old["k4_scratch"], args.batch,
                                           np_, fixed, gen))
                 print("K4/K5", json.dumps(report["k4"][-1]), flush=True)
-        if "k3" in sections:
+        for dh in dims if "k3" in sections else ():
             for batch in (args.batch, 64):
-                report["k3"].append(k3_ab(libs, old["k3_stats"], batch, gen))
+                if dh == 64:
+                    record = k3_ab(libs, old["k3_stats"], batch, gen)
+                else:  # the cluster route, as bwd_route sends it above 64
+                    both = {"this": long_entries(libs["this"], _build.CSRC_DIR),
+                            "other": long_entries(other, args.other_csrc)}
+                    record = k3long_ab(both, torch.bfloat16, batch, gen, n=257,
+                                       dh=dh)
+                report["k3"].append(record)
                 print("K3", json.dumps(report["k3"][-1]), flush=True)
         if "variants" in sections:
             report["variants"] = variants_ab(libs, variants, rows, gen)
@@ -826,15 +851,18 @@ def main() -> int:
         if f32:
             entries["other"] = f32_entries(other, args.other_csrc)
         for section in ("k2f32", "k3f32"):
-            for batch in (args.batch, 64) if section in sections else ():
-                report[section].append(f32_ab(entries, section == "k3f32",
-                                              batch, gen))
-                print(section.upper(), json.dumps(report[section][-1]), flush=True)
-        if "k3long" in sections:
+            for dh in dims if section in sections else ():
+                for batch in (args.batch, 64):
+                    report[section].append(f32_ab(entries, section == "k3f32",
+                                                  batch, gen, dh=dh))
+                    print(section.upper(), json.dumps(report[section][-1]),
+                          flush=True)
+        for dh in dims if "k3long" in sections else ():
             both = {"this": long_entries(libs["this"], _build.CSRC_DIR),
                     "other": long_entries(other, args.other_csrc)}
             for dtype, batch in ((torch.bfloat16, 64), (torch.float32, 16)):
-                report["k3long"].append(k3long_ab(both, dtype, batch, gen))
+                report["k3long"].append(k3long_ab(both, dtype, batch, gen,
+                                                  dh=dh))
                 print("K3LONG", json.dumps(report["k3long"][-1]), flush=True)
         if "longprobes" in sections:
             order = ["this", *_LONG_PROBES, *reversed(_LONG_PROBES), "this"]

@@ -53,6 +53,10 @@ _SIGNATURES = {
                               ctypes.c_float, _P],
     "cvt_attention_bwd_f32_long": [_P, _P, _P, _P, _P, *[ctypes.c_int] * 6,
                                    ctypes.c_float, _P],
+    "cvt_attention_fwd_any": [_P, _P, *[ctypes.c_int] * 5, ctypes.c_float,
+                              _P],
+    "cvt_attention_bwd_any": [_P, _P, _P, _P, *[ctypes.c_int] * 5,
+                              ctypes.c_float, _P],
     "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],
     "cvt_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,

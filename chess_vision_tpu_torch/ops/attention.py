@@ -29,6 +29,15 @@ scratches. They count in ``F32_LAUNCHES`` and
 ``F32_BWD_LAUNCHES``, not in the bf16 counters. The plain versions are the
 same two functions, which compute in f32 for either dtype.
 
+Any other head dim (not a multiple of 8, or above 128), and a qkv that does
+not start on a 16-byte boundary, takes ``csrc/attention_any.cu`` in either
+dtype (``head_dim_route`` ``"any"``): the same function at any head dim and
+token count, a score product summed over the head dim in slices of 16
+columns copied element by element, the output's columns in chunks of at
+most ``ANY_MAX_COLS`` a CTA (``any_plan``); the backward in three launches
+through an f32 scratch of each row's statistics. Its calls count in the
+counters of their dtype and in ``ANY_LAUNCHES`` / ``ANY_BWD_LAUNCHES``.
+
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
 package's function of that name, K4): attention, then per-token int8
 quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu`` (one
@@ -63,10 +72,13 @@ FLAT_LAUNCHES = 0
 F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
 F32_BWD_LAUNCHES = 0  # of the f32 backward, one a call on either route
 F32_BWD_LONG_LAUNCHES = 0  # of F32_BWD_LAUNCHES, those of the long route
+ANY_LAUNCHES = 0  # of LAUNCHES and F32_LAUNCHES, csrc/attention_any.cu's
+ANY_BWD_LAUNCHES = 0  # of BWD_LAUNCHES and F32_BWD_LAUNCHES, the same
 
 # The attention kernels' (K2, K3) instantiations in csrc/attention*.cu
 # (cvt::flash_head_dim): a head dim that is a multiple of 8 up to 128 runs
-# the smallest that holds it, its extra columns zero (``kernel_head_dim``).
+# the smallest that holds it, its extra columns zero (``kernel_head_dim``);
+# any other head dim runs csrc/attention_any.cu (``head_dim_route``).
 # The quantizing kernels (K4/K5) take QUANT_HEAD_DIMS alone, as the JAX
 # int8 path.
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -93,6 +105,13 @@ F32_LONG_MAX_CTAS = 16
 LONG_MAX_CTAS = 8  # also the f32 long route's above a head dim of 64
 LONG_MAX_WARPS = 8
 _SMEM_LIMIT = 232448  # the dynamic shared memory a Hopper block may have
+# csrc/attention_any.cu: CTAs of 64 query rows (or keys, kTile), score
+# products in slices of 16 head-dim columns (kSlice), at most 128 output
+# columns a CTA (kMaxCols), transposed tiles of 68 floats a row (kLdT).
+ANY_TILE = 64
+ANY_SLICE = 16
+ANY_MAX_COLS = 128
+_ANY_LD = ANY_TILE + 4
 
 
 def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -147,23 +166,57 @@ def _accum_dtype(x: torch.Tensor) -> torch.dtype:
 
 def kernel_head_dim(head_dim: int) -> int:
     """The instantiation of K2 and K3 that runs ``head_dim``: the smallest of
-    ``HEAD_DIMS`` that holds it (48 -> 64, 72 -> 80, 96 -> 128). Raises for
-    a head dim that is not a multiple of 8 from 8 to 128: the kernels copy
-    a head's columns 16 bytes at a time from column h * head_dim, which must
-    stay 16-byte aligned in bf16."""
-    if head_dim % 8 or not 8 <= head_dim <= HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {head_dim} is not a multiple of 8 from 8 "
-                         f"to {HEAD_DIMS[-1]}: the attention kernels do not "
-                         "take it")
+    ``HEAD_DIMS`` that holds it (48 -> 64, 72 -> 80, 96 -> 128), for a
+    multiple of 8 from 8 to 128 (those kernels copy a head's columns 16
+    bytes at a time from column h * head_dim, which stays 16-byte aligned in
+    bf16); 0 for another head dim, which ``csrc/attention_any.cu`` runs.
+    Raises for a head dim below 1."""
+    if head_dim < 1:
+        raise ValueError(f"head dim {head_dim} is below 1: no attention "
+                         "kernel takes it")
+    if head_dim % 8 or head_dim > HEAD_DIMS[-1]:
+        return 0
     return next(d for d in HEAD_DIMS if d >= head_dim)
+
+
+def head_dim_route(head_dim: int, aligned: bool = True) -> str:
+    """Which kernels run K2 and K3 at ``head_dim``: ``"flash"``, the
+    instantiated ones (``kernel_head_dim``), where qkv starts on a 16-byte
+    boundary (``aligned``); ``"any"`` (``csrc/attention_any.cu``, which
+    copies element by element) for every other head dim or address."""
+    return "flash" if kernel_head_dim(head_dim) and aligned else "any"
+
+
+def any_plan(head_dim: int) -> tuple[int, int]:
+    """``csrc/attention_any.cu``'s output chunks at ``head_dim``: (chunks,
+    cols). A CTA keeps ``cols`` output columns (``any_cols``: the smallest
+    of 16, 32, 64 and 128 that holds the head dim, else 128), and the head's
+    ``chunks`` = ceil(head_dim / cols) chunks each take a CTA of their own,
+    which computes the score products over the whole head dim: 12 -> (1,
+    16), 100 -> (1, 128), 256 -> (2, 128), 768 -> (6, 128)."""
+    kernel_head_dim(head_dim)
+    cols = next((c for c in (16, 32, 64) if head_dim <= c), ANY_MAX_COLS)
+    return -(-head_dim // cols), cols
+
+
+def any_smem_bytes(head_dim: int, backward: bool) -> int:
+    """Dynamic shared memory of an ``csrc/attention_any.cu`` CTA
+    (``any_smem_bytes`` there): the two transposed score slices, then one
+    (forward, dQ) or two (dK and dV) pairs of a transposed 64 x 64 tile and
+    a 64-row tile of the chunk's columns, all f32."""
+    cols = any_plan(head_dim)[1]
+    tiles = 2 if backward else 1
+    return 4 * (2 * ANY_SLICE * _ANY_LD
+                + tiles * (ANY_TILE * _ANY_LD + ANY_TILE * cols))
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
                         dtypes: tuple = _KERNEL_DTYPES,
                         head_dims: tuple | None = None) -> int:
     """Raise on what the attention kernels do not take (the quantizing ones
-    take bf16 alone and ``QUANT_HEAD_DIMS``, as the JAX int8 path; K2 and
-    K3 any head dim ``kernel_head_dim`` takes); returns the head dim."""
+    take bf16 alone and ``QUANT_HEAD_DIMS`` at a 16-byte aligned address, as
+    the JAX int8 path; K2 and K3 any head dim from 1 at any address,
+    ``head_dim_route`` picks the kernels); returns the head dim."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype not in dtypes:
@@ -177,13 +230,17 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
     D = C3 // 3
     head_dim = D // num_heads
     if head_dims is None:
-        kernel_head_dim(head_dim)
+        chunks = any_plan(head_dim)[0]
     elif head_dim not in head_dims:
         raise ValueError(f"head dim {head_dim} not in {head_dims}")
-    if B > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ:
+    else:
+        chunks = 1
+    if B > _MAX_GRID_YZ or num_heads * chunks > _MAX_GRID_YZ:
         raise ValueError(f"batch {B} or heads {num_heads} exceed the grid")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    if head_dims is not None and qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned")
     return head_dim
 
 
@@ -275,7 +332,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     A CPU tensor takes ``reference_attention`` (and
     ``reference_attention_bwd`` for its gradient); a CUDA tensor launches the
-    kernels (bf16 or f32, a head dim that is a multiple of 8 up to 128) or
+    kernels (bf16 or f32, any head dim from 1, ``head_dim_route``) or
     raises."""
     if qkv.requires_grad and torch.is_grad_enabled():
         return _FusedAttention.apply(qkv, num_heads)
@@ -348,9 +405,14 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     lib = _build.library()
     scale = 1.0 / math.sqrt(head_dim)
     f32 = qkv.dtype == torch.float32
+    any_route = head_dim_route(head_dim, qkv.data_ptr() % 16 == 0) == "any"
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if f32:  # the scale folds into q where that is exact, as in JAX
+        if any_route:
+            rc = lib.cvt_attention_fwd_any(
+                qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
+                int(f32), scale, stream)
+        elif f32:  # the scale folds into q where that is exact, as in JAX
             q_scale, s_scale = (scale, 1.0) if _pow2(scale) else (1.0, scale)
             rc = lib.cvt_attention_fwd_f32(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
@@ -359,8 +421,10 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             rc = lib.cvt_attention_fwd(
                 qkv.data_ptr(), out.data_ptr(), B, N, num_heads, head_dim,
                 scale, stream)
-    _build.check(rc, "f32 attention" if f32 else "attention")
-    global LAUNCHES, F32_LAUNCHES
+    _build.check(rc, ("f32 attention" if f32 else "attention")
+                 + (" (any head dim)" if any_route else ""))
+    global LAUNCHES, F32_LAUNCHES, ANY_LAUNCHES
+    ANY_LAUNCHES += any_route
     if f32:
         F32_LAUNCHES += 1
     else:
@@ -369,8 +433,10 @@ def fused_qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16,
-              head_dim: int = 64) -> str:
-    """The backward kernel that takes ``n`` tokens of ``head_dim``: in bf16
+              head_dim: int = 64, aligned: bool = True) -> str:
+    """The backward kernel that takes ``n`` tokens of ``head_dim``: ``"any"``
+    (``csrc/attention_any.cu``, either dtype, every count) where
+    ``head_dim_route`` says so; else in bf16
     ``"short"`` (``csrc/attention_bwd.cu``, a head in shared memory) up to
     ``BWD_MAX_TOKENS`` and a head dim of ``BWD_SHORT_MAX_HEAD_DIM``,
     ``"long"`` (``csrc/attention_bwd_cluster.cu``, a head's keys in
@@ -379,6 +445,8 @@ def bwd_route(n: int, dtype: torch.dtype = torch.bfloat16,
     tokens and 80). In f32 ``"f32"`` (``csrc/attention_f32.cu``, a head's
     keys in one cluster of up to 8 CTAs) up to ``F32_MAX_TOKENS``,
     ``"f32_long"`` (the same kernel on ``long_plan``'s clusters) above."""
+    if head_dim_route(head_dim, aligned) == "any":
+        return "any"
     if dtype == torch.float32:
         return "f32" if n <= F32_MAX_TOKENS else "f32_long"
     short = (n <= BWD_MAX_TOKENS
@@ -392,9 +460,11 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     dqkv (B, N, 3*H*Dh).
 
     A CPU tensor takes ``reference_attention_bwd``; a CUDA tensor launches
-    a backward kernel (bf16 or f32, a head dim that is a multiple of 8 up to
-    128) or raises. The kernels are hand-written and give the same function;
-    dtype and shape pick one (``bwd_route``): in bf16 up to
+    a backward kernel (bf16 or f32, any head dim from 1) or raises. The
+    kernels are hand-written and give the same function; dtype, shape and
+    address pick one (``bwd_route``): ``csrc/attention_any.cu`` where
+    ``head_dim_route`` gives ``"any"`` (three launches through an f32
+    scratch of the rows' statistics, (B, H, 3, N)); else in bf16 up to
     ``BWD_MAX_TOKENS`` tokens and a head dim of 64 the one-block-per-head
     kernel of ``csrc/attention_bwd.cu``, otherwise
     ``csrc/attention_bwd_cluster.cu`` on ``long_plan``'s thread-block
@@ -421,10 +491,15 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if dqkv.numel() == 0:
         return dqkv
     lib = _build.library()
-    route = bwd_route(N, qkv.dtype, head_dim)
+    route = bwd_route(N, qkv.dtype, head_dim, qkv.data_ptr() % 16 == 0)
     ptrs = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr()]
     shape = [B, N, num_heads, head_dim]
-    if route in ("long", "f32_long"):
+    if route == "any":
+        stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32,
+                            device=qkv.device)
+        ptrs.append(stats.data_ptr())
+        shape.append(int(qkv.dtype == torch.float32))
+    elif route in ("long", "f32_long"):
         clusters, ctas, warps = long_plan(N, qkv.dtype, head_dim)
         scratch = [None, None]
         if clusters > 1:
@@ -438,14 +513,16 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
         shape.append(f32_plan(N, True, head_dim)[1])
     entry = {"short": lib.cvt_attention_bwd, "long": lib.cvt_attention_bwd_long,
              "f32": lib.cvt_attention_bwd_f32,
-             "f32_long": lib.cvt_attention_bwd_f32_long}[route]
+             "f32_long": lib.cvt_attention_bwd_f32_long,
+             "any": lib.cvt_attention_bwd_any}[route]
     with torch.cuda.device(qkv.device):
         rc = entry(*ptrs, *shape, 1.0 / math.sqrt(head_dim),
                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"attention backward ({route})")
     global BWD_LAUNCHES, BWD_LONG_LAUNCHES, F32_BWD_LAUNCHES
-    global F32_BWD_LONG_LAUNCHES
-    if route.startswith("f32"):
+    global F32_BWD_LONG_LAUNCHES, ANY_BWD_LAUNCHES
+    ANY_BWD_LAUNCHES += route == "any"
+    if qkv.dtype == torch.float32:
         F32_BWD_LAUNCHES += 1
         F32_BWD_LONG_LAUNCHES += route == "f32_long"
     else:

@@ -282,21 +282,41 @@ Phases, one line each; any failure exits non-zero before the last line:
              of head dim 64, every backward twice bit-identical; times by
              CUDA events beside plain and SDPA's; routes, plans, ptxas's
              registers and spills, shared memory. (c) ViT-Huge's widths
-             (1280 wide, 32 blocks, 16 heads of 80) at 256 px with random
-             weights: bf16 ``Predictor`` on --boards boards at batch 256 held
-             to plain as phase 5 (32 K2 a batch); ``train()`` in bf16 at batch
-             64 for 4 steps (32 K2 and 32 K3 on the cluster route a step,
+             (1280 wide, 16 heads of 80; 16 of its 32 blocks) at 256 px with
+             random weights: bf16 ``Predictor`` on --boards boards at batch
+             256 held to plain as phase 5 (16 K2 a batch); ``train()`` in bf16
+             at batch 64 for 4 steps (16 K2 and 16 K3 on the cluster route a step,
              its checkpoint left out), warm img/s and peak memory; one bf16
              step at batch 64 and one f32 step at batch 16 against plain
              attention within TRAIN_GRAD_RTOL and F32_GRAD_RTOL. (d)
              ``train()`` with ViT-B/16's widths on 6 heads of 128, bf16,
              batch 64, 2 steps: every K3 on the cluster route. The phase's
              seconds.
- 26. report  the kernels JSON line (every kernel with its bound and, where
+ 26. any head dim  K2 and K3 at the head dims the instantiated kernels do
+             not take, run by ``csrc/attention_any.cu``. (a) bf16 and f32 at
+             head dims 1, 3, 12, 20, 36, 100, 136, 192, 256, 384 and 768
+             (2 images, 257 tokens, 2 heads), and at 12 (64 heads) and 256
+             (3 heads) also at 577 and 1,100 tokens, against their plain
+             versions within the bounds of head dim 64, every backward twice
+             bit-identical, every call counted in its dtype's counter and in
+             ``ANY_LAUNCHES`` / ``ANY_BWD_LAUNCHES``; times by CUDA events at
+             (64, 257, 2304) on 3 heads of 256 and 64 heads of 12, bf16 and
+             f32, beside the bound, plain and SDPA's; ptxas's counts. (b)
+             ViT-B/16's widths (768 wide, 12 blocks, MLP 3072, 256 px) on 3
+             heads of 256 with random weights: bf16 ``Predictor`` on
+             --boards boards at batch 256 held to plain as phase 5 (12 K2 a
+             batch), boards/s; ``train()`` in bf16 at batch 64 for 4 steps
+             (12 K2 and 12 K3 a step, every one an any-head-dim launch; its
+             checkpoint left out), warm img/s and peak memory; one bf16 step
+             at batch 64 and one f32 step at batch 16 against plain attention
+             within TRAIN_GRAD_RTOL and F32_GRAD_RTOL. (c) the same on 64
+             heads of 12. The phase's seconds.
+ 27. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel must have been launched by a main path: K3's long
-             routes by phase 24's, the head dims 80 and 128 by phase 25's),
-             the nvidia-smi line, then {"ok": true, "device": {...}}.
+             routes by phase 24's, the head dims 80 and 128 by phase 25's,
+             the any-head-dim kernels by phase 26's), the nvidia-smi line,
+             then {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over the
@@ -845,20 +865,21 @@ def main() -> int:
         dp_phase(args, cfg, params, boards, train_ckpt, workdir, kind, smi)
         p384_phase(args, kernels, kind, smi, workdir)
         head_dims_phase(args, kernels, kind, smi, workdir)
+        any_head_dims_phase(args, kernels, kind, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 26: the kernels line, the card and the last line."""
+    """Phase 27: the kernels line, the card and the last line."""
     import torch
 
     idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[26 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[27 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -3851,7 +3872,7 @@ def vit_train_run(tag: str, args, corpus, batch: int, f32: bool, workdir: str,
     and K3 once a block, K3 on the route ``bwd_route`` gives the model's
     tokens and head dim, every eval step K2 alone; finite losses; warm
     img/s and peak memory printed. ``write_checkpoint`` False leaves out the
-    epoch's checkpoint (ViT-Huge's would be 7.6 GB). Returns the run's K2
+    epoch's checkpoint (several GB at ViT-Huge's widths). Returns the run's K2
     and K3 launches."""
     import torch
 
@@ -3995,9 +4016,10 @@ def p384_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> None:
     print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-# ViT-Huge's widths (Dosovitskiy et al., 2021, Table 1): 32 blocks, width
-# 1280, MLP 5120, 16 heads of 80; and ViT-B/16's widths on 6 heads of 128
-HUGE = {"embed_dim": 1280, "depth": 32, "num_heads": 16}
+# ViT-Huge's widths (Dosovitskiy et al., 2021, Table 1): width 1280, MLP
+# 5120, 16 heads of 80, its 32 blocks cut to 16 to keep the script's time
+# under ~700 s; and ViT-B/16's widths on 6 heads of 128
+HUGE = {"embed_dim": 1280, "depth": 16, "num_heads": 16}
 HEADS_128 = {"num_heads": 6}
 
 
@@ -4268,6 +4290,218 @@ def head_dims_phase(args, kernels: dict, kind: str, smi: str, workdir: str) -> N
     huge_phase(args, kernels, kind, smi, workdir)
     head128_phase(args, kernels, kind, smi, workdir)
     print(f"[25 head dims] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+
+# ViT-B/16's widths on 3 heads of 256 and on 64 heads of 12: head dims that
+# only the any-head-dim kernels (csrc/attention_any.cu) run
+HEADS_256 = {"num_heads": 3}
+HEADS_12 = {"num_heads": 64}
+ANY_HEAD_DIMS = (1, 3, 12, 20, 36, 100, 136, 192, 256, 384, 768)
+
+
+def any_counts() -> tuple[int, int]:
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    return attn_ops.ANY_LAUNCHES, attn_ops.ANY_BWD_LAUNCHES
+
+
+def any_check(tag: str, dev, gen, B: int, n: int, heads: int, dh: int, dtype
+              ) -> tuple:
+    """K2 and K3 on the any-head-dim kernels at (B, n, 3 heads dh) against
+    their plain versions within head dim 64's bounds, the backward twice
+    bit-identical, one launch of each counted in the dtype's counter and in
+    the any-head-dim ones. Returns (qkv, g, fwd err, bwd err)."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    f32 = dtype == torch.float32
+    D = heads * dh
+    qkv = torch.randn((B, n, 3 * D), device=dev, generator=gen).to(dtype)
+    g = torch.randn((B, n, D), device=dev, generator=gen).to(dtype)
+    before = long_counts() + any_counts()
+    out = attn_ops.fused_qkv_attention_fwd(qkv, heads)
+    dqkv = attn_ops.fused_qkv_attention_bwd(qkv, g, heads)
+    again = attn_ops.fused_qkv_attention_bwd(qkv, g, heads)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(long_counts() + any_counts(), before))
+    err = (out.float() - attn_ops.reference_attention(qkv, heads).float()
+           ).abs().max().item()
+    derr = (dqkv.float() - attn_ops.reference_attention_bwd(qkv, g, heads).float()
+            ).abs().max().item()
+    same = torch.equal(dqkv, again)
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(dqkv).all())
+    want = (0, 0, 0, 1, 2, 0, 1, 2) if f32 else (1, 2, 0, 0, 0, 0, 1, 2)
+    fwd_bound = F32_ATOL if f32 else ATTN_ATOL
+    bwd_bound = F32_ATOL if f32 else K3_ATOL
+    print(f"  {tag} {'f32' if f32 else 'bf16'} {tuple(qkv.shape)} {heads} heads "
+          f"of {dh} (plan {attn_ops.any_plan(dh)}): K2 max |diff| {err:.3e} "
+          f"(bound {fwd_bound}), K3 {derr:.3e} (bound {bwd_bound}), twice "
+          f"bit-identical {same}, launches {moved}", flush=True)
+    require(finite and err <= fwd_bound and derr <= bwd_bound and same
+            and moved == want,
+            f"{tag} {'f32' if f32 else 'bf16'} at {tuple(qkv.shape)}, head dim "
+            f"{dh}: {err}, {derr}, deterministic {same}, finite {finite}, "
+            f"launches {moved}")
+    return qkv, g, err, derr
+
+
+def any_kernel_checks(args, dev, kernels: dict) -> None:
+    """Phase 26 (a): the any-head-dim kernels at every head dim of
+    ``ANY_HEAD_DIMS`` and, at 12 and 256, at 577 and 1,100 tokens; then
+    timed at (64, 257, 2304) on 3 heads of 256 and on 64 heads of 12,
+    whose readings become the kernels line's entries (their launches
+    counted by (b) and (c))."""
+    import re
+
+    import torch
+
+    from chess_vision_tpu_torch.ops import _build
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    tag = "[26a any head dim]"
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 26)
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in ANY_HEAD_DIMS:
+            any_check(tag, dev, gen, 2, 257, 2, dh, dtype)
+        for dh, heads in ((12, HEADS_12["num_heads"]), (256, HEADS_256["num_heads"])):
+            for n in (577, 1100):
+                any_check(tag, dev, gen, 2, n, heads, dh, dtype)
+        torch.cuda.empty_cache()
+    readings = []
+    for kernel, args, spill, regs in re.findall(
+            r"Compiling entry function '[^']*attention_any_cu[^']*?(any_[a-z]+_kernel)"
+            r"I(\w+?)EvNS_4CallE'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+            _build.build_log, re.S):
+        width = re.search(r"Li(\d+)E", args)
+        readings.append(f"{kernel} {'bf16' if 'bfloat16' in args else 'f32'}"
+                        f"{f' {16 * int(width.group(1))}' if width else ''}: "
+                        f"{regs}, {spill}")
+    print(f"  {tag} ptxas (kernel, dtype, output columns: registers, bytes "
+          f"spilled): {'; '.join(readings) or 'not in this build log'}",
+          flush=True)
+    n = SIZE // 16 * SIZE // 16 + 1
+    for dh, heads in ((256, HEADS_256["num_heads"]), (12, HEADS_12["num_heads"])):
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            qkv, g, err, derr = any_check(tag, dev, gen, TRAIN_BATCH, n, heads,
+                                          dh, dtype)
+            ms = cuda_ms(lambda: attn_ops.fused_qkv_attention_fwd(qkv, heads), 5)
+            bwd_ms = cuda_ms(
+                lambda: attn_ops.fused_qkv_attention_bwd(qkv, g, heads), 5)
+            plain_ms = cuda_ms(lambda: attn_ops.reference_attention(qkv, heads), 2)
+            plain_bwd = cuda_ms(
+                lambda: attn_ops.reference_attention_bwd(qkv, g, heads), 2)
+            lib_fwd, lib_bwd = sdpa_ms(qkv, g, heads)
+            size = 4 if f32 else 2
+            ops = 2 * 2 * TRAIN_BATCH * heads * n * n * dh
+            op_type = "f32" if f32 else "bf16"
+            suffix = f"{'_f32' if f32 else ''}_any_dh{dh}"
+            fwd_entry = kernel_entry(
+                f"fused_qkv_attention{suffix}", "attention_any.cu",
+                "chess_vision_tpu/ops/attention.py:90", err, ms, plain_ms,
+                nbytes=size * qkv.numel() * 4 // 3, ops=ops, op_type=op_type,
+                library_ms=lib_fwd)
+            bwd_entry = kernel_entry(
+                f"fused_qkv_attention_bwd{suffix}", "attention_any.cu",
+                "chess_vision_tpu/ops/attention.py:623", derr, bwd_ms, plain_bwd,
+                nbytes=size * (2 * qkv.numel() + g.numel()), ops=ops * 5 // 2,
+                op_type=op_type, library_ms=lib_bwd)
+            print(f"{tag} {op_type} {tuple(qkv.shape)} {heads} heads of {dh}: "
+                  f"K2 {ms:.4f} ms (bound {fwd_entry['bound_ms']:.4f}, plain "
+                  f"{plain_ms:.4f}, SDPA {lib_fwd:.4f}); K3 {bwd_ms:.4f} ms "
+                  f"(bound {bwd_entry['bound_ms']:.4f}, plain {plain_bwd:.4f}, "
+                  f"SDPA backward {lib_bwd:.4f}); shared memory a CTA "
+                  f"{attn_ops.any_smem_bytes(dh, False)} (forward, dQ) and "
+                  f"{attn_ops.any_smem_bytes(dh, True)} (dK, dV) bytes",
+                  flush=True)
+            for entry in (fwd_entry, bwd_entry):
+                kernels[entry["name"]] = entry
+            del qkv, g
+            torch.cuda.empty_cache()
+
+
+def any_model_phase(tag: str, model: dict, args, kernels: dict, kind: str,
+                    smi: str, workdir: str) -> None:
+    """Phase 26 (b) and (c): ViT-B/16's widths on ``model``'s heads with
+    random weights, every attention call an any-head-dim launch: bf16
+    ``Predictor`` held to plain as phase 5, ``train()`` in bf16 at batch 64,
+    one bf16 step at batch 64 and one f32 step at batch 16 against plain
+    attention."""
+    import torch
+
+    from chess_vision_tpu_torch.experiments.plain import forward_logits
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    cfg = {"model": {**FULL_WIDTH, **model}, "training": {"mixed_precision": True}}
+    depth = cfg["model"]["depth"]
+    dh = cfg["model"]["embed_dim"] // cfg["model"]["num_heads"]
+    suffix = f"_any_dh{dh}"
+    require(attn_ops.head_dim_route(dh) == "any", f"{tag} head dim {dh}'s route")
+    predictor = Predictor((cfg, random_jax_params(cfg, args.seed)),
+                          batch_size=BATCH, device="cuda")
+    boards = np.random.default_rng(args.seed + 27).integers(
+        0, 256, (args.boards, SIZE, SIZE, 3), dtype=np.uint8)
+    predictor.predict_array(boards[:BATCH])
+    torch.cuda.synchronize()
+    reset_counts()
+    attn_ops.ANY_LAUNCHES = attn_ops.ANY_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fens = predictor.predict_array(boards)
+    serve_s = time.perf_counter() - t0
+    served = (pre_ops.LAUNCHES, attn_ops.LAUNCHES, attn_ops.ANY_LAUNCHES)
+    batches = math.ceil(args.boards / BATCH)
+    with plain_ops(attn_ops, pre_ops):
+        fens_plain = predictor.predict_array(boards)
+        logits_p = forward_logits(predictor, boards)
+    logits_k = forward_logits(predictor, boards)
+    print(f"{tag} bf16 Predictor, {args.boards} boards in {batches} batches of "
+          f"{BATCH}: (K1, K2, K2 on the any-head-dim kernel) launches {served} "
+          f"({batches}, {depth * batches}, {depth * batches} wanted), "
+          f"{args.boards / serve_s:.1f} boards/s; {kind}, {smi}", flush=True)
+    require(served == (batches, depth * batches, depth * batches),
+            f"{tag} serving launches {served}")
+    require_logits(tag, fens, fens_plain, logits_k, logits_p, SQUARES_ULPS)
+    kernels[f"fused_qkv_attention{suffix}"]["launches"] += served[2]
+    del predictor
+    torch.cuda.empty_cache()
+
+    corpus = MemoryCorpus(320, args.seed)
+    attn_ops.ANY_LAUNCHES = attn_ops.ANY_BWD_LAUNCHES = 0
+    k2, k3 = vit_train_run(tag, args, corpus, TRAIN_BATCH, False, workdir, kind,
+                           smi, write_checkpoint=False, **model)
+    require(any_counts() == (k2, k3), f"{tag} train() launches ({k2}, {k3}), of "
+                                      f"them on the any-head-dim kernels {any_counts()}")
+    kernels[f"fused_qkv_attention{suffix}"]["launches"] += k2
+    kernels[f"fused_qkv_attention_bwd{suffix}"]["launches"] += k3
+    vit_grads_check(tag, args, corpus, TRAIN_BATCH, False, **model)
+    attn_ops.ANY_LAUNCHES = attn_ops.ANY_BWD_LAUNCHES = 0
+    moved = vit_grads_check(tag, args, MemoryCorpus(16, args.seed), 16, True,
+                            **model)
+    require(any_counts() == (moved[3], moved[4]),
+            f"{tag} the f32 step's any-head-dim launches {any_counts()}")
+    kernels[f"fused_qkv_attention_f32{suffix}"]["launches"] += moved[3]
+    kernels[f"fused_qkv_attention_bwd_f32{suffix}"]["launches"] += moved[4]
+    torch.cuda.empty_cache()
+
+
+def any_head_dims_phase(args, kernels: dict, kind: str, smi: str,
+                        workdir: str) -> None:
+    """Phase 26: the any-head-dim kernels checked and timed, then ViT-B/16's
+    widths on 3 heads of 256 and on 64 heads of 12 served and trained."""
+    import torch
+
+    t_phase = time.perf_counter()
+    any_kernel_checks(args, torch.device("cuda"), kernels)
+    any_model_phase("[26b heads of 256]", HEADS_256, args, kernels, kind, smi,
+                    workdir)
+    any_model_phase("[26c heads of 12]", HEADS_12, args, kernels, kind, smi,
+                    workdir)
+    print(f"[26 any head dim] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -131,17 +131,24 @@ def test_instantiations_are_the_sources():
 
 def test_head_dims_routes_and_plans():
     """Each multiple of 8 from 8 to 128 runs the smallest instantiation
-    that holds it; another raises, naming it. At 48 the bf16 backward keeps
+    that holds it; another head dim from 1 takes ``csrc/attention_any.cu``
+    (``head_dim_route`` "any", forward and backward at every count, either
+    dtype); only a head dim below 1 raises, naming it. At 48 the bf16 backward keeps
     its short route up to 288 tokens; above 64 it takes the cluster route at
     every count, whose CTAs (8 warps) fit one an SM; f32 above 64 keeps to
     clusters of the portable 8 CTAs, so 577 tokens split over 2 clusters of
     5 (64 there: 1 of 10)."""
     for dh in range(8, 129, 8):
         assert attn.kernel_head_dim(dh) == min(d for d in attn.HEAD_DIMS if d >= dh)
-    for dh in (0, 4, 12, 100, 136, 256):
-        with pytest.raises(ValueError, match=f"head dim {dh} "):
-            attn.kernel_head_dim(dh)
     bf16, f32 = torch.bfloat16, torch.float32
+    for dh in (4, 12, 100, 136, 256):
+        assert attn.kernel_head_dim(dh) == 0
+        assert attn.head_dim_route(dh) == "any"
+        for dtype in (bf16, f32):
+            assert {attn.bwd_route(n, dtype, dh) for n in (17, 257, 577, 1100)} \
+                == {"any"}
+    with pytest.raises(ValueError, match="head dim 0 "):
+        attn.kernel_head_dim(0)
     assert [attn.bwd_route(n, bf16, 48) for n in (17, 288, 289)] == [
         "short", "short", "long"]
     for dh in (72, 80, 96, 128):

@@ -2,7 +2,9 @@
 (their own instantiations: ViT-Huge's 80) and 48 (a head dim between two,
 run by the 64 instantiation with its extra columns zero), bf16 and f32,
 forward and backward, every route, against ``reference_attention`` and
-``reference_attention_bwd``. Skips without a CUDA device. On a GPU machine
+``reference_attention_bwd``; 12, 136 and 4, which the any-head-dim kernels
+run (``tests/test_torch_head_dims_any_cuda.py`` takes them further). Skips
+without a CUDA device. On a GPU machine
 without JAX, run without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_head_dims_cuda.py -q
@@ -100,14 +102,33 @@ def test_backward_matches_plain_and_repeats(cuda, dtype):
 
 @pytest.mark.parametrize("dh", (12, 136, 4))
 def test_other_head_dims_raise(cuda, dh):
-    """A head dim that is not a multiple of 8 up to 128 raises, naming it;
-    nothing falls back to the plain version."""
+    """A head dim that is not a multiple of 8 up to 128 no longer raises:
+    ``csrc/attention_any.cu`` runs it, forward and backward, held to the
+    plain versions at head dim 64's bounds, each call counted in its dtype's
+    counter and in the any-head-dim ones; nothing falls back to the plain
+    version. A head dim below 1 still raises, naming it."""
     for dtype in DTYPES:
         qkv, g = _inputs(1, 17, 2, dh, dtype, cuda)
-        with pytest.raises(ValueError, match=f"head dim {dh}"):
-            attn.fused_qkv_attention_fwd(qkv, 2)
-        with pytest.raises(ValueError, match=f"head dim {dh}"):
-            attn.fused_qkv_attention_bwd(qkv, g, 2)
+        before = (_fwd_count(dtype), attn.ANY_LAUNCHES, _bwd_counts(),
+                  attn.ANY_BWD_LAUNCHES)
+        out = attn.fused_qkv_attention_fwd(qkv, 2)
+        dqkv = attn.fused_qkv_attention_bwd(qkv, g, 2)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        assert _fwd_count(dtype) == before[0] + 1
+        assert attn.ANY_LAUNCHES == before[1] + 1
+        moved = [a - b for a, b in zip(_bwd_counts(), before[2])]
+        assert moved == ([0, 0, 1, 0] if f32 else [1, 0, 0, 0])
+        assert attn.ANY_BWD_LAUNCHES == before[3] + 1
+        torch.testing.assert_close(out.float(),
+                                   attn.reference_attention(qkv, 2).float(),
+                                   rtol=0, atol=FWD_ATOL[dtype])
+        torch.testing.assert_close(dqkv.float(),
+                                   attn.reference_attention_bwd(qkv, g, 2).float(),
+                                   rtol=0, atol=BWD_ATOL[dtype])
+    qkv, _ = _inputs(1, 17, 2, dh, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim 0 "):
+        attn.fused_qkv_attention_fwd(qkv[:, :, :0], 2)
 
 
 def test_quantizing_attention_keeps_its_head_dims(cuda):
