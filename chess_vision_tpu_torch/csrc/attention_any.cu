@@ -5,7 +5,9 @@
 // that is a multiple of 8 up to 128, qkv at a 16-byte aligned address) do
 // not take: a head dim that is not a multiple of 8 (ViT-B/16's width on 64
 // heads of 12), one above 128 (3 heads of 256), or a qkv view that starts
-// off a 16-byte boundary.
+// off a 16-byte boundary. This file holds the forward (K2) and the entries;
+// the backward (K3) is attention_any_bwd.cu, the device code both share
+// attention_any.cuh.
 //
 // Replaces the TPU kernels chess_vision_tpu/ops/attention.py
 // _kernel_attention (_attn_kernel) and _kernel_attention_bwd
@@ -14,557 +16,317 @@
 // {0, D, 2D} of qkv (B, N, 3*D), D = H*Dh; the output lands in out (B, N, D)
 // and the gradient in dqkv (B, N, 3*D) at the same columns.
 //
-// Arithmetic (f32 on the CUDA cores, FFMA; bf16 operands widened exactly):
-//  scores   s = q k over the head dim in slices of 16 columns, each slice in
-//           column order, so a score has the same bits in every kernel here,
-//           whichever operand is read as rows.
-//  forward  (the JAX kernel's) the row max m over all keys; p = exp(s - m)
-//           (bf16: exp2f(fmaf(s, scale log2 e, -m scale log2 e)), the
-//           instantiated kernels' form; f32: expf(fl(s scale) - m)); bf16
-//           rounds p, and the row sum adds the rounded p as the JAX kernel's
-//           ones column of V does; P V summed in f32, divided by the row sum
-//           floored at 1e-30, one rounding of the output.
-//  backward (reference_attention_bwd's rounding points) pn = p / l,
-//           r = rowsum(dP * pn) with dP = g v^T, dS = pn * (dP - r) * scale
-//           rounded to the input dtype, pn rounded as dV's operand; dQ = dS K,
-//           dK = dS^T Q, dV = pn^T g summed in f32, each output rounded once.
+// Arithmetic (the JAX kernels' rounding points): S = Q K^T summed in f32 (bf16
+// on the tensor cores, f32 in FFMA in full f32: no TF32). Forward: the online
+// row max, rescaled once per ring stage of fwd_keys keys; bf16 p =
+// exp2f(fmaf(s, scale log2 e, -m scale log2 e)) rounded to bf16, the row sum
+// adding the rounded p as the JAX kernel's ones column of V does; f32 p =
+// expf(fl(s scale) - m); P V summed in f32, divided by the row sum floored at
+// 1e-30, one rounding of the output. Backward: the row statistics (max, sum,
+// sum dP p) recomputed in the kernel, pn = p / l, r = sum dP pn, dS = pn (dP
+// - r) scale rounded to the input dtype, pn rounded as dV's operand; dQ = dS
+// K, dK = dS^T Q, dV = pn^T g summed in f32, each output rounded once.
 //
-// Design: a simple kernel that is right, built for any head dim and any
-// token count. 256 threads a CTA, 16 x 16, each holding a 4 x 4 block of a
-// 64 x 64 score tile (rows 4 ty + i, columns tx + 16 j); a score tile is
-// summed over the head dim in slices of 16 columns copied element by element
-// (no alignment asked of any column), transposed into shared memory as f32,
-// zero past the head dim and past the last row. A CTA keeps one chunk of at
-// most kMaxCols output columns (any_cols: 16, 32, 64 or 128, the smallest
-// that holds the head dim, else 128 in ceil(Dh / 128) chunks); the grid's y
-// runs over (head, chunk), so each chunk's CTA computes the score products
-// over the whole head dim again: the extra work is (chunks - 1) times the
-// score products, the price of keeping every accumulator in registers.
-//  any_fwd_kernel    per (64 query rows, head and chunk, image): a pass over
-//           the keys for the row max, a second for p, the row sums and
-//           P V += p x (the chunk's columns of V), 64 keys a step.
-//  any_stats_kernel  per (64 query rows, head, image): m (as a shift), l and
-//           r of every row into an f32 scratch (B, H, 3, N): three passes
-//           over the keys (max; sum; dP and r), as the JAX kernel's exact
-//           order of max, exp-sum and normalization asks.
-//  any_dq_kernel     per (64 query rows, head and chunk, image): S and dP of
-//           each 64-key step, dS, dQ += dS (the chunk's columns of K).
-//  any_dkv_kernel    per (64 keys, head and chunk, image): S^T and dP^T of
-//           each 64-row step of queries against the scratch's statistics,
-//           dV += pn^T g and dK += dS^T Q over the chunk's columns.
-// No atomics, no order that depends on timing: every backward gives the same
-// bits twice. The backward is three launches in one call of the entry.
-// Timings, bounds and the shapes run on the card are in PERF.md section 6.
+// Design (one CTA, or one cluster, over all of a head's output columns up
+// to a head dim of 256):
+//  - The head dim is padded with zeros in shared memory to a multiple of 16
+//    (the score products' depth) and the output columns to any_cols(Dh):
+//    16, 32, 64, 128 or 256, a template argument, so that the accumulators
+//    stay in registers. Above 256 (384, 768, 1,024) the output columns go in
+//    chunks of 256, a CTA (or cluster) each, and every chunk computes S (and
+//    in the backward dP) over the whole head dim again: the score products
+//    cost any_chunks(Dh) times (2 at 384, 3 at 768, 4 at 1,024). At or below
+//    256 no score or dP product is computed for another column chunk.
+//  - Above a head dim of 256 the tiles hold the depth a window of 256
+//    columns at a time (any_window; the kernels' kDeep form), so no head dim
+//    is refused and the forward and the backward take the same ones: the
+//    forward copies Q's and a stage's K columns window by window and sums S
+//    over them in order, one stage at a time with no copy under the
+//    products; the backward copies a query tile's Q and g and its CTA's K
+//    and V window by window, sums each unit's S^T and dP^T over them into
+//    shared memory, which both of its passes read, then copies the chunk's
+//    window again for dV, dK and dQ. Every chunk sums the windows in the
+//    same order, so every chunk's S has the same bits.
+//  - Whole Q/K/V/g tiles come into shared memory by cp.async, each call at
+//    the widest width its addresses allow (copy_bytes: 16 bytes at 3 heads of
+//    256, 8 at 64 heads of 12, 2-byte element copies only for an odd head dim
+//    in bf16), zero past the head dim and past the last token. No barrier per
+//    column slice.
+//  - Query rows go in 16-row blocks, a warp each; keys in 16-key sub-steps,
+//    those wholly past the last key skipped: 257 tokens cost 272 x 272
+//    scores, not 320 x 320.
+//  - Forward (any_fwd_kernel): a CTA of 4 warps (64 query rows) walks the
+//    head's keys through a two-stage cp.async ring of K (the whole depth)
+//    and V (the chunk's columns), tiles copied without a division an element; each
+//    stage's S is computed once (the next depth step's fragments read under
+//    this one's products), its row max taken,
+//    o rescaled, p formed and P V added (bf16: p re-packed in registers as
+//    the A fragment, V by ldmatrix.trans; f32: p through the warp's tile in
+//    shared memory). At 256 columns a warp holds 16 rows x 256 columns of o
+//    (128 f32 a thread), FlashAttention-2's head-dim-256 form, with 32-key
+//    stages (two CTAs an SM in bf16).
+//  - Backward (any_bwd_kernel, attention_any_bwd.cu): attention_bwd_cluster.cu's
+//    plan on every head dim. A thread-block cluster of up to 16 CTAs per
+//    (image, head, chunk); the head's 16-key steps shared out evenly, each
+//    CTA keeping its keys' K and V in shared memory and their dK / dV sums in
+//    registers for the whole launch (a warp 16 keys by up to 128 columns:
+//    at 256 two warps share a key block); the cluster walks the query rows in
+//    tiles (bwd_rows: 128 rows at 16 columns, 64 up to 64, else 32; f32 64
+//    and 16), more rows where a tile's barriers would outweigh its products.
+//    A tile: S^T and dP^T of each 16 x 16 unit in one walk over the depth
+//    (four chains of products, the next fragments read under this step's),
+//    for the row statistics, which cross the cluster through distributed
+//    shared memory (a lane a CTA, a fixed xor tree); S^T and dP^T again,
+//    the same units with the same operands (the same bits), for pn^T and
+//    dS^T into shared memory; dV += pn^T g and dK += dS^T Q; the CTA's
+//    partial dQ = dS K, each row's slice stored into the shared memory of the
+//    CTA that owns the row, added there in rank order after a cluster
+//    barrier. 7 products
+//    (S and dP twice), one launch per call up to the keys 16 CTAs hold
+//    (1,024 tokens at every head dim, 64 or 128 keys a CTA), no
+//    scratch, no atomics: every backward gives the same bits twice. Past
+//    that a head's keys split over several clusters: a statistics launch and
+//    the main one through f32 scratches (the clusters' statistics and dQ
+//    partials) and a summing launch, as the long routes do.
+// ptxas's registers and spills and the readings on the card are in PERF.md
+// section 6 (chip_smoke.py phase 26 prints them).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_any.cuh"
 
-#include <cmath>
-#include <cstdint>
-#include <type_traits>
-
+namespace cvt_any {
 namespace {
 
-constexpr int kTile = 64;         // query rows or keys of a tile
-constexpr int kSlice = 16;        // head-dim columns a score product takes a step
-constexpr int kThreads = 256;     // 16 x 16 threads, 4 x 4 scores each
-constexpr int kLdT = kTile + 4;   // floats of a transposed row (16-byte aligned)
-constexpr int kMaxCols = 128;     // output columns a CTA: one chunk of the head dim
+// kDeep: a depth above 256, which the tiles hold a window at a time (DP is
+// 256 then). Each ring stage copies Q's and the stage's K columns of each
+// window in turn, S summed over them in order, then the stage's V: one
+// stage, no copy under the products.
+template <typename T, int DP, bool kWhole, bool kDeep>
+__global__ void __launch_bounds__(32 * kFwdWarps, sizeof(T) == 2 && DP <= 64 ? 4 : 2)
+any_fwd_kernel(const Call a) {
+  constexpr int KS = fwd_keys(sizeof(T), DP);  // keys a stage
+  constexpr int NB = KS / 8;
+  constexpr int P = row_pad(sizeof(T));
+  constexpr int LP = KS + 4;  // f32: a row of a warp's P tile
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y / a.chunks;
+  const int c0 = blockIdx.y % a.chunks * DP;
+  const int cols = min(DP, a.dh - c0);  // the chunk's columns
+  const int d_model = a.heads * a.dh;
+  const long long rs = 3LL * d_model;
+  const int depth = a.depth;
+  constexpr int kStages = kDeep ? 1 : 2;
+  const int ldq = any_window(depth) + P;      // Q and K rows
+  const int ldv = min(DP, depth) + P;         // V rows: the chunk's columns
+  const int vw = min(DP, depth - c0);         // V columns copied
+  T* qs = smem;
+  T* kr = qs + 16 * warps * ldq;
+  T* vr = kr + kStages * KS * ldq;
+  float* ps = reinterpret_cast<float*>(vr + kStages * KS * ldv) + warp * 16 * LP;
+  const T* base = static_cast<const T*>(a.qkv) + (long long)b * a.n * rs + (long long)h * a.dh;
+  const int row0 = blockIdx.x * 16 * warps;
+  const int nst = (a.n + KS - 1) / KS;
 
-// The output columns a CTA keeps for head dim dh: the smallest of 16, 32, 64
-// and 128 that holds it, else 128 (the head dim in ceil(dh / 128) chunks).
-__host__ __device__ constexpr int any_cols(int dh) {
-  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : kMaxCols;
-}
-
-// Dynamic shared memory of each kernel, in bytes, for chunks of cols
-// columns: the two score slices, then the forward's and dQ's P tile and
-// column tile, dK/dV's two of each; at 128 columns 58,880 and 109,056.
-constexpr int kSliceFloats = 2 * kSlice * kLdT;
-__host__ __device__ constexpr int any_smem_bytes(int cols, int tiles) {
-  return 4 * (kSliceFloats + tiles * (kTile * kLdT + kTile * cols));
-}
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// a product's operand as the JAX kernel rounds it: to bf16 for bf16 inputs
-template <typename T>
-__device__ __forceinline__ float operand(float x) {
-  return widen(narrow<T>(x));
-}
-
-// The softmax's scores, shift and exponentials: in f32 the scaled score
-// fl(s scale) and expf against the row max of those; in bf16 the raw score
-// and exp2f(fmaf(s, scale log2 e, -shift)), the shift m scale log2 e.
-template <typename T>
-struct Softmax {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  float scale, scale_log2;
-  __device__ __forceinline__ float score(float s) const {
-    return kF32 ? __fmul_rn(s, scale) : s;
+  if constexpr (!kDeep) {  // the CTA's Q rows and the first stage, one group
+    copy_tile<kWhole>(qs, ldq, base, rs, row0, 16 * warps, a.n, depth, a.dh, a.wbytes);
+    copy_tile<kWhole>(kr, ldq, base + d_model, rs, 0, KS, a.n, depth, a.dh, a.wbytes);
+    copy_tile<kWhole>(vr, ldv, base + 2 * d_model + c0, rs, 0, KS, a.n, vw, a.dh - c0, a.wbytes);
+    cvt::flash_commit();
   }
-  __device__ __forceinline__ float shift(float m) const { return kF32 ? m : m * scale_log2; }
-  __device__ __forceinline__ float p(float s, float sh) const {
-    return kF32 ? expf(__fsub_rn(__fmul_rn(s, scale), sh)) : exp2f(fmaf(s, scale_log2, -sh));
-  }
-  // dS = pn * (dP - r) * scale, in that order, rounded as the JAX kernel
-  __device__ __forceinline__ float ds(float pn, float dp, float r) const {
-    return operand<T>(__fmul_rn(__fmul_rn(pn, __fsub_rn(dp, r)), scale));
-  }
-};
 
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// acc[i][j] = sum over d < dh of a[(4 ty + i) lda + d] b[(tx + 16 j) ldb + d]:
-// rows past a_rows and b_rows, and columns past dh, read as zeros. Slices of
-// 16 columns go through sa and sb transposed, each after a barrier of the
-// block: shared memory that the caller read before the call is free to
-// write once it returns.
-template <typename T>
-__device__ void score_tile(const T* a, long long lda, int a_rows, const T* b, long long ldb,
-                           int b_rows, int dh, float* sa, float* sb, float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  for (int d0 = 0; d0 < dh; d0 += kSlice) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * kSlice; e += kThreads) {
-      const int r = e / kSlice;
-      const int c = e % kSlice;
-      const bool col = d0 + c < dh;
-      sa[c * kLdT + r] = col && r < a_rows ? widen(a[r * lda + d0 + c]) : 0.f;
-      sb[c * kLdT + r] = col && r < b_rows ? widen(b[r * ldb + d0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kSlice; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(sa + k * kLdT + 4 * ty);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      float ys[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ys[j] = sb[k * kLdT + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// x[t][c] = the tile's row t, column c0 + c of src (rows of ld elements),
-// zero past `rows` rows and `cols` columns: 64 rows of 16 W columns.
-template <typename T, int W>
-__device__ __forceinline__ void load_cols(float* x, const T* src, long long ld, int rows,
-                                          int c0, int cols) {
-  constexpr int kCols = 16 * W;
-  for (int e = threadIdx.x; e < kTile * kCols; e += kThreads) {
-    const int r = e / kCols;
-    const int c = e % kCols;
-    x[e] = r < rows && c < cols ? widen(src[r * ld + c0 + c]) : 0.f;
-  }
-}
-
-// p[t][4 ty + i] = v[i]: a thread's four rows of the tile's column t, one
-// 16-byte store (the rows of a quarter warp fall in distinct banks)
-__device__ __forceinline__ void put4(float* p, int t, const float (&v)[4]) {
-  const int ty = threadIdx.x / 16;
-  *reinterpret_cast<float4*>(p + t * kLdT + 4 * ty) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// acc[i][u] += sum over t < 64 of p[t][4 ty + i] x[t][tx + 16 u], t in order
-template <int W>
-__device__ __forceinline__ void tile_product(const float* p, const float* x, float (&acc)[4][W]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int t = 0; t < kTile; ++t) {
-    const float4 pv = *reinterpret_cast<const float4*>(p + t * kLdT + 4 * ty);
-    const float ps[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-    for (int u = 0; u < W; ++u) {
-      const float xv = x[t * 16 * W + tx + 16 * u];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][u] = fmaf(ps[i], xv, acc[i][u]);
-    }
-  }
-}
-
-// dst's rows 4 ty + i < rows, columns tx + 16 u < cols: acc rounded once
-template <typename T, int W>
-__device__ __forceinline__ void store_rows(T* dst, long long ld, int rows, int cols,
-                                           const float (&acc)[4][W]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int u = 0; u < W; ++u) {
-      const int c = tx + 16 * u;
-      if (c < cols) dst[r * ld + c] = narrow<T>(acc[i][u]);
-    }
-  }
-}
-
-// What every kernel of a call shares.
-struct Call {
-  const void* qkv;
-  const void* grad;
-  void* out;      // the forward's output or the backward's dqkv
-  float* stats;   // (B, H, 3, N): shift, row sum, r
-  int n, heads, dh, chunks;
-  float scale, scale_log2;
-};
-
-// A CTA's place: its image, head and chunk, and the head's pointers.
-template <typename T>
-struct Place {
-  int b, h, c0, cols;
-  long long rs;  // qkv's row stride, 3 D
-  int d_model;
-  const T* q;
-  const T* k;
-  const T* v;
-  __device__ Place(const Call& a, int y) {
-    b = blockIdx.z;
-    h = y / a.chunks;
-    const int chunk = y % a.chunks;
-    const int w = any_cols(a.dh);
-    c0 = chunk * w;
-    cols = min(w, a.dh - c0);
-    d_model = a.heads * a.dh;
-    rs = 3LL * d_model;
-    q = static_cast<const T*>(a.qkv) + (long long)b * a.n * rs + (long long)h * a.dh;
-    k = q + d_model;
-    v = q + 2 * d_model;
-  }
-};
-
-// The row max of rows [row0, row0 + rows) over every key, as the softmax's
-// shift; the same bits in the forward and in the statistics pass.
-template <typename T>
-__device__ void row_shift(const Call& a, const Place<T>& pl, const Softmax<T>& sm, int row0,
-                          int rows, float* sa, float* sb, float (&sh)[4]) {
-  const int tx = threadIdx.x % 16;
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < a.n; k0 += kTile) {
-    const int keys = min(kTile, a.n - k0);
-    float s[4][4];
-    score_tile(pl.q + row0 * pl.rs, pl.rs, rows, pl.k + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (tx + 16 * j < keys) m[i] = fmaxf(m[i], sm.score(s[i][j]));
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sh[i] = sm.shift(row_max(m[i]));
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads, 2) any_fwd_kernel(Call a) {
-  extern __shared__ __align__(16) float smem[];
-  float* sa = smem;
-  float* sb = sa + kSlice * kLdT;
-  float* sp = sb + kSlice * kLdT;
-  float* sx = sp + kTile * kLdT;
-  const int tx = threadIdx.x % 16;
   const Softmax<T> sm{a.scale, a.scale_log2};
-  const Place<T> pl(a, blockIdx.y);
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.n - row0);
-
-  float sh[4];
-  row_shift(a, pl, sm, row0, rows, sa, sb, sh);
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-  float o[4][W] = {};
-  for (int k0 = 0; k0 < a.n; k0 += kTile) {
-    const int keys = min(kTile, a.n - k0);
-    float s[4][4];
-    score_tile(pl.q + row0 * pl.rs, pl.rs, rows, pl.k + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = tx + 16 * j < keys ? operand<T>(sm.p(s[i][j], sh[i])) : 0.f;
-        l[i] += p[i];
-      }
-      put4(sp, tx + 16 * j, p);
-    }
-    load_cols<T, W>(sx, pl.v + k0 * pl.rs, pl.rs, keys, pl.c0, pl.cols);
-    __syncthreads();
-    tile_product<W>(sp, sx, o);
-    // the next score_tile's first barrier frees sp and sx again
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sum = fmaxf(row_sum(l[i]), 1e-30f);
-#pragma unroll
-    for (int u = 0; u < W; ++u) o[i][u] = __fdiv_rn(o[i][u], sum);
-  }
-  T* out = static_cast<T*>(a.out) + ((long long)pl.b * a.n + row0) * pl.d_model +
-           (long long)pl.h * a.dh + pl.c0;
-  store_rows<T, W>(out, pl.d_model, rows, pl.cols, o);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) any_stats_kernel(Call a) {
-  extern __shared__ __align__(16) float smem[];
-  float* sa = smem;
-  float* sb = sa + kSlice * kLdT;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const Softmax<T> sm{a.scale, a.scale_log2};
-  const Place<T> pl(a, blockIdx.y * a.chunks);
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.n - row0);
-  const T* g = static_cast<const T*>(a.grad) + ((long long)pl.b * a.n + row0) * pl.d_model +
-               (long long)pl.h * a.dh;
-  const T* q = pl.q + row0 * pl.rs;
-
-  float sh[4];
-  row_shift(a, pl, sm, row0, rows, sa, sb, sh);
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < a.n; k0 += kTile) {
-    const int keys = min(kTile, a.n - k0);
-    float s[4][4];
-    score_tile(q, pl.rs, rows, pl.k + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (tx + 16 * j < keys) l[i] += sm.p(s[i][j], sh[i]);
+  const bool has = row0 + 16 * warp < a.n;
+  float o[DP / 8][4];
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  for (int st = 0; st < nst; ++st) {
+    const int live = min(KS, a.n - st * KS);  // the stage's keys below n
+    float s[NB][4];
+    zero(s);
+    if constexpr (kDeep) {
+      for (int w0 = 0; w0 < depth; w0 += kMaxCols) {
+        const int ww = min(kMaxCols, depth - w0);
+        __syncthreads();  // every warp is done with the last window (and stage)
+        if ((st == 0 && w0 == 0) || !probe(kNoCopies)) {
+          copy_tile<kWhole>(qs, ldq, base + w0, rs, row0, 16 * warps, a.n, ww, a.dh - w0,
+                            a.wbytes);
+          copy_tile<kWhole>(kr, ldq, base + d_model + w0, rs, st * KS, KS, a.n, ww, a.dh - w0,
+                            a.wbytes);
+          if (w0 == 0) {
+            copy_tile<kWhole>(vr, ldv, base + 2 * d_model + c0, rs, st * KS, KS, a.n, vw,
+                              a.dh - c0, a.wbytes);
+          }
+        }
+        cvt::flash_commit();
+        cvt::flash_wait<0>();
+        __syncthreads();
+        if (has && !probe(kNoScores)) {
+          dot<NB>(s, qs + 16 * warp * ldq, ldq, kr, ldq, ww, live, lane);
+        }
       }
     }
+    if (!kDeep) {
+      cvt::flash_wait<0>();
+      __syncthreads();  // stage st has landed; every warp is done with stage st - 1
+      if (st + 1 < nst && !probe(kNoCopies)) {
+        const int k1 = (st + 1) * KS;
+        T* kn = kr + (st + 1) % 2 * KS * ldq;
+        T* vn = vr + (st + 1) % 2 * KS * ldv;
+        copy_tile<kWhole>(kn, ldq, base + d_model, rs, k1, KS, a.n, depth, a.dh, a.wbytes);
+        copy_tile<kWhole>(vn, ldv, base + 2 * d_model + c0, rs, k1, KS, a.n, vw, a.dh - c0,
+                          a.wbytes);
+      }
+      cvt::flash_commit();
+    }
+    if (!has) continue;
+    const T* vs = vr + st % kStages * KS * ldv;
+    if (!kDeep && !probe(kNoScores)) {
+      dot<NB>(s, qs + 16 * warp * ldq, ldq, kr + st % 2 * KS * ldq, ldq, depth, live, lane);
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = 8 * j + 2 * t + (e & 1) < live ? sm.score(s[j][e]) : -INFINITY;
+        s[j][e] = v;
+        mx[e / 2] = fmaxf(mx[e / 2], v);
+      }
+    }
+    float sh[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float alpha = sm.factor(m[i], mx[i]);  // 0 on the first stage: m = -inf
+      l[i] *= alpha;
+      // once the maxima settle o stays: wide rows skip the multiplies
+      if (DP < 64 || __any_sync(0xffffffffu, alpha != 1.f)) {
+#pragma unroll
+        for (int nb = 0; nb < DP / 8; ++nb) {
+          o[nb][2 * i] *= alpha;
+          o[nb][2 * i + 1] *= alpha;
+        }
+      }
+      m[i] = mx[i];
+      sh[i] = sm.shift(mx[i]);
+    }
+    if constexpr (std::is_same<T, bf16>::value) {
+      // p rounded to bf16, re-packed as P's A fragment, 16 keys at a time
+#pragma unroll
+      for (int hs = 0; hs < KS / 16; ++hs) {
+        if (16 * hs >= live) continue;  // p = 0 exactly: nothing to add
+        uint32_t pa[4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] = operand<T>(sm.p(s[2 * hs + x][e], sh[e / 2]));
+          l[0] += p[0] + p[1];
+          l[1] += p[2] + p[3];
+          pa[2 * x] = cvt::flash_pack(p[0], p[1]);
+          pa[2 * x + 1] = cvt::flash_pack(p[2], p[3]);
+        }
+        // V's fragments by ldmatrix.trans, the next 16 columns' read while
+        // this one's products run
+        const bf16* vrow = reinterpret_cast<const bf16*>(vs) +
+                           (16 * hs + lane % 8 + ((lane / 8) % 2) * 8) * ldv + (lane / 16) * 8;
+        uint32_t bv0[4], bv1[4];
+        cvt::flash_ldsm_x4_trans(bv0, vrow);
+#pragma unroll
+        for (int dp = 0; dp < DP / 16; ++dp) {
+          if (16 * dp >= cols || probe(kNoValues)) break;
+          uint32_t(&cur)[4] = dp % 2 ? bv1 : bv0;
+          uint32_t(&next)[4] = dp % 2 ? bv0 : bv1;
+          if (dp + 1 < DP / 16 && 16 * (dp + 1) < cols) {
+            cvt::flash_ldsm_x4_trans(next, vrow + 16 * (dp + 1));
+          }
+          cvt::mma_bf16_16816(o[2 * dp], pa, cur[0], cur[1]);
+          cvt::mma_bf16_16816(o[2 * dp + 1], pa, cur[2], cur[3]);
+        }
+      }
+    } else {
+      // p through the warp's tile: rows g and g + 8, the stage's keys
+      float* prow = ps + (lane / 4) * LP + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = sm.p(s[j][e], sh[e / 2]);
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        store_pair(prow + 8 * j, p[0], p[1]);
+        store_pair(prow + 8 * LP + 8 * j, p[2], p[3]);
+      }
+      __syncwarp();
+      if (!probe(kNoValues)) {
+        outer_rm<DP / 8>(o, reinterpret_cast<const float*>(ps), LP,
+                         reinterpret_cast<const float*>(vs), ldv, (live + 3) / 4 * 4, cols, lane);
+      }
+      __syncwarp();  // the tile is read before the next stage writes it
+    }
   }
+  cvt::flash_wait<0>();
+  if (!has) return;
+  T* out = static_cast<T*>(a.out) + ((long long)b * a.n) * d_model + (long long)h * a.dh + c0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) l[i] = row_sum(l[i]);
-  float r[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < a.n; k0 += kTile) {
-    const int keys = min(kTile, a.n - k0);
-    float s[4][4], dp[4][4];
-    score_tile(q, pl.rs, rows, pl.k + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, s);
-    score_tile(g, pl.d_model, rows, pl.v + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, dp);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float den = fmaxf(l[i], 1e-30f);
+    const int row = row0 + 16 * warp + lane / 4 + 8 * i;
+    if (row >= a.n) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int nb = 0; nb < DP / 8; ++nb) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (tx + 16 * j < keys) {
-          const float pn = __fdiv_rn(sm.p(s[i][j], sh[i]), l[i]);
-          r[i] += __fmul_rn(dp[i][j], pn);
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nb + 2 * t + e;
+        if (col < cols) {
+          out[(long long)row * d_model + col] = narrow<T>(__fdiv_rn(o[nb][2 * i + e], den));
         }
       }
     }
   }
-  float* st = a.stats + ((long long)pl.b * a.heads + pl.h) * 3 * a.n + row0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float ri = row_sum(r[i]);
-    const int row = 4 * ty + i;
-    if (tx == 0 && row < rows) {
-      st[row] = sh[i];
-      st[a.n + row] = l[i];
-      st[2 * a.n + row] = ri;
-    }
-  }
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads, 2) any_dq_kernel(Call a) {
-  extern __shared__ __align__(16) float smem[];
-  float* sa = smem;
-  float* sb = sa + kSlice * kLdT;
-  float* sp = sb + kSlice * kLdT;
-  float* sx = sp + kTile * kLdT;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const Softmax<T> sm{a.scale, a.scale_log2};
-  const Place<T> pl(a, blockIdx.y);
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.n - row0);
-  const T* g = static_cast<const T*>(a.grad) + ((long long)pl.b * a.n + row0) * pl.d_model +
-               (long long)pl.h * a.dh;
-  const T* q = pl.q + row0 * pl.rs;
-  const float* st = a.stats + ((long long)pl.b * a.heads + pl.h) * 3 * a.n + row0;
-  float sh[4], l[4], r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = min(4 * ty + i, rows - 1);  // a row past the last: any real row's
-    sh[i] = st[row];
-    l[i] = st[a.n + row];
-    r[i] = st[2 * a.n + row];
-  }
-
-  float dq[4][W] = {};
-  for (int k0 = 0; k0 < a.n; k0 += kTile) {
-    const int keys = min(kTile, a.n - k0);
-    float s[4][4], dp[4][4];
-    score_tile(q, pl.rs, rows, pl.k + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, s);
-    score_tile(g, pl.d_model, rows, pl.v + k0 * pl.rs, pl.rs, keys, a.dh, sa, sb, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pn = __fdiv_rn(sm.p(s[i][j], sh[i]), l[i]);
-        ds[i] = tx + 16 * j < keys ? sm.ds(pn, dp[i][j], r[i]) : 0.f;
-      }
-      put4(sp, tx + 16 * j, ds);
-    }
-    load_cols<T, W>(sx, pl.k + k0 * pl.rs, pl.rs, keys, pl.c0, pl.cols);
-    __syncthreads();
-    tile_product<W>(sp, sx, dq);
-  }
-  T* out = static_cast<T*>(a.out) + ((long long)pl.b * a.n + row0) * pl.rs +
-           (long long)pl.h * a.dh + pl.c0;
-  store_rows<T, W>(out, pl.rs, rows, pl.cols, dq);
+template <typename T, int DP, bool kWhole, bool kDeep>
+cudaError_t launch_fwd_as(const Call& a, int batch, cudaStream_t stream) {
+  const int bytes = fwd_smem_bytes(sizeof(T), DP, a.depth);  // within kSmemLimit: every_plan_fits
+  const auto kernel = any_fwd_kernel<T, DP, kWhole, kDeep>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + 16 * kFwdWarps - 1) / (16 * kFwdWarps), a.heads * a.chunks, batch);
+  kernel<<<grid, 32 * kFwdWarps, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads, 2) any_dkv_kernel(Call a) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int kCols = 16 * W;
-  float* sa = smem;
-  float* sb = sa + kSlice * kLdT;
-  float* spn = sb + kSlice * kLdT;  // pn^T rounded, then dS^T: [query][key]
-  float* sds = spn + kTile * kLdT;
-  float* sg = sds + kTile * kLdT;   // the query step's g and Q columns
-  float* sq = sg + kTile * kCols;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const Softmax<T> sm{a.scale, a.scale_log2};
-  const Place<T> pl(a, blockIdx.y);
-  const int key0 = blockIdx.x * kTile;
-  const int keys = min(kTile, a.n - key0);
-  const T* grad = static_cast<const T*>(a.grad) + (long long)pl.b * a.n * pl.d_model +
-                  (long long)pl.h * a.dh;
-  const float* st = a.stats + ((long long)pl.b * a.heads + pl.h) * 3 * a.n;
-
-  float dk[4][W] = {}, dv[4][W] = {};
-  for (int q0 = 0; q0 < a.n; q0 += kTile) {
-    const int rows = min(kTile, a.n - q0);
-    float s[4][4], dp[4][4];
-    score_tile(pl.k + key0 * pl.rs, pl.rs, keys, pl.q + q0 * pl.rs, pl.rs, rows, a.dh, sa, sb, s);
-    score_tile(pl.v + key0 * pl.rs, pl.rs, keys, grad + q0 * pl.d_model, pl.d_model, rows, a.dh,
-               sa, sb, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = tx + 16 * j;   // the query of column j
-      const bool real = t < rows;
-      const int row = q0 + (real ? t : 0);
-      const float sh = st[row], l = st[a.n + row], r = st[2 * a.n + row];
-      float pn[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = real && 4 * ty + i < keys;
-        const float p = __fdiv_rn(sm.p(s[i][j], sh), l);
-        pn[i] = ok ? operand<T>(p) : 0.f;
-        ds[i] = ok ? sm.ds(p, dp[i][j], r) : 0.f;
-      }
-      put4(spn, t, pn);
-      put4(sds, t, ds);
-    }
-    load_cols<T, W>(sg, grad + q0 * pl.d_model, pl.d_model, rows, pl.c0, pl.cols);
-    load_cols<T, W>(sq, pl.q + q0 * pl.rs, pl.rs, rows, pl.c0, pl.cols);
-    __syncthreads();
-    tile_product<W>(spn, sg, dv);
-    tile_product<W>(sds, sq, dk);
-  }
-  T* out = static_cast<T*>(a.out) + ((long long)pl.b * a.n + key0) * pl.rs +
-           (long long)pl.h * a.dh + pl.c0;
-  store_rows<T, W>(out + pl.d_model, pl.rs, keys, pl.cols, dk);
-  store_rows<T, W>(out + 2 * pl.d_model, pl.rs, keys, pl.cols, dv);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <typename T, int W>
+template <typename T, int DP, bool kDeep = false>
 cudaError_t launch_fwd(const Call& a, int batch, cudaStream_t stream) {
-  const int bytes = any_smem_bytes(16 * W, 1);
-  cudaError_t err = allow_smem(any_fwd_kernel<T, W>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + kTile - 1) / kTile, a.heads * a.chunks, batch);
-  any_fwd_kernel<T, W><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int W>
-cudaError_t launch_bwd(const Call& a, int batch, cudaStream_t stream) {
-  const int tiles = (a.n + kTile - 1) / kTile;
-  any_stats_kernel<T><<<dim3(tiles, a.heads, batch), kThreads, 4 * kSliceFloats, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int dq_bytes = any_smem_bytes(16 * W, 1);
-  const int dkv_bytes = any_smem_bytes(16 * W, 2);
-  if ((err = allow_smem(any_dq_kernel<T, W>, dq_bytes)) != cudaSuccess) return err;
-  if ((err = allow_smem(any_dkv_kernel<T, W>, dkv_bytes)) != cudaSuccess) return err;
-  const dim3 grid(tiles, a.heads * a.chunks, batch);
-  any_dq_kernel<T, W><<<grid, kThreads, dq_bytes, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  any_dkv_kernel<T, W><<<grid, kThreads, dkv_bytes, stream>>>(a);
-  return cudaGetLastError();
+  return whole_copies(a.wbytes, a.dh) ? launch_fwd_as<T, DP, true, kDeep>(a, batch, stream)
+                                      : launch_fwd_as<T, DP, false, kDeep>(a, batch, stream);
 }
 
 template <typename T>
-cudaError_t dispatch(bool backward, const Call& a, int batch, cudaStream_t s) {
+cudaError_t dispatch_fwd(const Call& a, int batch, cudaStream_t s) {
   switch (any_cols(a.dh)) {
-    case 16: return backward ? launch_bwd<T, 1>(a, batch, s) : launch_fwd<T, 1>(a, batch, s);
-    case 32: return backward ? launch_bwd<T, 2>(a, batch, s) : launch_fwd<T, 2>(a, batch, s);
-    case 64: return backward ? launch_bwd<T, 4>(a, batch, s) : launch_fwd<T, 4>(a, batch, s);
-    default: return backward ? launch_bwd<T, 8>(a, batch, s) : launch_fwd<T, 8>(a, batch, s);
+    case 16: return launch_fwd<T, 16>(a, batch, s);
+    case 32: return launch_fwd<T, 32>(a, batch, s);
+    case 64: return launch_fwd<T, 64>(a, batch, s);
+    case 128: return launch_fwd<T, 128>(a, batch, s);
+    default:
+      return a.depth > kMaxCols ? launch_fwd<T, 256, true>(a, batch, s)
+                                : launch_fwd<T, 256>(a, batch, s);
   }
 }
 
-// Checks a call's shape and fills what its kernels share; false for a shape
-// the grid cannot hold.
-bool make_call(Call& a, const void* qkv, const void* grad, void* out, void* stats, int batch,
-               int n, int heads, int head_dim, float scale) {
-  if (batch < 1 || n < 1 || heads < 1 || head_dim < 1 || batch > 65535) return false;
-  const int cols = any_cols(head_dim);
-  const long long chunks = (head_dim + cols - 1) / cols;
-  if (heads * chunks > 65535) return false;
-  a = Call{qkv, grad, out, static_cast<float*>(stats), n, heads, head_dim, (int)chunks,
-           scale, scale * 1.4426950408889634f};  // log2(e)
-  return true;
-}
-
-cudaError_t run(bool backward, const Call& a, int batch, int f32, cudaStream_t s) {
-  return f32 ? dispatch<float>(backward, a, batch, s) : dispatch<__nv_bfloat16>(backward, a, batch, s);
-}
-
 }  // namespace
+}  // namespace cvt_any
 
 // qkv: (batch, n, 3 * heads * head_dim), bf16 (f32 = 0) or f32 (f32 = 1),
 // contiguous; any head_dim >= 1, any alignment of the dtype. out: the same
@@ -572,23 +334,23 @@ cudaError_t run(bool backward, const Call& a, int batch, int f32, cudaStream_t s
 // (1 / sqrt(head_dim)). Returns the launch's cudaError_t.
 extern "C" int cvt_attention_fwd_any(const void* qkv, void* out, int batch, int n, int heads,
                                      int head_dim, int f32, float scale, void* stream) {
-  Call a;
-  if (!make_call(a, qkv, nullptr, out, nullptr, batch, n, heads, head_dim, scale)) {
+  using namespace cvt_any;
+  if (batch < 1 || n < 1 || heads < 1 || head_dim < 1 || batch > 65535 ||
+      (long long)heads * any_chunks(head_dim) > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)run(false, a, batch, f32, static_cast<cudaStream_t>(stream));
-}
-
-// qkv as for the forward; grad: the output's cotangent, (batch, n, heads *
-// head_dim), contiguous; dqkv: (batch, n, 3 * heads * head_dim); stats: an f32
-// scratch of batch * heads * 3 * n floats. Three launches on the stream.
-extern "C" int cvt_attention_bwd_any(const void* qkv, const void* grad, void* dqkv, void* stats,
-                                     int batch, int n, int heads, int head_dim, int f32,
-                                     float scale, void* stream) {
-  Call a;
-  if (stats == nullptr ||
-      !make_call(a, qkv, grad, dqkv, stats, batch, n, heads, head_dim, scale)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)run(true, a, batch, f32, static_cast<cudaStream_t>(stream));
+  const int es = f32 ? 4 : 2;
+  Call a{};
+  a.qkv = qkv;
+  a.out = out;
+  a.n = n;
+  a.heads = heads;
+  a.dh = head_dim;
+  a.depth = any_depth(head_dim);
+  a.chunks = any_chunks(head_dim);
+  a.wbytes = copy_bytes(qkv, nullptr, head_dim, es);
+  a.scale = scale;
+  a.scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(f32 ? dispatch_fwd<float>(a, batch, s) : dispatch_fwd<bf16>(a, batch, s));
 }

@@ -68,6 +68,33 @@ Sections (``--sections``, all by default):
            and the bound; the max |difference| of the outputs from the
            first's and from ``reference_attention_bwd``, and whether this
            checkout's call is the same twice, bit for bit
+  k2any    the any-head-dim forward (``cvt_attention_fwd_any``: the other
+           revision's ``attention_any.cu``, this checkout's) on ViT-B/16's
+           width at 3 heads of 256 and 64 heads of 12, bf16 and f32, at
+           (64, 257, 2304) and (64, 577, 2304): ms in the order other, this,
+           this, other, beside ``scaled_dot_product_attention`` on the same
+           values and the bound; the outputs' max |difference| from the
+           first's and from ``reference_attention``
+  k3any    the any-head-dim backward (``cvt_attention_bwd_any``, whichever
+           source of a csrc defines it) at the same shapes: an older
+           revision's three launches with their statistics scratch (B, H, 3,
+           N), this checkout's on ``any_bwd_plan``'s clusters (no scratch in
+           one cluster); ms in the same order, SDPA's backward, the bound,
+           the max |difference| from the first's and from
+           ``reference_attention_bwd``, and whether this checkout's call is
+           the same twice, bit for bit. A record of either carries its head
+           dim, heads, dtype and this checkout's plan
+  anyprobes  this checkout's ``attention_any.cu`` and ``attention_any_bwd.cu``
+           built again as timing-only probes (``CVT_ANY_PROBE``,
+           ``attention_any.cuh``'s ``AnyProbe``), each with one part taken
+           out: ``any_no_scores`` (the forward's S product, the backward's
+           first pass), ``any_no_values`` (P V, the backward's second pass),
+           ``any_no_copies`` (every ring stage or tile copy after the first),
+           ``any_no_outer`` (dV and dK), ``any_no_dq`` (the dQ product and
+           its stores), ``any_no_exchange`` (the cluster barriers and remote
+           accesses: the CTA's own), ``any_no_reduce`` (the dQ slices' sum);
+           K2 and K3 bf16 at (64, 257, 2304) on 3 heads of 256 and 64 of 12,
+           ms in the order this, each probe, each probe backwards, this
   longprobes  this checkout's ``attention_bwd_cluster.cu`` built again as
            timing-only probes (``CVT_LONG_PROBE``, the source's
            ``LongProbe``), each with one part of the bf16 long route taken
@@ -666,6 +693,93 @@ def k3long_ab(entries: dict, dtype: torch.dtype, batch: int, gen,
             "this_bit_identical_twice": torch.equal(again, outs["this"])}
 
 
+_ANY_ENTRIES = ("cvt_attention_fwd_any", "cvt_attention_bwd_any")
+# (tokens, heads, head dim) of k2any and k3any, at batch 64
+_ANY_SHAPES = ((257, 3, 256), (257, 64, 12), (577, 3, 256), (577, 64, 12))
+
+
+def any_entries(lib: ctypes.CDLL, csrc: str) -> dict:
+    """The any-head-dim entries of a library built from ``csrc``: name ->
+    (call by parameter names, the parameters' names)."""
+    return {name: (c_entry(lib, _defining_source(csrc, name), name),
+                   {arg for _, arg in _params(_defining_source(csrc, name), name)})
+            for name in _ANY_ENTRIES}
+
+
+def sdpa_fwd_ms(qkv: torch.Tensor, heads: int) -> float:
+    """``scaled_dot_product_attention`` alone on contiguous (B, H, N, Dh)
+    copies of the same q, k and v: the library yardstick of K2."""
+    B, n, C3 = qkv.shape
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous()
+               for t in qkv.reshape(B, n, 3, heads, C3 // 3 // heads).unbind(2))
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+
+
+def any_ab(entries: dict, backward: bool, dtype: torch.dtype, shape: tuple,
+           gen, batch: int = 64, order=_ORDER) -> dict:
+    """K2 (or K3) on the any-head-dim route of each of ``entries`` (who ->
+    ``any_entries``) at (batch, n, 3 heads dh): ms in ``order``, SDPA's
+    time, the bound, and the outputs' max |difference| from the first's and
+    from the plain version's."""
+    n, heads, dh = shape
+    qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device,
+                      generator=gen).to(dtype)
+    g = torch.randn((batch, n, heads * dh), device=gen.device,
+                    generator=gen).to(dtype)
+    f32 = dtype == torch.float32
+    clusters, ctas, keys = attn.any_bwd_plan(n, dh)
+    scratch = dict(dtype=torch.float32, device=qkv.device)
+    old_stats = torch.empty((batch, heads, 3, n), **scratch)
+    chunks = attn.any_plan(dh)[0]
+    split = ([torch.empty((batch, heads * chunks, clusters, 3, n), **scratch),
+              torch.empty((batch, heads, clusters, n, dh), **scratch)]
+             if clusters > 1 else None)
+    outs = {who: torch.empty_like(qkv if backward else g) for who in entries}
+    name = _ANY_ENTRIES[backward]
+
+    def run(who):
+        call, params = entries[who][name]
+        args = {"qkv": qkv.data_ptr(), "batch": batch, "n": n, "heads": heads,
+                "head_dim": dh, "f32": int(f32), "scale": dh ** -0.5,
+                "stream": torch.cuda.current_stream().cuda_stream}
+        if not backward:
+            args["out"] = outs[who].data_ptr()
+        elif "clusters" in params:  # this design: the plan, no scratch in one cluster
+            args.update(grad=g.data_ptr(), dqkv=outs[who].data_ptr(),
+                        stats=split and split[0].data_ptr(),
+                        dq_parts=split and split[1].data_ptr(),
+                        clusters=clusters, ctas=ctas, keys=keys)
+        else:  # the three-launch design's statistics scratch
+            args.update(grad=g.data_ptr(), dqkv=outs[who].data_ptr(),
+                        stats=old_stats.data_ptr())
+        _build.check(call(**args), f"{who}'s {name}")
+
+    times = in_turns({who: (lambda who=who: run(who)) for who in entries}, order)
+    again = outs["this"].clone()
+    run("this")
+    torch.cuda.synchronize()
+    ref = (attn.reference_attention_bwd(qkv, g, heads) if backward
+           else attn.reference_attention(qkv, heads))
+    first = outs[order[0]]
+    ops = (10 if backward else 4) * batch * heads * n * n * dh
+    nbytes = qkv.element_size() * (2 * qkv.numel() + g.numel() if backward
+                                   else qkv.numel() + g.numel())
+    peak = 67e12 if f32 else 989e12
+    return {"dtype": str(dtype).removeprefix("torch."), "shape": list(qkv.shape),
+            "heads": heads, "head_dim": dh,
+            "plan": {"chunks_cols": list(attn.any_plan(dh)),
+                     "backward_clusters_ctas_keys": [clusters, ctas, keys]},
+            "ms": times,
+            "sdpa_ms": sdpa_bwd_ms(qkv, g, heads) if backward else sdpa_fwd_ms(qkv, heads),
+            "bound_ms": max(nbytes / 3.35e12, ops / peak) * 1e3,
+            "bound_by": "operations" if ops / peak > nbytes / 3.35e12 else "bytes",
+            "max_abs_diff": {who: (out.float() - first.float()).abs().max().item()
+                             for who, out in outs.items()},
+            "max_abs_err": {who: (out.float() - ref.float()).abs().max().item()
+                            for who, out in outs.items()},
+            "this_bit_identical_twice": torch.equal(again, outs["this"])}
+
+
 def f32_entries(lib: ctypes.CDLL, csrc: str) -> tuple:
     """The f32 forward and backward entries of a library built from
     ``csrc``'s ``attention_f32.cu``, called by parameter names."""
@@ -723,7 +837,8 @@ def f32_ab(entries: dict, backward: bool, batch: int, gen,
 
 
 _SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15", "k2f32",
-             "k3f32", "k3long", "longprobes", "f32probes")
+             "k3f32", "k3long", "k2any", "k3any", "longprobes", "f32probes",
+             "anyprobes")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
                   "int8_matmul.cu", "fused_block.cu", "attention_variants.cu")
 # (batch, tokens, heads, head dim, images a block) of k15's bits-only cases
@@ -743,6 +858,11 @@ _LONG_PROBES = {"long_no_pass1": 1, "long_no_pass2": 2, "long_no_dq": 3,
                 "long_no_exchange": 4, "long_no_reduce": 5, "long_no_stats": 6}
 _F32_PROBES = {"no_products_1": 1, "no_products_2": 2, "no_products_3": 3,
                "no_exchange": 4, "no_stats": 5}
+# this checkout's attention_any.cu and attention_any_bwd.cu built with
+# timing-only macros (attention_any.cuh's AnyProbe)
+_ANY_PROBES = {"any_no_scores": 1, "any_no_values": 2, "any_no_copies": 3,
+               "any_no_outer": 4, "any_no_dq": 5, "any_no_exchange": 6,
+               "any_no_reduce": 7}
 
 
 def main() -> int:
@@ -776,6 +896,9 @@ def main() -> int:
         if "k3long" in sections or ("k3" in sections and set(dims) != {64}):
             sources += [os.path.basename(_defining_source(args.other_csrc, name))
                         for name in _LONG_ENTRIES]
+        if {"k2any", "k3any"} & set(sections):
+            sources += [os.path.basename(_defining_source(args.other_csrc, name))
+                        for name in _ANY_ENTRIES]
         jobs = {"other": (args.other_csrc, tuple(dict.fromkeys(sources)), [])}
         if "variants" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("int8_matmul.cu",), flags)
@@ -788,6 +911,10 @@ def main() -> int:
             jobs.update({name: (_build.CSRC_DIR, ("attention_f32.cu",),
                                 [f"-DCVT_F32_PROBE={number}"])
                          for name, number in _F32_PROBES.items()})
+        if "anyprobes" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("attention_any.cu", "attention_any_bwd.cu"),
+                                [f"-DCVT_ANY_PROBE={number}"])
+                         for name, number in _ANY_PROBES.items()})
         paths, logs = build_libs(jobs, tmp)
         other, old = load_other(paths.pop("other"), args.other_csrc)
         libs = {"other": other, "this": _build.library()}
@@ -804,6 +931,8 @@ def main() -> int:
             c_entry(ctypes.CDLL(paths.pop(name)), cluster_src, _LONG_ENTRIES[0]),
             {arg for _, arg in _params(cluster_src, _LONG_ENTRIES[0])})}
             for name in _LONG_PROBES if name in paths}
+        any_probes = {name: any_entries(ctypes.CDLL(paths.pop(name)), _build.CSRC_DIR)
+                      for name in _ANY_PROBES if name in paths}
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
         for dh in dims if "k2" in sections else ():
@@ -864,12 +993,32 @@ def main() -> int:
                 report["k3long"].append(k3long_ab(both, dtype, batch, gen,
                                                   dh=dh))
                 print("K3LONG", json.dumps(report["k3long"][-1]), flush=True)
+        if {"k2any", "k3any"} & set(sections):
+            both = {"this": any_entries(libs["this"], _build.CSRC_DIR),
+                    "other": any_entries(other, args.other_csrc)}
+            for section in ("k2any", "k3any"):
+                for shape in _ANY_SHAPES if section in sections else ():
+                    for dtype in (torch.bfloat16, torch.float32):
+                        report[section].append(any_ab(both, section == "k3any",
+                                                      dtype, shape, gen))
+                        print(section.upper(), json.dumps(report[section][-1]),
+                              flush=True)
+                        torch.cuda.empty_cache()
         if "longprobes" in sections:
             order = ["this", *_LONG_PROBES, *reversed(_LONG_PROBES), "this"]
             both = {"this": long_entries(libs["this"], _build.CSRC_DIR), **long_probes}
             report["longprobes"].append(
                 {"order": order, **k3long_ab(both, torch.bfloat16, 64, gen, order)})
             print("LONGPROBES", json.dumps(report["longprobes"][-1]), flush=True)
+        if "anyprobes" in sections:
+            order = ["this", *_ANY_PROBES, *reversed(_ANY_PROBES), "this"]
+            both = {"this": any_entries(libs["this"], _build.CSRC_DIR), **any_probes}
+            for backward in (False, True):
+                for shape in _ANY_SHAPES[:2]:
+                    report["anyprobes"].append(
+                        {"backward": backward, "order": order,
+                         **any_ab(both, backward, torch.bfloat16, shape, gen, order=order)})
+                    print("ANYPROBES", json.dumps(report["anyprobes"][-1]), flush=True)
         if "f32probes" in sections:
             order = ["this", *_F32_PROBES, *reversed(_F32_PROBES), "this"]
             both = {"this": entries["this"], **f32_probes}

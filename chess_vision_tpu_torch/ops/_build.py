@@ -55,7 +55,7 @@ _SIGNATURES = {
                                    ctypes.c_float, _P],
     "cvt_attention_fwd_any": [_P, _P, *[ctypes.c_int] * 5, ctypes.c_float,
                               _P],
-    "cvt_attention_bwd_any": [_P, _P, _P, _P, *[ctypes.c_int] * 5,
+    "cvt_attention_bwd_any": [_P, _P, _P, _P, _P, *[ctypes.c_int] * 8,
                               ctypes.c_float, _P],
     "cvt_rowquant": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, _P, _P, ctypes.c_float, _P, _P, _P],

@@ -30,13 +30,16 @@ scratches. They count in ``F32_LAUNCHES`` and
 same two functions, which compute in f32 for either dtype.
 
 Any other head dim (not a multiple of 8, or above 128), and a qkv that does
-not start on a 16-byte boundary, takes ``csrc/attention_any.cu`` in either
-dtype (``head_dim_route`` ``"any"``): the same function at any head dim and
-token count, a score product summed over the head dim in slices of 16
-columns copied element by element, the output's columns in chunks of at
-most ``ANY_MAX_COLS`` a CTA (``any_plan``); the backward in three launches
-through an f32 scratch of each row's statistics. Its calls count in the
-counters of their dtype and in ``ANY_LAUNCHES`` / ``ANY_BWD_LAUNCHES``.
+not start on a 16-byte boundary, takes ``csrc/attention_any.cu`` (forward)
+and ``csrc/attention_any_bwd.cu`` (backward) in either dtype
+(``head_dim_route`` ``"any"``): the same function at any head dim and
+any token count, bf16 products on the tensor cores, one CTA over all of a
+head's output columns up to 256 (``any_plan``; above, chunks of 256 that
+compute the scores again, the depth 256 columns at a time); the forward a
+CTA of 4 warps over 16-row blocks, the backward one launch on a
+thread-block cluster per (image, head), no scratch (``any_bwd_plan``; past
+the keys one cluster holds, a split through f32 scratches). Its calls count in the counters of their dtype and in
+``ANY_LAUNCHES`` / ``ANY_BWD_LAUNCHES``.
 
 ``fused_qkv_attention_quant`` is the int8 serving path's form (the JAX
 package's function of that name, K4): attention, then per-token int8
@@ -105,13 +108,12 @@ F32_LONG_MAX_CTAS = 16
 LONG_MAX_CTAS = 8  # also the f32 long route's above a head dim of 64
 LONG_MAX_WARPS = 8
 _SMEM_LIMIT = 232448  # the dynamic shared memory a Hopper block may have
-# csrc/attention_any.cu: CTAs of 64 query rows (or keys, kTile), score
-# products in slices of 16 head-dim columns (kSlice), at most 128 output
-# columns a CTA (kMaxCols), transposed tiles of 68 floats a row (kLdT).
-ANY_TILE = 64
-ANY_SLICE = 16
-ANY_MAX_COLS = 128
-_ANY_LD = ANY_TILE + 4
+# csrc/attention_any.cuh: the any-head-dim kernels. Output columns a CTA
+# (kMaxCols; any_cols: 16 ... 256), a backward cluster's CTAs (kMaxCtas,
+# above 8 non-portable). The header owns the rest of the layout and its
+# shared memory, which fits a block at every head dim (every_plan_fits).
+ANY_MAX_COLS = 256
+ANY_MAX_CTAS = 16
 
 
 def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -187,27 +189,44 @@ def head_dim_route(head_dim: int, aligned: bool = True) -> str:
     return "flash" if kernel_head_dim(head_dim) and aligned else "any"
 
 
-def any_plan(head_dim: int) -> tuple[int, int]:
-    """``csrc/attention_any.cu``'s output chunks at ``head_dim``: (chunks,
-    cols). A CTA keeps ``cols`` output columns (``any_cols``: the smallest
-    of 16, 32, 64 and 128 that holds the head dim, else 128), and the head's
-    ``chunks`` = ceil(head_dim / cols) chunks each take a CTA of their own,
-    which computes the score products over the whole head dim: 12 -> (1,
-    16), 100 -> (1, 128), 256 -> (2, 128), 768 -> (6, 128)."""
+def any_cols(head_dim: int) -> int:
+    """The output columns an any-head-dim CTA keeps (``any_cols`` in
+    ``csrc/attention_any.cuh``): the smallest of 16, 32, 64, 128 and 256
+    that holds ``head_dim``, else 256. Raises below 1."""
     kernel_head_dim(head_dim)
-    cols = next((c for c in (16, 32, 64) if head_dim <= c), ANY_MAX_COLS)
+    return next((c for c in (16, 32, 64, 128) if head_dim <= c), ANY_MAX_COLS)
+
+
+def any_plan(head_dim: int) -> tuple[int, int]:
+    """The any-head-dim kernels' output chunks at ``head_dim``: (chunks,
+    cols). One CTA (forward) or cluster (backward) keeps all ``cols``
+    (``any_cols``) output columns up to a head dim of 256, so no score
+    product is computed twice; above, the head dim goes in ``chunks``
+    chunks of 256, each computing the scores over the whole head dim, which
+    the tiles then hold 256 columns at a time: 12 -> (1, 16), 100 -> (1,
+    128), 256 -> (1, 256), 384 -> (2, 256), 1,100 -> (5, 256)."""
+    cols = any_cols(head_dim)
     return -(-head_dim // cols), cols
 
 
-def any_smem_bytes(head_dim: int, backward: bool) -> int:
-    """Dynamic shared memory of an ``csrc/attention_any.cu`` CTA
-    (``any_smem_bytes`` there): the two transposed score slices, then one
-    (forward, dQ) or two (dK and dV) pairs of a transposed 64 x 64 tile and
-    a 64-row tile of the chunk's columns, all f32."""
-    cols = any_plan(head_dim)[1]
-    tiles = 2 if backward else 1
-    return 4 * (2 * ANY_SLICE * _ANY_LD
-                + tiles * (ANY_TILE * _ANY_LD + ANY_TILE * cols))
+def any_bwd_plan(n: int, head_dim: int) -> tuple[int, int, int]:
+    """The any-head-dim backward's layout for ``n`` tokens: (clusters,
+    ctas, keys) per (image, head, column chunk). A CTA holds at most 128
+    keys, 64 at 256 columns (``bwd_max_keys``), the head's 16-key steps
+    shared out evenly (``f32_key_ranges(n, clusters * ctas)``); one cluster
+    of up to ``ANY_MAX_CTAS`` CTAs where that holds the head (one launch:
+    1,024 tokens at every head dim), else the fewest clusters that do (three
+    launches through f32 scratches). keys: the most any CTA holds, a
+    multiple of 16. 257 tokens at 3 heads of 256: (1, 5, 64); 577: (1, 10,
+    64); 64 heads of 12 at 257: (1, 3, 96)."""
+    if n < 1:
+        raise ValueError(f"no plan for {n} tokens")
+    cap = 64 if any_cols(head_dim) >= ANY_MAX_COLS else 128
+    steps = -(-n // F32_KEY_STEP)
+    needed = -(-steps // (cap // F32_KEY_STEP))
+    clusters = -(-needed // ANY_MAX_CTAS)
+    ctas = -(-needed // clusters)
+    return clusters, ctas, 16 * -(-steps // (clusters * ctas))
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int,
@@ -463,8 +482,10 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     a backward kernel (bf16 or f32, any head dim from 1) or raises. The
     kernels are hand-written and give the same function; dtype, shape and
     address pick one (``bwd_route``): ``csrc/attention_any.cu`` where
-    ``head_dim_route`` gives ``"any"`` (three launches through an f32
-    scratch of the rows' statistics, (B, H, 3, N)); else in bf16 up to
+    ``head_dim_route`` gives ``"any"`` (``any_bwd_plan``: one launch on a
+    cluster per (image, head), no scratch, up to the keys one cluster holds;
+    past them three launches through the clusters' statistics (B, H chunks,
+    clusters, 3, N) and dQ partials (B, H, clusters, N, Dh)); else in bf16 up to
     ``BWD_MAX_TOKENS`` tokens and a head dim of 64 the one-block-per-head
     kernel of ``csrc/attention_bwd.cu``, otherwise
     ``csrc/attention_bwd_cluster.cu`` on ``long_plan``'s thread-block
@@ -495,10 +516,16 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     ptrs = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr()]
     shape = [B, N, num_heads, head_dim]
     if route == "any":
-        stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32,
-                            device=qkv.device)
-        ptrs.append(stats.data_ptr())
-        shape.append(int(qkv.dtype == torch.float32))
+        clusters, ctas, keys = any_bwd_plan(N, head_dim)
+        scratch = [None, None]
+        if clusters > 1:
+            chunks = any_plan(head_dim)[0]
+            f32 = dict(dtype=torch.float32, device=qkv.device)
+            stats = torch.empty((B, num_heads * chunks, clusters, 3, N), **f32)
+            parts = torch.empty((B, num_heads, clusters, N, head_dim), **f32)
+            scratch = [stats.data_ptr(), parts.data_ptr()]
+        ptrs += scratch
+        shape += [int(qkv.dtype == torch.float32), clusters, ctas, keys]
     elif route in ("long", "f32_long"):
         clusters, ctas, warps = long_plan(N, qkv.dtype, head_dim)
         scratch = [None, None]

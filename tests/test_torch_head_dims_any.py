@@ -88,91 +88,153 @@ def test_plain_backward_matches_the_jax_kernel(dtype):
                                    err_msg=f"{B, N, H, Dh}")
 
 
-def _p(s, sh, scale, c, bf16):
-    """The kernel's exponential of scores s against a row's shift sh: bf16
-    exp2f(fmaf(s, c, -sh)) (the fmaf exact, then one f32 rounding), f32
-    expf(fl(s scale) - m)."""
+def _p(v, sh, c, bf16):
+    """The kernels' exponential of a score v (raw in bf16, fl(s scale) in
+    f32) against a row's shift sh: bf16 exp2f(fmaf(v, c, -sh)) (the fmaf
+    exact, then one f32 rounding), f32 expf(v - sh)."""
     if bf16:
-        return torch.exp2((s.double() * float(c) - sh.double()).float())
-    return torch.exp(s * scale - sh)
+        return torch.exp2((v.double() * float(c) - sh.double()).float())
+    return torch.exp(v - sh)
 
 
-def emulate_any(qkv: torch.Tensor, g: torch.Tensor, heads: int):
-    """``csrc/attention_any.cu`` in torch, tile by tile: 64-row tiles of
-    queries and of keys (the last one ragged, its rows zero and masked), the
-    output's columns in ``any_plan``'s chunks; the forward's row shift from
-    a first pass, p (rounded in bf16, the row sum adding the rounded p), P V
-    divided by the row sum floored at 1e-30; the backward's statistics
-    (shift, l, r = rowsum(dP pn)) into a scratch, then dQ by query tiles and
-    dK, dV by key tiles against it, dS = pn (dP - r) scale rounded as the
-    input. Scores in f32 (the kernel's slices of 16 columns sum in another
-    order). Returns (out, dqkv) in the input dtype."""
+def stage_keys(dh: int, dtype: torch.dtype) -> int:
+    """The forward's keys a ring stage at head dim ``dh`` (``fwd_keys`` of
+    ``csrc/attention_any.cuh`` at ``any_cols``): the online max's step."""
+    cols = attn.any_cols(dh)
+    if dtype == torch.bfloat16:
+        return 64 if cols <= 128 else 32
+    return 64 if cols <= 64 else 32 if cols == 128 else 16
+
+
+def tile_rows(dh: int, dtype: torch.dtype) -> int:
+    """The backward's query rows a tile (``bwd_rows`` at ``any_cols``)."""
+    cols = attn.any_cols(dh)
+    if dtype == torch.float32:
+        return 64 if cols <= 64 else 16
+    return 128 if cols <= 16 else 64 if cols <= 64 else 32
+
+
+def _scores(a, b):
+    """a b^T summed over the depth's windows of 256 columns in order (one
+    window up to a head dim of 256)."""
+    return sum(a[:, w:w + 256] @ b[:, w:w + 256].T for w in range(0, a.shape[1], 256))
+
+
+def _factor(m_part, m, c, bf16):
+    """exp(m_part - m) in score units: bf16 exp2f((m_part - m) c)."""
+    return torch.exp2((m_part - m) * float(c)) if bf16 else torch.exp(m_part - m)
+
+
+def _combine(parts, c, bf16):
+    """Row statistics (m, l, ra) taken over parts of the keys, combined in
+    order (key blocks in a CTA, CTAs in a cluster by rank, clusters): the
+    max, then each part's sums brought to it; a part without keys (m =
+    -inf) adds nothing."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l, ra = torch.zeros_like(m), torch.zeros_like(m)
+    for mp, lp, rp in parts:
+        f = torch.where(mp == -math.inf, 0.0, _factor(mp, m, c, bf16))
+        l, ra = lp * f + l, rp * f + ra
+    return m, l, ra
+
+
+def emulate_any(qkv: torch.Tensor, g: torch.Tensor, heads: int, plan=None):
+    """``csrc/attention_any.cu`` and ``attention_any_bwd.cu`` in torch, tile
+    by tile, S and dP summed over the depth's windows of 256 in order.
+    Forward: the keys in ring stages of ``stage_keys``, the last one ragged, the online max rescaled once a stage, p (rounded in
+    bf16, the row sum adding the rounded p), P V over the whole head dim,
+    divided by the row sum floored at 1e-30. Backward on ``any_bwd_plan``'s
+    (clusters, ctas, keys), or ``plan``: each CTA's keys from
+    ``f32_key_ranges``, the row statistics over each 16-key block, combined
+    over a CTA's blocks, the cluster's CTAs in rank order and the clusters
+    in order; pn = p / l, r = ra / l, dS = pn (dP - r) scale rounded as the
+    input; dK and dV by each CTA over the query tiles of ``tile_rows``
+    rows in order, dQ as each CTA's partial added in rank order, then the
+    clusters'. Products in f32 (the kernels sum in another order). Returns
+    (out, dqkv) in the input dtype."""
     bf16 = qkv.dtype == torch.bfloat16
     B, N, C3 = qkv.shape
     D = C3 // 3
     dh = D // heads
-    chunks, cols = attn.any_plan(dh)
-    T = attn.ANY_TILE
-    NP = -(-N // T) * T
     scale = float(np.float32(1.0 / math.sqrt(dh)))
     c = np.float32(scale) * LOG2E
     rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
-    x = torch.zeros((B, NP, 3, heads, dh))
-    x[:, :N] = qkv.float().reshape(B, N, 3, heads, dh)
-    gp = torch.zeros((B, NP, heads, dh))
-    gp[:, :N] = g.float().reshape(B, N, heads, dh)
-    key_ok = torch.arange(NP) < N
-    out = torch.zeros((B, NP, heads, dh))
-    dqkv = torch.zeros((B, NP, 3, heads, dh))
+    score = (lambda s: s) if bf16 else (lambda s: s * scale)
+    shift = (lambda m: (m * float(c)).float()) if bf16 else (lambda m: m)
+    keys_a_stage = stage_keys(dh, qkv.dtype)
+    clusters, ctas, _ = plan or attn.any_bwd_plan(N, dh)
+    rows = tile_rows(dh, qkv.dtype)
+    ranges = [(a, max(a, e)) for a, e in attn.f32_key_ranges(N, clusters * ctas)]
+    x = qkv.float().reshape(B, N, 3, heads, dh)
+    gx = g.float().reshape(B, N, heads, dh)
+    out = torch.zeros((B, N, heads, dh))
+    dqkv = torch.zeros((B, N, 3, heads, dh))
     for b in range(B):
         for h in range(heads):
             q, k, v = x[b, :, 0, h], x[b, :, 1, h], x[b, :, 2, h]
-            gh = gp[b, :, h]
-            stats = torch.zeros((3, NP))
-            for r0 in range(0, NP, T):  # a query tile: the forward, the statistics
-                s = q[r0:r0 + T] @ k.T
-                dp = gh[r0:r0 + T] @ v.T
-                ss = s if bf16 else s * scale
-                m = ss.masked_fill(~key_ok, -math.inf).amax(-1, keepdim=True)
-                sh = (m * float(c)).float() if bf16 else m
-                p = _p(s, sh, scale, c, bf16) * key_ok
-                pr = rnd(p)
-                for c0 in range(0, chunks * cols, cols):
-                    o = pr @ v[:, c0:c0 + cols]
-                    out[b, r0:r0 + T, h, c0:c0 + cols] = o / pr.sum(
-                        -1, keepdim=True).clamp_min(1e-30)
-                l = p.sum(-1, keepdim=True)
-                pn = p / l
-                r = (dp * pn).sum(-1, keepdim=True)
-                stats[:, r0:r0 + T] = torch.cat([sh, l, r], 1).T
-            sh, l, r = (t[:, None] for t in stats)
-            s, dp = q @ k.T, gh @ v.T
-            pn = _p(s, sh, scale, c, bf16) / l * key_ok
-            ds = rnd((pn * (dp - r)) * scale) * key_ok
-            pn = pn * key_ok[:, None]
-            ds = ds * key_ok[:, None]
-            for t0 in range(0, NP, T):  # dQ by query tiles, dK and dV by key tiles
-                for c0 in range(0, chunks * cols, cols):
-                    dqkv[b, t0:t0 + T, 0, h, c0:c0 + cols] = (
-                        ds[t0:t0 + T] @ k[:, c0:c0 + cols])
-                    dqkv[b, t0:t0 + T, 1, h, c0:c0 + cols] = (
-                        ds[:, t0:t0 + T].T @ q[:, c0:c0 + cols])
-                    dqkv[b, t0:t0 + T, 2, h, c0:c0 + cols] = (
-                        rnd(pn[:, t0:t0 + T]).T @ gh[:, c0:c0 + cols])
-    return (out[:, :N].reshape(B, N, D).to(qkv.dtype),
-            dqkv[:, :N].reshape(B, N, C3).to(qkv.dtype))
+            gh = gx[b, :, h]
+            m = torch.full((N, 1), -math.inf)
+            l, o = torch.zeros((N, 1)), torch.zeros((N, dh))
+            for k0 in range(0, N, keys_a_stage):
+                vs = score(_scores(q, k[k0:k0 + keys_a_stage]))
+                mx = torch.maximum(m, vs.amax(-1, keepdim=True))
+                alpha = _factor(m, mx, c, bf16)
+                p = rnd(_p(vs, shift(mx), c, bf16))
+                l = l * alpha + p.sum(-1, keepdim=True)
+                o = o * alpha + p @ v[k0:k0 + keys_a_stage]
+                m = mx
+            out[b, :, h] = o / l.clamp_min(1e-30)
+
+            s, dp = score(_scores(q, k)), _scores(gh, v)
+            per_cluster = []
+            for cl in range(clusters):
+                per_cta = []
+                for a, e in ranges[cl * ctas:(cl + 1) * ctas]:
+                    blocks = []
+                    for k0 in range(a, e, 16):
+                        sb, db = s[:, k0:min(k0 + 16, e)], dp[:, k0:min(k0 + 16, e)]
+                        mb = sb.amax(-1, keepdim=True)
+                        pb = _p(sb, shift(mb), c, bf16)
+                        blocks.append((mb, pb.sum(-1, keepdim=True),
+                                       (db * pb).sum(-1, keepdim=True)))
+                    zeros = torch.zeros((N, 1))
+                    per_cta.append(_combine(blocks, c, bf16) if blocks
+                                   else (zeros - math.inf, zeros, zeros))
+                per_cluster.append(_combine(per_cta, c, bf16))
+            m, l, ra = _combine(per_cluster, c, bf16)
+            inv = 1.0 / l
+            r = ra * inv
+            pn = _p(s, shift(m), c, bf16) * inv
+            ds = rnd(pn * (dp - r) * scale)
+            pr = rnd(pn)
+            dq = torch.zeros((N, dh))
+            for cl in range(clusters):
+                part = torch.zeros((N, dh))
+                for a, e in ranges[cl * ctas:(cl + 1) * ctas]:
+                    part = part + ds[:, a:e] @ k[a:e]
+                    dk, dv = torch.zeros((e - a, dh)), torch.zeros((e - a, dh))
+                    for r0 in range(0, N, rows):
+                        dk = dk + ds[r0:r0 + rows, a:e].T @ q[r0:r0 + rows]
+                        dv = dv + pr[r0:r0 + rows, a:e].T @ gh[r0:r0 + rows]
+                    dqkv[b, a:e, 1, h], dqkv[b, a:e, 2, h] = dk, dv
+                dq = dq + part
+            dqkv[b, :, 0, h] = dq
+    return (out.reshape(B, N, D).to(qkv.dtype),
+            dqkv.reshape(B, N, C3).to(qkv.dtype))
 
 
 @pytest.mark.parametrize("dtype", ("f32", "bf16"))
 def test_kernel_arithmetic_matches_the_jax_kernel(dtype):
-    """The any-head-dim kernel's tiles, chunks, masks and rounding points
-    (``emulate_any``) at 70 tokens (a ragged second tile) and head dims 12
-    (one chunk of 16 columns) and 136 (two chunks of 128, the second ragged)
-    against the JAX package's kernels and the port's plain versions."""
-    for B, N, H, Dh in ((2, 70, 3, 12), (1, 70, 2, 136)):
+    """The any-head-dim kernels' tiles, online max, masks, statistics and
+    rounding points (``emulate_any``) at 70 tokens (a ragged last stage and
+    tile) and head dims 12 (16 columns; also on a plan of two clusters of
+    two CTAs, the split's combine) and 136 (256 columns, two CTAs) against
+    the JAX package's kernels and the port's plain versions."""
+    for B, N, H, Dh, plan in ((2, 70, 3, 12, None), (2, 70, 3, 12, (2, 2, 32)),
+                              (1, 70, 2, 136, None)):
         qkv, g = _inputs(B, N, H, Dh, seed=7 * Dh)
         (tq, jq), (tg, jg) = _cast(qkv, dtype), _cast(g, dtype)
-        out, dqkv = emulate_any(tq, tg, H)
+        out, dqkv = emulate_any(tq, tg, H, plan)
         kernel, dkernel = _jax_kernels(jq, jg, H)
         np.testing.assert_allclose(out.float().numpy(), kernel,
                                    atol=FWD_ATOL[dtype], err_msg=f"{Dh} forward")
@@ -211,39 +273,42 @@ def _source(name: str) -> str:
 
 
 def test_any_plan_is_the_source():
-    """``any_plan`` and ``any_smem_bytes`` against the constants of
-    ``csrc/attention_any.cu``: 64-row tiles, 16-column slices, chunks of at
-    most 128 columns (16, 32, 64 or 128 by ``any_cols``), every kernel's
-    shared memory within a Hopper block's, the two figures its comment
-    gives; both entries bound with as many arguments as they take."""
-    src = _source("attention_any.cu")
+    """``any_plan`` and ``any_bwd_plan`` against the constants of
+    ``csrc/attention_any.cuh``: one CTA over all output columns up to 256
+    (16, 32, 64, 128 or 256 by ``any_cols``), chunks of 256 above, the
+    tiles then holding the depth 256 columns at a time (``any_window``);
+    clusters of up to 16 CTAs of at most 128 keys, 64 at 256 columns; every
+    CTA's shared memory within a Hopper block's at every head dim (the
+    header's static_assert) and the two figures its comment gives; both
+    entries bound with as many arguments as they take."""
+    src = _source("attention_any.cuh")
     const = {name: int(val) for name, val in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert (const["kTile"], const["kSlice"], const["kMaxCols"]) == (
-        attn.ANY_TILE, attn.ANY_SLICE, attn.ANY_MAX_COLS)
-    assert "constexpr int kLdT = kTile + 4;" in src
-    assert attn._ANY_LD == attn.ANY_TILE + 4
-    assert "return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : kMaxCols;" in src
-    assert "return 4 * (kSliceFloats + tiles * (kTile * kLdT + kTile * cols));" in src
-    assert "constexpr int kSliceFloats = 2 * kSlice * kLdT;" in src
+    assert (const["kMaxCols"], const["kMaxCtas"], const["kSmemLimit"]) == (
+        attn.ANY_MAX_COLS, attn.ANY_MAX_CTAS, SMEM_LIMIT)
+    assert ("return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : kMaxCols;"
+            in src)
+    assert "constexpr int any_window(int depth) { return depth < kMaxCols ? depth : kMaxCols; }" \
+        in src
+    assert "constexpr int bwd_max_keys(int dp) { return dp >= 256 ? 64 : 128; }" in src
+    assert 'static_assert(every_plan_fits(2) && every_plan_fits(4), "a CTA' in src
     plans = {dh: attn.any_plan(dh) for dh in
-             (1, 3, 12, 16, 17, 20, 36, 100, 128, 136, 192, 256, 384, 768)}
+             (1, 3, 12, 16, 17, 20, 36, 100, 128, 136, 192, 256, 257, 384, 768, 1100)}
     assert plans == {1: (1, 16), 3: (1, 16), 12: (1, 16), 16: (1, 16),
                      17: (1, 32), 20: (1, 32), 36: (1, 64), 100: (1, 128),
-                     128: (1, 128), 136: (2, 128), 192: (2, 128),
-                     256: (2, 128), 384: (3, 128), 768: (6, 128)}
+                     128: (1, 128), 136: (1, 256), 192: (1, 256),
+                     256: (1, 256), 257: (2, 256), 384: (2, 256), 768: (3, 256),
+                     1100: (5, 256)}
     for dh, (chunks, cols) in plans.items():
         assert (chunks - 1) * cols < dh <= chunks * cols
-        for backward in (False, True):
-            assert attn.any_smem_bytes(dh, backward) <= SMEM_LIMIT
-    assert (attn.any_smem_bytes(256, False), attn.any_smem_bytes(256, True)) == (
-        58880, 109056)
-    assert "at 128 columns 58,880 and 109,056" in src
-    # two CTAs of 256 threads an SM (128 registers a thread), every kernel
-    assert src.count("__launch_bounds__(kThreads, 2)") == 4
+    assert "163,968 bytes in bf16 at 256\n// columns and 64 keys with one set, 214,400 with two" in src
+    assert "bwd_smem_bytes(4, 256, 256, 64, 1) == 211136" in src
+    assert attn.any_bwd_plan(257, 256) == (1, 5, 64)
+    assert attn.any_bwd_plan(257, 12) == (1, 3, 96)
+    assert attn.any_bwd_plan(257, 1100) == (1, 5, 64)
     assert _build._SIGNATURES["cvt_attention_fwd_any"][-2:] == [
         _build.ctypes.c_float, _build.ctypes.c_void_p]
-    assert len(_build._SIGNATURES["cvt_attention_bwd_any"]) == 11
+    assert len(_build._SIGNATURES["cvt_attention_bwd_any"]) == 15
 
 
 def test_route_by_head_dim_and_alignment():
@@ -258,7 +323,7 @@ def test_route_by_head_dim_and_alignment():
         assert attn.head_dim_route(dh) == ("flash" if flash else "any"), dh
         assert attn.head_dim_route(dh, aligned=False) == "any"
         assert bool(attn.kernel_head_dim(dh)) == flash
-    for dh in (1, 3, 12, 20, 36, 100, 136, 192, 256, 384, 768):
+    for dh in (1, 3, 12, 20, 36, 100, 136, 192, 256, 384, 768, 1100):
         for dtype in (bf16, f32):
             assert {attn.bwd_route(n, dtype, dh) for n in (1, 17, 257, 577, 1100)} \
                 == {"any"}

@@ -1,9 +1,11 @@
 """K2 and K3 at every head dim the JAX kernels take, on the card: the
 any-head-dim kernels of ``csrc/attention_any.cu`` at head dims that are not
 a multiple of 8 (1, 3, 12, 20, 36, 100) or are above 128 (136, 192, 256,
-384, 768), at 257 tokens and, for 12 and 256, at 17, 577 and 1,100; a qkv
-view that starts off a 16-byte boundary at head dim 64; and the gradient of
-``fused_qkv_attention`` through autograd at 64 heads of 12. bf16 and f32,
+384, 768, and 1,024 and 1,100, whose tiles hold the depth 256 columns at a
+time), at 257 tokens and, for 12, 256 and 300, at 17, 577 and 1,100; a qkv
+view that starts off a 16-byte boundary at head dim 64; the gradient of
+``fused_qkv_attention`` through autograd at 64 heads of 12; and the
+backward at 577 tokens as one launch with no scratch. bf16 and f32,
 against ``reference_attention`` and ``reference_attention_bwd``, every
 backward the same twice bit for bit, every call counted. Skips without a
 CUDA device. On a GPU machine without JAX, run without the JAX test
@@ -30,7 +32,7 @@ pytestmark = pytest.mark.cuda
 FWD_ATOL = {torch.bfloat16: 2e-2, torch.float32: 5e-6}
 BWD_ATOL = {torch.bfloat16: 1.6e-2, torch.float32: 5e-6}
 DTYPES = (torch.bfloat16, torch.float32)
-HEAD_DIMS = (1, 3, 12, 20, 36, 100, 136, 192, 256, 384, 768)
+HEAD_DIMS = (1, 3, 12, 20, 36, 100, 136, 192, 256, 384, 768, 1024, 1100)
 
 
 @pytest.fixture
@@ -84,10 +86,11 @@ def test_every_head_dim_matches_plain(cuda, dtype):
 
 
 # 17: one ragged tile; 577: ViT at 384 px; 1,100: past the 1,024 tokens
-# where the instantiated kernels' long routes split a head over clusters
+# where the instantiated kernels' long routes split a head over clusters;
+# 300: the depth in two windows, the second ragged
 @pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "f32"))
 def test_token_counts_match_plain(cuda, dtype):
-    for dh in (12, 256):
+    for dh in (12, 256, 300):
         for n in (17, 577, 1100):
             _check(2, n, 3, dh, dtype, cuda)
 
@@ -117,3 +120,42 @@ def test_autograd_at_64_heads_of_12(cuda):
     torch.testing.assert_close(x.grad.float(),
                                attn.reference_attention_bwd(qkv, g, 64).float(),
                                rtol=0, atol=BWD_ATOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "f32"))
+def test_one_launch_backward_at_577_tokens(cuda, dtype):
+    """At 577 tokens (ViT at 384 px) on 3 heads of 256 and on 64 heads of
+    12 the backward is one launch of ``any_bwd_kernel`` on one cluster a
+    head, with no ``any_dq_sum_kernel``, as the profiler sees the card's
+    kernels; it allocates nothing beside dqkv (no statistics scratch) and
+    gives the same bits twice. Skips, after every other check, where the
+    profiler records no kernel on the card."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    seen = []
+    for heads, dh in ((3, 256), (64, 12)):
+        assert attn.any_bwd_plan(577, dh)[0] == 1
+        qkv, g = _inputs(2, 577, heads, dh, dtype, cuda, seed=dh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            first = attn.fused_qkv_attention_bwd(qkv, g, heads)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert peak == -(-first.numel() * es // 512) * 512, (dh, peak)
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels:
+            seen.append(dh)
+            assert sum(n for k, n in kernels.items() if "any_bwd_kernel" in k) == 1, kernels
+            assert not [k for k in kernels if "dq_sum" in k], kernels
+        again = attn.fused_qkv_attention_bwd(qkv, g, heads)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), dh
+        torch.testing.assert_close(first.float(),
+                                   attn.reference_attention_bwd(qkv, g, heads).float(),
+                                   rtol=0, atol=BWD_ATOL[dtype], msg=f"{dh}")
+    if seen != [256, 12]:
+        pytest.skip(f"the profiler recorded the card's kernels only at head dims {seen}: "
+                    "the one launch is not seen")
