@@ -98,7 +98,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
   float l[2][2];
   bool has[2];
   cvt::flash_attention_rows<Dh, kWarps, kStages, false>(q_base, row_stride, d_model, row0, cblocks, n,
-                                               n, scale_log2, 0.f, false, smem, o, l, has,
+                                               n, scale_log2, 0.f, cvt::kShiftMax, nullptr,
+                                               smem, o, l, has,
                                                threadIdx.x, 0, dh);
 
   // the warp's rows, rounded to bf16, into its own rows of the Q tile, then

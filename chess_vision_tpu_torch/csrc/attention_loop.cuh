@@ -33,6 +33,17 @@
 //    over K alone), so their walk carries no online rescale: flash_walk runs
 //    the ring with a step of the caller's (flash_max_step, flash_fixed_step),
 //    and the row sum adds each rounded pair as it comes, in key order.
+//  - K4/K5/K14's shift (FlashShift): the exact row max (online, as above), a
+//    fixed shift, or the JAX package's default "bound", |q_i| max_j |k_j| - 45
+//    per row and head: max_j |k_j|^2 from the head's K rows in device memory
+//    (flash_key_norm_max, which K15's normbound runs too), the
+//    row's |q|^2 from its fragments (flash_norm_bound), then the loop with
+//    that shift per row, as with a fixed one.
+//  - K4/K5's int8 legs (the JAX package's qk_int8 / pv_int8) walk the keys
+//    with flash_walk and the steps here (flash_max_step_with,
+//    flash_fixed_step_with) on scores from int8 codes quantized in shared
+//    memory; the codes, the int8 P V step and the schedule are in
+//    attention_quant.cu.
 // The f32 accumulators come back to the caller, which writes them. The loop
 // runs on a block of 32 W threads, or on one group of 32 W threads of a
 // larger block (the whole-block kernel, fused_block.cu, runs four), which
@@ -74,6 +85,11 @@ __host__ __device__ constexpr int flash_head_dim(int dh) {
          : dh <= 80                   ? 80
                                       : 128;
 }
+
+// The shift p = exp(s - shift) is taken against (K4/K5, K14): the exact row
+// max, a fixed shift, or the bound |q_i| |k|max - kBoundOffset per row.
+enum FlashShift : int { kShiftMax = 0, kShiftFixed = 1, kShiftBound = 2 };
+constexpr float kBoundOffset = 45.f;  // the JAX package's _BOUND_OFFSET
 
 // What flash_sub_scores does to a score before the mask: nothing (K2, which
 // scales inside its exp2; K15's variants that fold the scale into q),
@@ -206,6 +222,12 @@ __device__ __forceinline__ float flash_bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x0^2 + x1^2 of a packed bf16 pair, each product and the sum rounded.
+__device__ __forceinline__ float flash_pair_sq(uint32_t raw) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+  return __fadd_rn(__fmul_rn(f.x, f.x), __fmul_rn(f.y, f.y));
+}
+
 // S for sub-step hs (keys k0 + 16 hs .. + 15) of the NB row blocks: n-blocks
 // of 8 keys from one ldmatrix.x4 each; kScore (FlashScore) applied, masked
 // keys -inf.
@@ -280,7 +302,7 @@ __device__ __forceinline__ void flash_sub_pv(float (&o)[2][Dh / 8][4], const uin
 // sub-step skipped; the last, ragged step of a head takes kFull = false.
 // Each case is its own straight-line code, so the compiler can interleave the
 // two row blocks' work.
-template <int Dh, bool kQuant, int NB, bool kFull>
+template <int Dh, bool kQuant, int NB, bool kFull, bool kExpBf16>
 __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
                                                     const __nv_bfloat16* vs, int k0,
                                                     int n_keys, float scale, bool fixed,
@@ -347,10 +369,15 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (kQuant) {
-          const float p0 = expf(__fsub_rn(s[j][h][0], m[j][0]));
-          const float p1 = expf(__fsub_rn(s[j][h][1], m[j][0]));
-          const float p2 = expf(__fsub_rn(s[j][h][2], m[j][1]));
-          const float p3 = expf(__fsub_rn(s[j][h][3], m[j][1]));
+          // kExpBf16: the argument rounded to bf16 first (CHESS_VISION_ATTN_EXP=bf16)
+          auto arg = [](float x, float mx) {
+            const float d = __fsub_rn(x, mx);
+            return kExpBf16 ? flash_bf16_round(d) : d;
+          };
+          const float p0 = expf(arg(s[j][h][0], m[j][0]));
+          const float p1 = expf(arg(s[j][h][1], m[j][0]));
+          const float p2 = expf(arg(s[j][h][2], m[j][1]));
+          const float p3 = expf(arg(s[j][h][3], m[j][1]));
           pa[j][h * 2 + 0] = round_pair(p0, p1, rs[j][0]);
           pa[j][h * 2 + 1] = round_pair(p2, p3, rs[j][1]);
         } else {
@@ -381,16 +408,17 @@ __device__ __forceinline__ void flash_step(const __nv_bfloat16* ks,
 // A 64-key step of a walk over K alone: each row's max score into m (per
 // thread; the caller reduces over the four threads of a row once the walk is
 // done). Sub-steps wholly past n_keys are skipped: their scores are -inf.
-template <int Dh, int kScore, int NB, bool kFull>
-__device__ __forceinline__ void flash_max_step(const __nv_bfloat16* ks, int k0, int n_keys,
-                                               float scale, const uint32_t (&qa)[2][Dh / 16][4],
-                                               float (&m)[2][2], int lane) {
+// scores(s, hs) fills S of sub-step hs, masked keys -inf (flash_sub_scores, or
+// the int8 legs' sub_scores_i8 in attention_quant.cu).
+template <int NB, bool kFull, typename Scores>
+__device__ __forceinline__ void flash_max_step_with(int k0, int n_keys, Scores&& scores,
+                                                    float (&m)[2][2]) {
   const int nsub = kFull ? 4 : min(4, (n_keys - k0 + 15) / 16);
 #pragma unroll
   for (int hs = 0; hs < 4; ++hs) {
     if (!kFull && hs >= nsub) continue;
     float s[NB][2][4];
-    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+    scores(s, hs);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -401,24 +429,33 @@ __device__ __forceinline__ void flash_max_step(const __nv_bfloat16* ks, int k0, 
   }
 }
 
+template <int Dh, int kScore, int NB, bool kFull>
+__device__ __forceinline__ void flash_max_step(const __nv_bfloat16* ks, int k0, int n_keys,
+                                               float scale, const uint32_t (&qa)[2][Dh / 16][4],
+                                               float (&m)[2][2], int lane) {
+  flash_max_step_with<NB, kFull>(k0, n_keys, [&](float (&s)[NB][2][4], int hs) {
+    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+  }, m);
+}
+
 // A 64-key step with a shift per row fixed before the walk (m: rows g and
 // g + 8 of each row block): p = prob(s, m) rounded to bf16 feeds P V and the
 // row sum l, which adds each rounded pair as it comes, in key order, with no
 // rescale. A masked key's p is 0 whatever prob gives for -inf; a full step
 // has none, and leaves out the test (a compare and a select a score, on the
 // chain of arithmetic that sets the walk's pace: 14-19% of the kernel's time).
-template <int Dh, int kScore, int NB, bool kFull, typename Prob>
-__device__ __forceinline__ void flash_fixed_step(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                                                 int k0, int n_keys, float scale,
-                                                 const uint32_t (&qa)[2][Dh / 16][4],
-                                                 const float (&m)[2][2], float (&l)[2][2],
-                                                 float (&o)[2][Dh / 8][4], int lane, Prob prob) {
+// Scores as for flash_max_step_with.
+template <int Dh, int NB, bool kFull, typename Scores, typename Prob>
+__device__ __forceinline__ void flash_fixed_step_with(const __nv_bfloat16* vs, int k0, int n_keys,
+                                                      Scores&& scores, const float (&m)[2][2],
+                                                      float (&l)[2][2], float (&o)[2][Dh / 8][4],
+                                                      int lane, Prob prob) {
   const int nsub = kFull ? 4 : min(4, (n_keys - k0 + 15) / 16);
 #pragma unroll
   for (int hs = 0; hs < 4; ++hs) {
     if (!kFull && hs >= nsub) continue;  // p = 0 exactly: nothing to add
     float s[NB][2][4];
-    flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+    scores(s, hs);
     uint32_t pa[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -434,6 +471,20 @@ __device__ __forceinline__ void flash_fixed_step(const __nv_bfloat16* ks, const 
       }
     flash_sub_pv<Dh, NB>(o, pa, vs, hs, lane);
   }
+}
+
+template <int Dh, int kScore, int NB, bool kFull, typename Prob>
+__device__ __forceinline__ void flash_fixed_step(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                                 int k0, int n_keys, float scale,
+                                                 const uint32_t (&qa)[2][Dh / 16][4],
+                                                 const float (&m)[2][2], float (&l)[2][2],
+                                                 float (&o)[2][Dh / 8][4], int lane, Prob prob) {
+  flash_fixed_step_with<Dh, NB, kFull>(
+      vs, k0, n_keys,
+      [&](float (&s)[NB][2][4], int hs) {
+        flash_sub_scores<Dh, kScore, NB, kFull>(s, ks, hs, k0, n_keys, scale, qa, lane);
+      },
+      m, l, o, lane, prob);
 }
 
 // step(nb, full) with nb = std::integral_constant<int, NB>, full =
@@ -459,114 +510,15 @@ __device__ __forceinline__ void flash_for_rows(const bool (&has)[2], bool full, 
   }
 }
 
-// The loop. q_base points at q of this (image, head) (k at + d_model, v at
-// + 2 d_model, rows row_stride apart). The chunk is rows row0 .. row0 + 16 *
-// cblocks - 1 of the image's n rows; keys 0 .. n_keys - 1 take part.
-// K2 (kQuant false): scale = softmax scale * log2(e); p = exp2(s * scale -
-// m * scale). K4 (kQuant true): s = fl(s * scale); p = bf16(exp(s - m)) with
-// m the fixed shift when `fixed`, else the running max. On return o holds
-// P V and l the full row sums of warp row block j (j = 0, 1: blocks w and
-// w + W of the chunk) for rows g (index 0) and g + 8 (index 1); has[j] says
-// whether the block lies in the chunk. tid: the thread's index among the 32 W
-// that run the loop; bar: their barrier (flash_sync). dh: the head's columns
-// (up to Dh; the rest of Q, K and V is zero).
-template <int Dh, int W, int Stages, bool kQuant>
-__device__ __forceinline__ void flash_attention_rows(
-    const __nv_bfloat16* __restrict__ q_base, long long row_stride, int d_model, int row0,
-    int cblocks, int n, int n_keys, float scale, float fixed_shift, bool fixed,
-    __nv_bfloat16* smem, float (&o)[2][Dh / 8][4], float (&l)[2][2], bool (&has)[2], int tid,
-    int bar, int dh = Dh) {
-  static_assert(flash_head_dim(Dh) == Dh, "Dh must be an instantiated head dim");
-  constexpr int kLd = Dh + kFlashPad;
-  constexpr int kStages = Stages;
-  static_assert(kStages >= 2, "the ring needs two stages");
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  __nv_bfloat16* qs = smem + flash_q_offset<Dh, Stages>();
-
-  // Q of the chunk, then the first tiles of the ring
-  flash_copy_q<Dh, W>(qs, q_base, row_stride, row0, cblocks, n, tid, dh);
-  const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < ntiles) {
-      flash_copy_kv<Dh, W>(smem + st * 2 * kFlashKTile * kLd, q_base, row_stride, d_model,
-                           st * kFlashKTile, n_keys, tid, dh);
-    }
-    flash_commit();
-  }
-
-  has[0] = warp < cblocks;
-  has[1] = warp + W < cblocks;
-  uint32_t qa[2][Dh / 16][4];
-  float m[2][2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[j][i] = kQuant && fixed ? fixed_shift : -INFINITY;
-      l[j][i] = 0.f;
-    }
-#pragma unroll
-    for (int nb = 0; nb < Dh / 8; ++nb) o[j][nb][0] = o[j][nb][1] = o[j][nb][2] = o[j][nb][3] = 0.f;
-  }
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    flash_wait<kStages - 2>();
-    flash_sync<W>(bar);  // tile `tile` has landed; every warp is done with tile - 1
-    if (tile == 0) flash_load_qa<Dh, W>(qa, qs, has, warp, lane);
-    {
-      const int next = tile + kStages - 1;
-      if (next < ntiles) {
-        flash_copy_kv<Dh, W>(smem + (next % kStages) * 2 * kFlashKTile * kLd, q_base,
-                             row_stride, d_model, next * kFlashKTile, n_keys, tid, dh);
-      }
-      flash_commit();
-    }
-    const __nv_bfloat16* ks = smem + (tile % kStages) * 2 * kFlashKTile * kLd;
-    const __nv_bfloat16* vs = ks + kFlashKTile * kLd;
-    const int k0 = tile * kFlashKTile;
-    const bool full = k0 + kFlashKTile <= n_keys;
-    if (has[1]) {
-      if (full) {
-        flash_step<Dh, kQuant, 2, true>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o, lane);
-      } else {
-        flash_step<Dh, kQuant, 2, false>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o, lane);
-      }
-    } else if (has[0]) {
-      if (full) {
-        flash_step<Dh, kQuant, 1, true>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o, lane);
-      } else {
-        flash_step<Dh, kQuant, 1, false>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o, lane);
-      }
-    }
-  }
-  flash_wait<0>();
-
-  // the row sums over the four threads of a row, in the earlier order
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (kQuant) {
-        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 1));
-        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 2));
-      } else {
-        l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 1);
-        l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 2);
-      }
-    }
-  }
-}
-
-// A walk of K15's over the keys 0 .. n_keys - 1 of one (image, head) through
+// A walk over the keys 0 .. n_keys - 1 of one (image, head) through
 // the ring: the 64-key tiles of K (and of V when kV) land in turn, and
 // step(ks, vs, k0, full) runs on each (ks, vs: the tile's K and V rows, vs
 // meaningless without kV; full: no key of the tile is masked). first() runs
 // once, after the first tile's barrier, when everything the caller copied
 // before the walk has landed too (the chunk's Q rows). A walk may follow
 // another on the same ring: it waits first for every thread to be done with
-// the tiles before. Arguments as for flash_attention_rows.
+// the tiles before. Arguments as for flash_attention_rows. K15 walks with it,
+// and so do K4/K5's bound and int8 legs.
 template <int Dh, int W, int Stages, bool kV, typename First, typename Step>
 __device__ __forceinline__ void flash_walk(const __nv_bfloat16* q_base, long long row_stride,
                                            int d_model, int n_keys, __nv_bfloat16* smem,
@@ -599,6 +551,203 @@ __device__ __forceinline__ void flash_walk(const __nv_bfloat16* q_base, long lon
     step(ks, ks + kFlashKTile * kLd, k0, k0 + kFlashKTile <= n_keys);
   }
   flash_wait<0>();
+}
+
+// max_j |k_j|^2 over the keys 0 .. n_keys - 1 of one (image, head): three
+// keys a thread at a time, their rows read from device memory in 16-byte loads
+// through L1 (the 32 rows of a warp's load come in as whole lines, which the
+// row's other loads then hit), all issued before the arithmetic; each key's
+// columns summed a pair at a time in order; then the maximum over the warps
+// through red (W floats of shared memory, free until the caller's next
+// barrier). Every thread returns it. first() runs after that barrier, once
+// everything the caller copied before has landed (the chunk's Q rows).
+// K15's normbound and the bound shift of K4/K5 and K14 (whose qkv, written
+// by its own earlier stage, no block has read into L1 before). A walk over
+// the K tiles through the ring, one barrier a tile, cost K4 a fifth of its
+// time at 257 tokens, and loads that bypass L1 (16 of each 32-byte sector
+// used) a third.
+template <int Dh, int W, typename First>
+__device__ __forceinline__ float flash_key_norm_max(const __nv_bfloat16* q_base,
+                                                    long long row_stride, int d_model,
+                                                    int n_keys, int tid, int bar, float* red,
+                                                    First&& first) {
+  constexpr int kAtOnce = 3;  // keys a thread has in flight: 257 in one round at W = 3
+  float kmax = 0.f;
+  for (int key0 = tid; key0 < n_keys; key0 += kAtOnce * 32 * W) {
+    uint4 raw[kAtOnce][Dh / 8];
+#pragma unroll
+    for (int u = 0; u < kAtOnce; ++u) {
+      const int key = key0 + u * 32 * W;
+      const uint4* kr =
+          reinterpret_cast<const uint4*>(q_base + (long long)key * row_stride + d_model);
+#pragma unroll
+      for (int c = 0; c < Dh / 8; ++c) raw[u][c] = key < n_keys ? kr[c] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kAtOnce; ++u) {
+      float sq = 0.f;  // a key past n_keys: 0, which leaves the max alone
+#pragma unroll
+      for (int c = 0; c < Dh / 8; ++c) {
+        sq = __fadd_rn(sq, flash_pair_sq(raw[u][c].x));
+        sq = __fadd_rn(sq, flash_pair_sq(raw[u][c].y));
+        sq = __fadd_rn(sq, flash_pair_sq(raw[u][c].z));
+        sq = __fadd_rn(sq, flash_pair_sq(raw[u][c].w));
+      }
+      kmax = fmaxf(kmax, sq);
+    }
+  }
+  kmax = warp_max(kmax);
+  if (tid % 32 == 0) red[tid / 32] = kmax;
+  flash_wait<0>();
+  flash_sync<W>(bar);
+  first();
+  kmax = red[0];
+#pragma unroll
+  for (int w = 1; w < W; ++w) kmax = fmaxf(kmax, red[w]);
+  return kmax;
+}
+
+// The bound shift of the warp's rows (g: index 0, g + 8: 1, of each row block
+// it has): sqrt(fl(|q|^2 * q2scale) * kmax) - offset, |q|^2 summed over the
+// row's fragments a pair at a time, then over the row's four threads. q2scale
+// turns the |q|^2 of the fragments into that of the folded q (K4: scale^2,
+// exact for a power-of-two scale; K15, whose fragments are folded: 1).
+template <int Dh>
+__device__ __forceinline__ void flash_norm_bound(const uint32_t (&qa)[2][Dh / 16][4],
+                                                 const bool (&has)[2], float kmax,
+                                                 float q2scale, float offset,
+                                                 float (&m)[2][2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!has[j]) continue;  // the same for the whole warp
+    float qn2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      qn2[0] = __fadd_rn(qn2[0], __fadd_rn(flash_pair_sq(qa[j][kk][0]), flash_pair_sq(qa[j][kk][2])));
+      qn2[1] = __fadd_rn(qn2[1], __fadd_rn(flash_pair_sq(qa[j][kk][1]), flash_pair_sq(qa[j][kk][3])));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 1));
+      qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 2));
+      m[j][i] = __fsub_rn(__fsqrt_rn(__fmul_rn(__fmul_rn(qn2[i], q2scale), kmax)), offset);
+    }
+  }
+}
+
+// The loop. q_base points at q of this (image, head) (k at + d_model, v at
+// + 2 d_model, rows row_stride apart). The chunk is rows row0 .. row0 + 16 *
+// cblocks - 1 of the image's n rows; keys 0 .. n_keys - 1 take part.
+// K2 (kQuant false): scale = softmax scale * log2(e); p = exp2(s * scale -
+// m * scale). K4 (kQuant true): s = fl(s * scale); p = bf16(exp(s - m)) with
+// m by `shift` (FlashShift): fixed_shift, the bound (a walk over K first;
+// red: W floats of shared memory for it, unused otherwise) or the running
+// max; kExpBf16 rounds s - m to bf16 before the exp. On return o holds
+// P V and l the full row sums of warp row block j (j = 0, 1: blocks w and
+// w + W of the chunk) for rows g (index 0) and g + 8 (index 1); has[j] says
+// whether the block lies in the chunk. tid: the thread's index among the 32 W
+// that run the loop; bar: their barrier (flash_sync). dh: the head's columns
+// (up to Dh; the rest of Q, K and V is zero).
+template <int Dh, int W, int Stages, bool kQuant, bool kExpBf16 = false>
+__device__ __forceinline__ void flash_attention_rows(
+    const __nv_bfloat16* __restrict__ q_base, long long row_stride, int d_model, int row0,
+    int cblocks, int n, int n_keys, float scale, float fixed_shift, int shift, float* red,
+    __nv_bfloat16* smem, float (&o)[2][Dh / 8][4], float (&l)[2][2], bool (&has)[2], int tid,
+    int bar, int dh = Dh) {
+  static_assert(flash_head_dim(Dh) == Dh, "Dh must be an instantiated head dim");
+  constexpr int kLd = Dh + kFlashPad;
+  constexpr int kStages = Stages;
+  static_assert(kStages >= 2, "the ring needs two stages");
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  __nv_bfloat16* qs = smem + flash_q_offset<Dh, Stages>();
+  const bool bound = kQuant && shift == kShiftBound;
+  const bool fixed = kQuant && shift != kShiftMax;  // a shift per row before the walk
+
+  // Q of the chunk, then the first tiles of the ring
+  flash_copy_q<Dh, W>(qs, q_base, row_stride, row0, cblocks, n, tid, dh);
+  const int ntiles = (n_keys + kFlashKTile - 1) / kFlashKTile;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < ntiles) {
+      flash_copy_kv<Dh, W>(smem + st * 2 * kFlashKTile * kLd, q_base, row_stride, d_model,
+                           st * kFlashKTile, n_keys, tid, dh);
+    }
+    flash_commit();
+  }
+  // the bound's key norms, read while the copies above are in flight
+  const float kmax = bound ? flash_key_norm_max<Dh, W>(q_base, row_stride, d_model, n_keys, tid,
+                                                       bar, red, [] {})
+                           : 0.f;
+
+  has[0] = warp < cblocks;
+  has[1] = warp + W < cblocks;
+  uint32_t qa[2][Dh / 16][4];
+  float m[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[j][i] = fixed ? fixed_shift : -INFINITY;
+      l[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int nb = 0; nb < Dh / 8; ++nb) o[j][nb][0] = o[j][nb][1] = o[j][nb][2] = o[j][nb][3] = 0.f;
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    flash_wait<kStages - 2>();
+    flash_sync<W>(bar);  // tile `tile` has landed; every warp is done with tile - 1
+    if (tile == 0) {
+      flash_load_qa<Dh, W>(qa, qs, has, warp, lane);
+      if (bound) flash_norm_bound<Dh>(qa, has, kmax, __fmul_rn(scale, scale), kBoundOffset, m);
+    }
+    {
+      const int next = tile + kStages - 1;
+      if (next < ntiles) {
+        flash_copy_kv<Dh, W>(smem + (next % kStages) * 2 * kFlashKTile * kLd, q_base,
+                             row_stride, d_model, next * kFlashKTile, n_keys, tid, dh);
+      }
+      flash_commit();
+    }
+    const __nv_bfloat16* ks = smem + (tile % kStages) * 2 * kFlashKTile * kLd;
+    const __nv_bfloat16* vs = ks + kFlashKTile * kLd;
+    const int k0 = tile * kFlashKTile;
+    const bool full = k0 + kFlashKTile <= n_keys;
+    if (has[1]) {
+      if (full) {
+        flash_step<Dh, kQuant, 2, true, kExpBf16>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o,
+                                                     lane);
+      } else {
+        flash_step<Dh, kQuant, 2, false, kExpBf16>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o,
+                                                     lane);
+      }
+    } else if (has[0]) {
+      if (full) {
+        flash_step<Dh, kQuant, 1, true, kExpBf16>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o,
+                                                     lane);
+      } else {
+        flash_step<Dh, kQuant, 1, false, kExpBf16>(ks, vs, k0, n_keys, scale, fixed, qa, m, l, o,
+                                                     lane);
+      }
+    }
+  }
+  flash_wait<0>();
+
+  // the row sums over the four threads of a row, in the earlier order
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kQuant) {
+        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 1));
+        l[j][i] = __fadd_rn(l[j][i], __shfl_xor_sync(0xffffffffu, l[j][i], 2));
+      } else {
+        l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 1);
+        l[j][i] += __shfl_xor_sync(0xffffffffu, l[j][i], 2);
+      }
+    }
+  }
 }
 
 // The quantizing epilogue, first half: o / max(rowsum, 1e-30) in place (K4;

@@ -40,8 +40,9 @@
 // each is a row statistic, then one walk over the keys with that fixed shift
 // per row (flash_fixed_step):
 //   - noshift, fexp_ns: a constant; one walk;
-//   - normbound: a walk over the head's K tiles alone for max_j |k_j|^2,
-//     then the per-row bound from the folded q's norm; then the walk;
+//   - normbound: max_j |k_j|^2 from the head's K rows in device memory
+//     (flash_key_norm_max, shared with K4's bound), then the per-row bound
+//     from the folded q's norm; then the walk;
 //   - base, foldscale, noexp, fexp, bf16s: walk 1 over K alone takes S and
 //     the row max (flash_max_step: no V tiles, no P V), walk 2 forms p
 //     against that max.
@@ -93,11 +94,6 @@ __device__ __forceinline__ uint32_t fold_pair(uint32_t raw, float fold) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
   __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(f.x, fold), __fmul_rn(f.y, fold));
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float pair_sq(uint32_t raw) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-  return __fadd_rn(__fmul_rn(f.x, f.x), __fmul_rn(f.y, f.y));
 }
 
 // 2^t: cubic on the fraction, exponent bits spliced in (attn_variants.py
@@ -202,42 +198,11 @@ attention_variant_kernel(const __nv_bfloat16* __restrict__ qkv, int8_t* __restri
           m[j][i] = fmaxf(m[j][i], __shfl_xor_sync(0xffffffffu, m[j][i], 2));
         }
     } else if constexpr (V == kNormBound) {
-      // max_j |k_j|^2 over the image's keys of this head: a walk over K alone,
-      // one key a thread, its columns summed in order
-      float kmax = 0.f;
-      flash_walk<Dh, kWarps, kStages, false>(
-          q_base, row_stride, d_model, n, smem, tid, 0, take_q,
-          [&](const __nv_bfloat16* ks, const __nv_bfloat16*, int k0, bool) {
-            if (tid < kFlashKTile && k0 + tid < n) {
-              const __nv_bfloat16* kr = ks + tid * (Dh + kFlashPad);
-              float sq = 0.f;
-#pragma unroll
-              for (int c = 0; c < Dh; c += 2) sq = __fadd_rn(sq, pair_sq(load_pair(kr + c)));
-              kmax = fmaxf(kmax, sq);
-            }
-          });
-      kmax = warp_max(kmax);
-      if (lane == 0) red[warp] = kmax;
-      flash_sync<kWarps>(0);
-      kmax = red[0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) kmax = fmaxf(kmax, red[w]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (!has[j]) continue;  // the same for the whole warp
-        float qn2[2] = {0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < Dh / 16; ++kk) {
-          qn2[0] = __fadd_rn(qn2[0], __fadd_rn(pair_sq(qa[j][kk][0]), pair_sq(qa[j][kk][2])));
-          qn2[1] = __fadd_rn(qn2[1], __fadd_rn(pair_sq(qa[j][kk][1]), pair_sq(qa[j][kk][3])));
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 1));
-          qn2[i] = __fadd_rn(qn2[i], __shfl_xor_sync(0xffffffffu, qn2[i], 2));
-          m[j][i] = __fsub_rn(__fsqrt_rn(__fmul_rn(qn2[i], kmax)), 40.f);
-        }
-      }
+      // max_j |k_j|^2 over the image's keys of this head, then each row's
+      // bound from its folded fragments
+      const float kmax =
+          flash_key_norm_max<Dh, kWarps>(q_base, row_stride, d_model, n, tid, 0, red, take_q);
+      flash_norm_bound<Dh>(qa, has, kmax, 1.f, 40.f, m);
     } else {
 #pragma unroll
       for (int j = 0; j < 2; ++j) m[j][0] = m[j][1] = Policy::kShift;

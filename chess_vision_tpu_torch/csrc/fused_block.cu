@@ -8,7 +8,9 @@
 //
 //   qkv  = bf16(y(xq, Wqkv))
 //   att  = softmax(q k^T * scale) v per head, p = bf16(exp(s - shift)) in
-//          both P V and the row sum, row sum floored at 1e-30      (f32)
+//          both P V and the row sum, row sum floored at 1e-30      (f32);
+//          shift: the calibrated one, else the JAX default "bound"
+//          |q_i| max_j |k_j| - 45 per row and head (fused_block.py:138-142)
 //   aq   = rowquant(att)                        over all heads of the token
 //   x1   = bf16(res + y(aq, Wproj))
 //   hq   = rowquant(LN2(x1))                    two-pass LN of the rounded x1
@@ -90,6 +92,10 @@
 //    ring's TMA writes.
 //  - The calibrated shift is a kernel argument, so every layer runs the same
 //    compiled kernel (what fused_vit_stack's lax.scan is for on the TPU).
+//    The bound shift costs each group a read of its head's K rows before
+//    the loop (attention_loop.cuh flash_key_norm_max, through L2; the
+//    group's slot of the row maxima holds the warps' key-norm maxima
+//    meanwhile).
 //  - One kernel for every head dim and GELU: the attention stage is a called
 //    function per head dim and the fc1 epilogue picks its GELU at run time,
 //    so the file compiles the four products once.
@@ -165,7 +171,7 @@ struct FusedArgs {
   float* ys;                              // (m,)
   int batch, n, heads, head_dim, o1;
   float scale, shift;
-  int fixed, gelu;
+  int shift_mode, gelu;  // shift_mode: FlashShift (attention_loop.cuh)
   float eps;
   unsigned long long* stage_ns;  // optional (kBlockStages + 1,): see mark_stage
 };
@@ -255,7 +261,7 @@ template <int Dh>
 __device__ __noinline__ void attention_stage(const __nv_bfloat16* qkv, int8_t* aq, float* as,
                                                 float* amax, unsigned int* count, int batch,
                                                 int n, int heads, float scale, float shift,
-                                                int fixed, uint8_t* smem) {
+                                                int shift_mode, uint8_t* smem) {
   const int group = threadIdx.x / kGroupRows;
   const int tid = threadIdx.x % kGroupRows;
   const int warp = tid / 32;
@@ -287,7 +293,8 @@ __device__ __noinline__ void attention_stage(const __nv_bfloat16* qkv, int8_t* a
     if (h < heads) {
       flash_attention_rows<Dh, kGroupWarps, kGroupStages, true>(
           qkv + (long long)b * n * row_stride + h * Dh, row_stride, d_model, row0, cblocks, n,
-          n, scale, shift, fixed != 0, tile, o, l, has, tid, kBarGroup + group);
+          n, scale, shift, shift_mode, part + group * kGroupRows, tile, o, l, has, tid,
+          kBarGroup + group);
       flash_quant_normalize<Dh, kGroupWarps>(o, l, has, part + group * kGroupRows, warp, lane);
     }
     named_bar_sync(kBarConsumers, kConsumers);
@@ -384,15 +391,15 @@ fused_block_kernel(const __grid_constant__ FusedMaps maps, const FusedArgs a) {
   switch (a.head_dim) {
     case 16:
       attention_stage<16>(a.qkv_out, a.aq, a.as, a.att_amax, a.att_count, a.batch, a.n,
-                          a.heads, a.scale, a.shift, a.fixed, smem);
+                          a.heads, a.scale, a.shift, a.shift_mode, smem);
       break;
     case 32:
       attention_stage<32>(a.qkv_out, a.aq, a.as, a.att_amax, a.att_count, a.batch, a.n,
-                          a.heads, a.scale, a.shift, a.fixed, smem);
+                          a.heads, a.scale, a.shift, a.shift_mode, smem);
       break;
     default:
       attention_stage<64>(a.qkv_out, a.aq, a.as, a.att_amax, a.att_count, a.batch, a.n,
-                          a.heads, a.scale, a.shift, a.fixed, smem);
+                          a.heads, a.scale, a.shift, a.shift_mode, smem);
       break;
   }
   barrier(2);
@@ -494,8 +501,9 @@ extern "C" long long cvt_fused_block_scratch_bytes(long long m, int d, int o1) {
 // biases; g2, b2 and gn, bn the f32 (d,) LayerNorm parameters of this
 // block's norm2 and the next block's norm1. scratch: at least
 // cvt_fused_block_scratch_bytes bytes, 256-byte aligned. Outputs: xn bf16
-// (batch, n, d), yq int8 (batch, n, d), ys f32 (batch, n). fixed != 0:
-// exp(s - shift) with the given shift, else the exact row max. gelu: 0 erf,
+// (batch, n, d), yq int8 (batch, n, d), ys f32 (batch, n). shift_mode: 0
+// the exact row max, 1 exp(s - shift) with the given shift, 2 the bound
+// |q_i| max_j |k_j| - 45 of each row and head (FlashShift). gelu: 0 erf,
 // 1 sigmoid, 2 hard. stage_ns: null, or 8 x u64 that receive the card's
 // nanosecond clock at the start and after each of the 7 stages. d % 16 == 0,
 // o1 % 16 == 0, head_dim 16, 32 or 64; every pointer 16-byte aligned, tensors
@@ -506,12 +514,13 @@ extern "C" int cvt_fused_block(
     const void* g2, const void* b2, const void* wfc1, const void* sfc1, const void* bfc1,
     const void* wfc2, const void* sfc2, const void* bfc2, const void* gn, const void* bn,
     void* scratch, void* xn, void* yq, void* ys, int batch, int n, int heads, int head_dim,
-    int o1, float scale, float shift, int fixed, int gelu, float eps, void* stage_ns,
+    int o1, float scale, float shift, int shift_mode, int gelu, float eps, void* stage_ns,
     void* stream) {
   const long long m = (long long)batch * n;
   const int d = heads * head_dim;
   if (batch < 1 || n < 1 || heads < 1 || d % 16 || o1 < 16 || o1 % 16 || d > kRowMaxD ||
-      o1 > kRowMaxD || gelu < kGeluErf || gelu > kGeluHard || m > 0x7fffffffLL - kTileM ||
+      o1 > kRowMaxD || gelu < kGeluErf || gelu > kGeluHard || shift_mode < kShiftMax ||
+      shift_mode > kShiftBound || m > 0x7fffffffLL - kTileM ||
       (head_dim != 16 && head_dim != 32 && head_dim != 64)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -558,7 +567,7 @@ extern "C" int cvt_fused_block(
   a.o1 = o1;
   a.scale = scale;
   a.shift = shift;
-  a.fixed = fixed;
+  a.shift_mode = shift_mode;
   a.gelu = gelu;
   a.eps = eps;
   a.stage_ns = static_cast<unsigned long long*>(stage_ns);

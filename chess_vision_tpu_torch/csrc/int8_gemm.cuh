@@ -30,6 +30,10 @@ enum Epilogue : int {
 
 enum Gelu : int { kGeluErf = 0, kGeluSigmoid = 1, kGeluHard = 2 };
 constexpr int kGeluAny = -1;  // wgmma_consume: take the GELU from WgArgs::gelu
+// K8's bf16 epilogue (rowquant.cuh gelu_bf16): WgArgs::gelu 3 + the form (0
+// erf, 1 sigmoid, 2 hard), one instantiation for the three
+constexpr int kGeluBf16 = 3;
+constexpr int kGeluLast = kGeluBf16 + kGeluHard;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -442,7 +446,13 @@ __device__ __forceinline__ void tile_epilogue_gelu_quant(const WgArgs& p, const 
     slice_values(p, acc, sl, slice, rowv, c0, lane, y, [] {});
 #pragma unroll
     for (int it = 0; it < kSliceIters; ++it) {
-      gelu4<Gelu>(y[it]);  // a lane past o holds y = 0: gelu(0) = 0
+      // a lane past o holds y = 0: gelu(0) = 0
+      if constexpr (Gelu == kGeluBf16) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[it][e] = gelu_bf16(y[it][e], p.gelu - kGeluBf16);
+      } else {
+        gelu4<Gelu>(y[it]);
+      }
       vmax[it] = fmaxf(fmaxf(vmax[it], fmaxf(fabsf(y[it][0]), fabsf(y[it][1]))),
                        fmaxf(fabsf(y[it][2]), fabsf(y[it][3])));
     }
@@ -460,6 +470,7 @@ __device__ __forceinline__ void tile_epilogue_gelu_quant(const WgArgs& p, const 
     for (int d = kLanesPerRow / 2; d > 0; d >>= 1) {
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
     }
+    if constexpr (Gelu == kGeluBf16) v = bf16_round(v);  // the amax in bf16
     const long long row = m0 + r0 + it * kRowsPerIter;
     // a row past m holds gelu(bias): not a value of the matrix
     if (sub == 0 && row < p.m) {

@@ -5,7 +5,10 @@
 //   K9  int8_matmul_res_ln_quant    x' = bf16(res + y); yq, ys = rowquant(LN(x'))
 //   K10 int8_matmul_res             x' = bf16(res + y)
 // and their flat twins K11-K13, which are the same math on (M, K) rows,
-// where y = f32(xq @ wq) * xs * ws + bias. It also serves the qkv product,
+// where y = f32(xq @ wq) * xs * ws + bias. K8 also takes the JAX package's
+// bf16 epilogue (CHESS_VISION_EPILOGUE=bf16, gelu 3-5: the GELU in bf16,
+// rowquant.cuh gelu_bf16, the amax in bf16, the codes from f32); the JAX
+// flat kernel K11 has no such epilogue, and the flat layout never asks it. It also serves the qkv product,
 // which the JAX package leaves to XLA (quant.py quant_dense_q): bf16(y).
 //
 // Bound on this card: at the ViT-B serving shapes (M = 256 * 257 rows, K and
@@ -793,7 +796,8 @@ extern "C" int cvt_gelu_selftest(long long n, int gelu, void* mismatches, void* 
 //   2  out = bf16(res + y); yq, ys = rowquant(LN(out))       + ln_g, ln_b f32
 //   3  yq, ys = rowquant(gelu(y)); out is a scratch of m + ceil(m / 64) 32-bit
 //      words (the row maxima and a count per 64 rows); o at most 256 columns
-//      for each block the card holds at once   gelu 0 erf, 1 sigmoid, 2 hard
+//      for each block the card holds at once   gelu 0 erf, 1 sigmoid, 2 hard;
+//      3, 4, 5: the same in the JAX bf16 epilogue (rowquant.cuh gelu_bf16)
 // yq int8 (m, o), ys f32 (m,). k % 16 == 0, o % 8 == 0, every pointer
 // 16-byte aligned, tensors contiguous. Returns the first failing launch's
 // cudaError_t.
@@ -804,7 +808,7 @@ extern "C" int cvt_int8_matmul(const void* xq, const void* xs, const void* w,
                                const void* ln_b, float eps, void* yq, void* ys,
                                void* stream) {
   if (m < 1 || m > 0x7fffffffLL - kTileM || k < 16 || k % 16 || o < 8 || o % 8 ||
-      epilogue < kEpiBias || epilogue > kEpiGeluQ || gelu < kGeluErf || gelu > kGeluHard) {
+      epilogue < kEpiBias || epilogue > kEpiGeluQ || gelu < kGeluErf || gelu > kGeluLast) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap map_a, map_b;
@@ -854,7 +858,8 @@ extern "C" int cvt_int8_matmul(const void* xq, const void* xs, const void* w,
       switch (gelu) {
         case kGeluSigmoid: return (int)launch_gelu_quant<kGeluSigmoid>(map_a, map_b, a, st);
         case kGeluHard: return (int)launch_gelu_quant<kGeluHard>(map_a, map_b, a, st);
-        default: return (int)launch_gelu_quant<kGeluErf>(map_a, map_b, a, st);
+        case kGeluErf: return (int)launch_gelu_quant<kGeluErf>(map_a, map_b, a, st);
+        default: return (int)launch_gelu_quant<kGeluBf16>(map_a, map_b, a, st);
       }
   }
 }

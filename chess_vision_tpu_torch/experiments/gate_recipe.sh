@@ -26,13 +26,15 @@
 #               the 4,096 test boards
 #  4. int8_eval python -m chess_vision_tpu_torch.experiments.int8_eval
 #               --calib 64 under CHESS_VISION_INT8_LAYOUT=block, flat and
-#               fused, each with --mode rgb and --mode ycbcr420
+#               fused, each with --mode rgb and --mode ycbcr420; then
+#               --calib 0 (the bound shift, the JAX default) under block in
+#               both forms (int8_eval_block_<mode>_calib0)
 #  5. int8_gate python -m chess_vision_tpu_torch.experiments.int8_gate: per
 #               layout, the int8 kernels and their plain versions against
 #               bf16, and each board where any two of them disagree, square
 #               by square; then the int8 scheme with one choice changed at a
-#               time (the XLA-form block, the erf GELU, no calibration,
-#               4:2:0 input)
+#               time (the XLA-form block, the erf GELU, no calibration
+#               under the bound and under the row max, 4:2:0 input)
 #  6. smoke     python3 chip_smoke.py --checkpoint best.ckpt --images
 #               <test split> --keep-going: each check's reading on the
 #               trained weights and real boards
@@ -94,6 +96,12 @@ for layout in block flat fused; do
       --checkpoint "$ckpt" --test-dir "$test_dir" --max-samples 4096 \
       --calib 64 --mode "$mode"
   done
+done
+for mode in rgb ycbcr420; do
+  CHESS_VISION_INT8_LAYOUT=block step "int8_eval_block_${mode}_calib0" \
+    python -m chess_vision_tpu_torch.experiments.int8_eval \
+    --checkpoint "$ckpt" --test-dir "$test_dir" --max-samples 4096 \
+    --calib 0 --mode "$mode"
 done
 step int8_gate python -m chess_vision_tpu_torch.experiments.int8_gate \
   --checkpoint "$ckpt" --test-dir "$test_dir" \

@@ -11,15 +11,18 @@ the two agree, per square and per board:
         --test-dir data/test [--max-samples 4096] [--batch-size 256] \\
         [--calib 64] [--mode ycbcr420|rgb] [--device cpu]
 
-The int8 kernel layout is ``CHESS_VISION_INT8_LAYOUT`` (block, flat or
-fused), read by the Predictor: run the script once per layout. ``--mode``
-is the Predictor's input form, ``ycbcr420`` (the JPEG's 4:2:0 planes, the
-default, as in the JAX script) or ``rgb``. Differences from the JAX script:
-``--calib 0`` means the exact row max in every softmax (the JAX package's
-"adaptive bound" shifts are not ported); the JSON also names the layout,
-the mode, the device, the board agreement on the first 512 boards (the JAX
-package's gate was read on 512) and the indices of the boards whose
-placements differ. It runs on the CUDA device unless ``--device`` says otherwise.
+The int8 kernel layout is ``CHESS_VISION_INT8_LAYOUT`` (block, flat,
+fused, hybrid or xla) and the serving modes ``CHESS_VISION_ATTN_SOFTMAX``,
+``_ATTN_QK``, ``_ATTN_EXP`` and ``_EPILOGUE``, read by the Predictor: run
+the script once per setting. ``--mode`` is the Predictor's input form,
+``ycbcr420`` (the JPEG's 4:2:0 planes, the default, as in the JAX script)
+or ``rgb``. ``--calib 0`` (the default, as in the JAX script) calibrates
+nothing: every softmax takes the mode's shift, the "bound" unless
+``CHESS_VISION_ATTN_SOFTMAX`` says otherwise. The JSON also names the layout,
+the modes, the input form, the device, the board agreement on the first 512
+boards (the JAX package's gate was read on 512) and the indices of the
+boards whose placements differ. It runs on the CUDA device unless
+``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ def main(argv=None):
                     help="the Predictor's input form")
     ap.add_argument("--calib", type=int, default=0,
                     help="calibrate per-layer softmax shifts on the first N "
-                         "images (0 = the exact row max)")
+                         "images (0 = CHESS_VISION_ATTN_SOFTMAX's shift, the "
+                         "bound by default)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -97,7 +101,7 @@ def main(argv=None):
 
     results = {}
     preds = {}
-    layout = None
+    layout = modes = None
     for quant in (None, "int8"):
         name = quant or "bf16"
         t0 = time.time()
@@ -111,6 +115,7 @@ def main(argv=None):
         results[name] = m
         preds[name] = sq
         layout = p.layout or layout
+        modes = p.int8_modes or modes
         print(f"{name}: {json.dumps(m)}", file=sys.stderr)
         del p
 
@@ -131,6 +136,8 @@ def main(argv=None):
         "board_agreement_first_512": round(
             float(same[:512].all(axis=1).mean()), 6),
         "layout": layout,
+        "int8_modes": vars(modes) if modes else None,
+        "calib": args.calib,
         "mode": args.mode,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else str(device)),

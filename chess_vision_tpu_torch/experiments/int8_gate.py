@@ -26,9 +26,12 @@ disagree (``schemes``): the plain versions of the block layout, on the same
 checkpoint, with one choice changed at a time against the serving scheme
 (sigmoid GELU in fc1, shifts calibrated on ``--calib`` boards, RGB input):
 the XLA-form block (``plain.xla_form_blocks``: bf16 attention, then dynamic
-row quantization, the arithmetic of the JAX package's ``xla`` and
-``hybrid`` layouts), the erf GELU, the exact row max (no calibration), and
-4:2:0 input (the files' own planes, held against bf16 on the same planes).
+row quantization, the arithmetic of the JAX package's ``xla`` layout), the
+erf GELU, no calibration (``calib_0``: the JAX default, the bound shift),
+no calibration under the exact row max (``calib_0_max``,
+``CHESS_VISION_ATTN_SOFTMAX=max``: what ``calib_0`` read before the bound was
+ported), and 4:2:0 input (the files' own planes, held against bf16 on the
+same planes).
 Every agreement is given on all the boards and on the first 512 (the JAX
 package's gate read 512). Prints one JSON object (and writes it to
 ``--out``).
@@ -49,12 +52,13 @@ BATCH = 256
 LAYOUTS = ("block", "flat", "fused")
 FIRST = 512  # the JAX package's gate was read on 512 boards
 # one choice of the serving scheme changed at a time: (CHESS_VISION_GELU,
-# calibrated, mode, XLA-form blocks)
-SCHEMES = {"serving": ("sigmoid", True, "rgb", False),
-           "xla_form": ("sigmoid", True, "rgb", True),
-           "gelu_erf": ("erf", True, "rgb", False),
-           "calib_0": ("sigmoid", False, "rgb", False),
-           "ycbcr420": ("sigmoid", True, "ycbcr420", False)}
+# calibrated, mode, XLA-form blocks, CHESS_VISION_ATTN_SOFTMAX)
+SCHEMES = {"serving": ("sigmoid", True, "rgb", False, "bound"),
+           "xla_form": ("sigmoid", True, "rgb", True, "bound"),
+           "gelu_erf": ("erf", True, "rgb", False, "bound"),
+           "calib_0": ("sigmoid", False, "rgb", False, "bound"),
+           "calib_0_max": ("sigmoid", False, "rgb", False, "max"),
+           "ycbcr420": ("sigmoid", True, "ycbcr420", False, "bound")}
 
 
 def square_logits(predictor, boards) -> np.ndarray:
@@ -156,7 +160,7 @@ def scheme_readings(checkpoint, device, files, boards, bf16_logits,
 
     planes = reference = None
     out = {}
-    for name, (gelu, calibrated, mode, xla) in SCHEMES.items():
+    for name, (gelu, calibrated, mode, xla, softmax) in SCHEMES.items():
         t0 = time.time()
         if mode == "ycbcr420" and planes is None:
             bf16 = Predictor(checkpoint, batch_size=BATCH, device=device,
@@ -165,7 +169,8 @@ def scheme_readings(checkpoint, device, files, boards, bf16_logits,
             planes = tuple(np.stack([p[i] for p in decoded]) for i in range(3))
             reference = square_logits(bf16, planes)
             del bf16, decoded
-        env = {"CHESS_VISION_INT8_LAYOUT": "block", "CHESS_VISION_GELU": gelu}
+        env = {"CHESS_VISION_INT8_LAYOUT": "block", "CHESS_VISION_GELU": gelu,
+               "CHESS_VISION_ATTN_SOFTMAX": softmax}
         with mock.patch.dict(os.environ, env):
             int8 = Predictor(checkpoint, batch_size=BATCH, device=device,
                              quant="int8", mode=mode,

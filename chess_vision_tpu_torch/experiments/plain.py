@@ -58,8 +58,8 @@ def plain_int8_ops(keep: tuple[str, ...] = ()):
 @contextmanager
 def xla_form_blocks():
     """Run the int8 forward's blocks in the XLA form (``quant._block``: the
-    arithmetic of the JAX package's ``xla`` and ``hybrid`` layouts), in
-    place of the block layout's: bf16 attention through
+    arithmetic of the ``xla`` layout), in place of the block layout's: bf16
+    attention through
     ``fused_qkv_attention`` (K2 on a CUDA tensor), then dynamic per-row
     quantization of each product's input. A measurement of that scheme on
     the same weights (``int8_gate.py``), not a serving layout; a
@@ -67,7 +67,7 @@ def xla_form_blocks():
     from chess_vision_tpu_torch.ops import quant
 
     def block(x, xq, xs, q, next_ln, num_heads=12, softmax_shift=None,
-              gelu="sigmoid"):
+              gelu="sigmoid", modes=None):
         return quant._block(x, q, num_heads, gelu), None, None
 
     with mock.patch.object(quant, "block_int8", block):
@@ -106,7 +106,7 @@ def forward_logits(predictor, boards, batch: int = 256) -> dict[str, np.ndarray]
                     predictor.pack, x, predictor.attn_shifts,
                     gelu=predictor.gelu,
                     num_heads=model_cfg.get("num_heads", 12),
-                    layout=predictor.layout)
+                    layout=predictor.layout, modes=predictor.int8_modes)
             else:
                 x = model_input(inputs, mean, std, predictor.model.dtype,
                                 predictor.mode)

@@ -46,7 +46,11 @@ package's function of that name, K4): attention, then per-token int8
 quantization of the (B, N, H*Dh) output, in ``csrc/attention_quant.cu`` (one
 launch: the blocks of a row chunk's heads form a thread-block cluster and
 exchange their row maxima on chip, so at most ``QUANT_MAX_HEADS`` heads);
-``reference_attention_quant`` is its plain version.
+``reference_attention_quant`` is its plain version. Both take the JAX
+function's modes: the softmax shift (``shift_mode``: "bound", the JAX
+default without a calibrated shift, |q_i| max_j |k_j| - 45 per row and
+head; "fixed"; "max"), the bf16 exp and the int8 legs (``qk_int8``,
+``pv_int8``: the kernel's second entry, ``cvt_attention_quant_i8``).
 ``fused_qkv_attention_quant_flat`` (K5) is the same on the ``"flat"`` int8
 layout's (images * NP, 3*H*Dh) stream, whose token axis is padded to NP rows
 per image: keys at token index >= ``n_real`` are masked out of the softmax.
@@ -75,6 +79,7 @@ FLAT_LAUNCHES = 0
 F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
 F32_BWD_LAUNCHES = 0  # of the f32 backward, one a call on either route
 F32_BWD_LONG_LAUNCHES = 0  # of F32_BWD_LAUNCHES, those of the long route
+QUANT_I8_LAUNCHES = 0  # of QUANT_LAUNCHES and FLAT_LAUNCHES, the int8 legs'
 ANY_LAUNCHES = 0  # of LAUNCHES and F32_LAUNCHES, csrc/attention_any.cu's
 ANY_BWD_LAUNCHES = 0  # of BWD_LAUNCHES and F32_BWD_LAUNCHES, the same
 
@@ -560,19 +565,120 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
 
 def _pow2(x: float) -> bool:
     """True when x is an exact power of two (the JAX kernel then folds the
-    softmax scale into q and honours a fixed shift)."""
+    softmax scale into q and honours a fixed or bound shift)."""
     return math.frexp(x)[0] == 0.5
 
 
-def _fixed_shift(softmax_shift: float | None, head_dim: int) -> bool:
-    """Whether a calibrated shift is used as given. The JAX kernel uses it
-    only where the softmax scale folds exactly (``_attn_quant_image``); other
-    head dims keep the exact row max."""
-    return softmax_shift is not None and _pow2(1.0 / math.sqrt(head_dim))
+# The quantizing attention's softmax shift (CHESS_VISION_ATTN_SOFTMAX), as
+# the C entry points number them (csrc/attention_loop.cuh FlashShift).
+SHIFT_MODES = {"max": 0, "fixed": 1, "bound": 2}
+FIXED_SHIFT = 24.0   # the JAX package's _FIXED_SHIFT
+BOUND_OFFSET = 45.0  # its _BOUND_OFFSET
+_EXP_BF16_FLAG = 4   # in the C entry points' mode: the bf16 exp
+_LANES = 128         # the JAX kernel splits the key axis at a multiple of it
+
+
+def _shift(shift_mode: str, softmax_shift: float | None, head_dim: int,
+           legacy: bool = False) -> tuple[str, float]:
+    """The shift the JAX kernel takes, by its rules: the int8 legs (legacy)
+    take the exact row max; a calibrated shift overrides the mode; "fixed"
+    and "bound" need a power-of-two softmax scale (the fold), else the exact
+    row max. Returns ("max" | "fixed" | "bound", the fixed shift)."""
+    if shift_mode not in SHIFT_MODES:
+        raise ValueError(f"unknown softmax shift mode {shift_mode!r}; "
+                         f"expected one of {list(SHIFT_MODES)}")
+    if legacy or not _pow2(1.0 / math.sqrt(head_dim)):
+        return "max", 0.0
+    if softmax_shift is not None:
+        return "fixed", float(softmax_shift)
+    if shift_mode == "fixed":
+        return "fixed", FIXED_SHIFT
+    return shift_mode, 0.0
+
+
+def _block_exp_bf16(exp_bf16: bool, kind: str, n: int) -> bool:
+    """Whether K4 rounds s - shift to bf16 before the exp: the JAX kernel
+    does so everywhere but on its wide-exp path, which a fixed shift takes at
+    128 k + 1..2 tokens (``_attn_quant_image``: ``wide``)."""
+    nm = (n // _LANES) * _LANES
+    return exp_bf16 and not (kind == "fixed" and nm >= _LANES
+                             and 0 < n - nm <= 2)
+
+
+def _rowq8(x: torch.Tensor, dim: int = -1):
+    """The JAX kernel's ``_rowq8`` (dim -1) and ``_colq8`` (over the keys) of
+    f32 x: codes rint(x * fl(127 / amax)) clipped, and fl(amax * fl(1/127)),
+    amax floored at 1e-8. (``127.0 / amax`` would be PyTorch's reciprocal
+    times 127, not always fl(127 / amax).)"""
+    amax = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8)
+    q = torch.round(x * (torch.full_like(amax, 127.0) / amax)).clamp(-127, 127)
+    return q, amax * (1.0 / 127.0)
+
+
+def _pair_sq(x: torch.Tensor) -> torch.Tensor:
+    """(..., Dh) f32 -> (..., Dh / 2): x0^2 + x1^2 of each column pair, each
+    product and the sum rounded (the kernels' ``flash_pair_sq``)."""
+    return x[..., 0::2] * x[..., 0::2] + x[..., 1::2] * x[..., 1::2]
+
+
+def _bound_shift(q: torch.Tensor, k: torch.Tensor, n_real: int,
+                 scale: float) -> torch.Tensor:
+    """(B, H, N, 1) shifts |q_i| max_j |k_j| - 45, as the JAX ``_bound_shift``
+    defines them: sums of squares in f32 over each head's columns of the
+    folded q and of the keys below n_real, then sqrt(qn2 * kn2max) - 45.
+    The sums are taken in the kernels' order (``attention_loop.cuh``
+    ``flash_key_norm_max``, ``flash_norm_bound``), so that a kernel and its
+    plain version take the same shift bit for bit: a key's column pairs one
+    after another; a row's pairs as the four threads of its fragments hold
+    them, then the threads' sums two and two; |q|^2 of the unfolded q times
+    scale^2 (exactly that of the folded q, for a power-of-two scale); the
+    square root correctly rounded. The JAX code adds in another order."""
+    kp = _pair_sq(k[:, :n_real].float())                  # (B, n, H, Dh/2)
+    kn2 = torch.zeros_like(kp[..., 0])
+    for c in range(kp.shape[-1]):
+        kn2 = kn2 + kp[..., c]
+    kn2max = kn2.amax(dim=1, keepdim=True)                # (B, 1, H)
+    qp = _pair_sq(q.float()).unflatten(-1, (-1, 2, 4))    # (..., kk, half, t)
+    acc = torch.zeros_like(qp[..., 0, 0, :])
+    for kk in range(qp.shape[-3]):
+        acc = acc + (qp[..., kk, 0, :] + qp[..., kk, 1, :])
+    qn2 = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    prod = qn2 * torch.tensor(scale * scale, dtype=torch.float32) * kn2max
+    bound = torch.sqrt(prod.double()).float() - BOUND_OFFSET
+    return bound.permute(0, 2, 1).unsqueeze(-1)
+
+
+def _row_sum_kernel_order(p: torch.Tensor) -> torch.Tensor:
+    """(..., Nk) f32 -> (..., 1): the row sums of the int8 P V leg's p in
+    the kernel's order (``attention_quant.cu`` walk 2): each of a row's four
+    threads adds keys 8 m + 2 t and 8 m + 2 t + 1 for m = 0, 1, ..., then the
+    threads' sums two and two."""
+    pad = -p.shape[-1] % 8
+    pk = torch.nn.functional.pad(p, (0, pad)).unflatten(-1, (-1, 4, 2))
+    acc = torch.zeros_like(pk[..., 0, :, 0])
+    for m in range(pk.shape[-3]):
+        acc = acc + pk[..., m, :, 0]
+        acc = acc + pk[..., m, :, 1]
+    return ((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))[..., None]
+
+
+def _legacy_scores(q, k, scale: float, qk_int8: bool) -> torch.Tensor:
+    """(B, H, N, N) f32 scores of the int8 legs (``_head_scores``, no fold):
+    f32(q . k) * scale, or with qk_int8 f32(int32 qq . kq) * (qs * scale) * ks
+    with q and k quantized per (row, head). The integer sums are exact in f64."""
+    if not qk_int8:
+        return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qq, qs = _rowq8(q.float())
+    kq, ks = _rowq8(k.float())
+    s32 = torch.einsum("bqhd,bkhd->bhqk", qq.double(), kq.double()).float()
+    return (s32 * (qs * scale).permute(0, 2, 1, 3)
+            * ks.permute(0, 2, 3, 1))
 
 
 def _attention_quant_plain(qkv: torch.Tensor, n_real: int, num_heads: int,
-                           softmax_shift: float | None):
+                           softmax_shift: float | None,
+                           shift_mode: str = "bound", qk_int8: bool = False,
+                           pv_int8: bool = False, exp_bf16: bool = False):
     """(B, N, 3*H*Dh) -> (int8 (B, N, H*Dh), f32 (B, N, 1)), keys at token
     index >= n_real masked: the arithmetic shared by the plain versions of
     K4 (n_real = N) and K5.
@@ -581,21 +687,44 @@ def _attention_quant_plain(qkv: torch.Tensor, n_real: int, num_heads: int,
     p = exp(s - shift) rounded to the input dtype feeds both P V and the row
     sum (the JAX kernel's ones column of V); the output is
     P V / max(rowsum, 1e-30) in f32, then quantized per token over all
-    heads. The shift is ``softmax_shift`` where the JAX kernel takes it as a
-    fixed shift, else the exact row max."""
+    heads. The shift as ``_shift`` picks it: the bound, a fixed shift or the
+    exact row max. exp_bf16 rounds s - shift to bf16 before the exp (the
+    caller applies ``_block_exp_bf16``). With qk_int8 or pv_int8, the JAX
+    kernel's int8 legs: the exact row max, p = exp(s - max) in f32, then
+    either p rounded to the input dtype as above or (pv_int8) p / rowsum
+    quantized per row and V per column over all N rows, o =
+    f32(int32 pq . vq) * ps * vs."""
     B, N, C3 = qkv.shape
     D = C3 // 3
     head_dim = D // num_heads
+    scale = 1.0 / math.sqrt(head_dim)
     q, k, v = qkv.reshape(B, N, 3, num_heads, head_dim).unbind(2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s = s * (1.0 / math.sqrt(head_dim))
+    legacy = qk_int8 or pv_int8
+    kind, fixed = _shift(shift_mode, softmax_shift, head_dim, legacy)
+    if legacy:
+        s = _legacy_scores(q, k, scale, qk_int8)
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if n_real < N:
         s[..., n_real:] = -1e30
-    if _fixed_shift(softmax_shift, head_dim):
-        shift = float(softmax_shift)
+    if kind == "fixed":
+        shift = fixed
+    elif kind == "bound":
+        shift = _bound_shift(q, k, n_real, scale)
     else:
         shift = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - shift).to(qkv.dtype).float()
+    if pv_int8:
+        p = torch.exp(s - shift)
+        p = p / _row_sum_kernel_order(p)
+        pq, ps = _rowq8(p)                       # (B, H, N, N), (B, H, N, 1)
+        vq, vs = _rowq8(v.float(), dim=1)        # (B, N, H, Dh), (B, 1, H, Dh)
+        o32 = torch.einsum("bhqk,bkhd->bqhd", pq.double(), vq.double()).float()
+        o = o32 * ps.permute(0, 2, 1, 3) * vs
+        return quantize_rows(o.reshape(B, N, D))
+    d = s - shift
+    if exp_bf16 and not legacy:
+        d = d.to(torch.bfloat16).float()
+    p = torch.exp(d).to(qkv.dtype).float()
     rowsum = p.sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, N, H, 1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o = o / rowsum.clamp_min(1e-30)
@@ -603,10 +732,16 @@ def _attention_quant_plain(qkv: torch.Tensor, n_real: int, num_heads: int,
 
 
 def reference_attention_quant(qkv: torch.Tensor, num_heads: int,
-                              softmax_shift: float | None = None):
+                              softmax_shift: float | None = None,
+                              shift_mode: str = "bound", qk_int8: bool = False,
+                              pv_int8: bool = False, exp_bf16: bool = False):
     """Plain PyTorch version of the quantizing attention: (B, N, 3*H*Dh) ->
     (int8 (B, N, H*Dh), f32 (B, N, 1)); see ``_attention_quant_plain``."""
-    return _attention_quant_plain(qkv, qkv.shape[1], num_heads, softmax_shift)
+    head_dim = qkv.shape[-1] // 3 // num_heads
+    kind, _ = _shift(shift_mode, softmax_shift, head_dim, qk_int8 or pv_int8)
+    return _attention_quant_plain(
+        qkv, qkv.shape[1], num_heads, softmax_shift, shift_mode, qk_int8,
+        pv_int8, _block_exp_bf16(exp_bf16, kind, qkv.shape[1]))
 
 
 def _check_quant_shape(D: int, num_heads: int) -> None:
@@ -618,34 +753,67 @@ def _check_quant_shape(D: int, num_heads: int) -> None:
                          "every head of a row chunk)")
 
 
+def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
+                  num_heads: int, head_dim: int, softmax_shift, shift_mode,
+                  qk_int8: bool, pv_int8: bool, exp_bf16: bool, what: str):
+    """Launch K4 (np_ = n_real = the rows per image) or K5 on qkv into the
+    codes oq and scales os_."""
+    scale = 1.0 / math.sqrt(head_dim)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(qkv.device):
+        if qk_int8 or pv_int8:
+            rc = lib.cvt_attention_quant_i8(
+                qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images, np_,
+                n_real, num_heads, head_dim, scale,
+                int(qk_int8) | 2 * int(pv_int8), stream)
+        else:
+            kind, fixed = _shift(shift_mode, softmax_shift, head_dim)
+            mode = SHIFT_MODES[kind] + (_EXP_BF16_FLAG if exp_bf16 else 0)
+            if np_ == n_real:
+                rc = lib.cvt_attention_quant(
+                    qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images,
+                    np_, num_heads, head_dim, scale, fixed, mode, stream)
+            else:
+                rc = lib.cvt_attention_quant_flat(
+                    qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images,
+                    np_, n_real, num_heads, head_dim, scale, fixed, mode,
+                    stream)
+    _build.check(rc, what)
+    global QUANT_I8_LAUNCHES
+    QUANT_I8_LAUNCHES += bool(qk_int8 or pv_int8)
+
+
 def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
-                              softmax_shift: float | None = None):
+                              softmax_shift: float | None = None,
+                              shift_mode: str = "bound", qk_int8: bool = False,
+                              pv_int8: bool = False, exp_bf16: bool = False):
     """(B, N, 3*H*Dh) packed qkv -> (int8 (B, N, H*Dh), f32 (B, N, 1)).
 
-    softmax_shift: a calibrated per-layer shift (``ops/quant.py``
-    ``calibrate_attn_shifts``), else the exact row max. A CPU tensor takes
-    ``reference_attention_quant``; a CUDA tensor launches the kernel (bf16,
-    head dim 16, 32 or 64) or raises."""
+    As the JAX function of this name, whose keywords these are: softmax_shift,
+    a calibrated per-layer shift (``ops/quant.py`` ``calibrate_attn_shifts``),
+    overrides shift_mode (``CHESS_VISION_ATTN_SOFTMAX``: "bound", the
+    default, "fixed" or "max"); qk_int8 / pv_int8 (``CHESS_VISION_ATTN_QK``
+    int8 / int8pv) run the int8 legs; exp_bf16 (``CHESS_VISION_ATTN_EXP``)
+    the bf16 exp. A CPU tensor takes ``reference_attention_quant``; a CUDA
+    tensor launches the kernel (bf16, head dim 16, 32 or 64) or raises."""
     if qkv.device.type == "cpu":
-        return reference_attention_quant(qkv, num_heads, softmax_shift)
+        return reference_attention_quant(qkv, num_heads, softmax_shift,
+                                         shift_mode, qk_int8, pv_int8,
+                                         exp_bf16)
     head_dim = _check_kernel_input(qkv, num_heads, (torch.bfloat16,),
                                    QUANT_HEAD_DIMS)
     B, N, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)
-    fixed = _fixed_shift(softmax_shift, head_dim)
+    kind, _ = _shift(shift_mode, softmax_shift, head_dim)
     oq = torch.empty((B, N, D), dtype=torch.int8, device=qkv.device)
     os_ = torch.empty((B, N, 1), dtype=torch.float32, device=qkv.device)
     if oq.numel() == 0:
         return oq, os_
-    lib = _build.library()
-    with torch.cuda.device(qkv.device):
-        rc = lib.cvt_attention_quant(
-            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
-            B, N, num_heads, head_dim, 1.0 / math.sqrt(head_dim),
-            float(softmax_shift) if fixed else 0.0, int(fixed),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "quantizing attention")
+    _launch_quant(qkv, oq, os_, B, N, N, num_heads, head_dim, softmax_shift,
+                  shift_mode, qk_int8, pv_int8,
+                  _block_exp_bf16(exp_bf16, kind, N), "quantizing attention")
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
     return oq, os_
@@ -664,32 +832,43 @@ def _flat_images(qkv: torch.Tensor, images: int, n_real: int) -> int:
 
 def reference_attention_quant_flat(qkv: torch.Tensor, images: int,
                                    n_real: int, num_heads: int,
-                                   softmax_shift: float | None = None):
+                                   softmax_shift: float | None = None,
+                                   shift_mode: str = "bound",
+                                   qk_int8: bool = False,
+                                   pv_int8: bool = False,
+                                   exp_bf16: bool = False):
     """Plain PyTorch version of the flat quantizing attention: (images * NP,
     3*H*Dh) -> (int8 (images * NP, H*Dh), f32 (images * NP, 1)), keys at
-    token index >= n_real masked; see ``_attention_quant_plain``. A padded
-    query row attends to the real keys like any other row: what it holds
-    stays in its own output row."""
+    token index >= n_real masked (and left out of the bound's key norms); see
+    ``_attention_quant_plain``. A padded query row attends to the real keys
+    like any other row: what it holds stays in its own output row. The JAX
+    flat kernel has no wide-exp path: exp_bf16 holds in every mode."""
     NP = _flat_images(qkv, images, n_real)
     oq, os_ = _attention_quant_plain(qkv.reshape(images, NP, -1), n_real,
-                                     num_heads, softmax_shift)
+                                     num_heads, softmax_shift, shift_mode,
+                                     qk_int8, pv_int8, exp_bf16)
     return oq.reshape(images * NP, -1), os_.reshape(images * NP, 1)
 
 
 def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
                                    n_real: int, num_heads: int,
-                                   softmax_shift: float | None = None):
+                                   softmax_shift: float | None = None,
+                                   shift_mode: str = "bound",
+                                   qk_int8: bool = False,
+                                   pv_int8: bool = False,
+                                   exp_bf16: bool = False):
     """(images * NP, 3*H*Dh) flat packed qkv -> (int8 (images * NP, H*Dh),
     f32 (images * NP, 1)): the quantizing attention of the ``"flat"`` int8
     layout. Each image holds NP rows of which the first ``n_real`` are
     tokens; keys at index >= n_real take no part in any row's softmax.
 
-    softmax_shift as for ``fused_qkv_attention_quant``. A CPU tensor takes
+    The keywords as for ``fused_qkv_attention_quant``. A CPU tensor takes
     ``reference_attention_quant_flat``; a CUDA tensor launches the kernel
     (bf16, head dim 16, 32 or 64) or raises."""
     if qkv.device.type == "cpu":
         return reference_attention_quant_flat(qkv, images, n_real, num_heads,
-                                              softmax_shift)
+                                              softmax_shift, shift_mode,
+                                              qk_int8, pv_int8, exp_bf16)
     NP = _flat_images(qkv, images, n_real)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous and 16-byte aligned")
@@ -698,20 +877,14 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     M, C3 = qkv.shape
     D = C3 // 3
     _check_quant_shape(D, num_heads)
-    fixed = _fixed_shift(softmax_shift, head_dim)
+    _shift(shift_mode, softmax_shift, head_dim)
     oq = torch.empty((M, D), dtype=torch.int8, device=qkv.device)
     os_ = torch.empty((M, 1), dtype=torch.float32, device=qkv.device)
     if oq.numel() == 0:
         return oq, os_
-    lib = _build.library()
-    with torch.cuda.device(qkv.device):
-        rc = lib.cvt_attention_quant_flat(
-            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
-            images, NP, n_real, num_heads, head_dim,
-            1.0 / math.sqrt(head_dim),
-            float(softmax_shift) if fixed else 0.0, int(fixed),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flat quantizing attention")
+    _launch_quant(qkv, oq, os_, images, NP, n_real, num_heads, head_dim,
+                  softmax_shift, shift_mode, qk_int8, pv_int8, exp_bf16,
+                  "flat quantizing attention")
     global FLAT_LAUNCHES
     FLAT_LAUNCHES += 1
     return oq, os_

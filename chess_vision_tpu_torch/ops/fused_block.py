@@ -22,10 +22,12 @@ on a CPU tensor it runs ``fused_vit_block_plain``, the same steps in PyTorch.
 
 The JAX kernel requires a power-of-two softmax scale and a token count of
 128 k + 1..2 (TPU lane rules) and ``quant.py`` falls back to the block layout
-otherwise. This kernel takes any token count; as in the port's other
-quantizing attention (K4), a calibrated shift is used as given where the
-softmax scale is a power of two, else the exact row max, which also stands
-in for the JAX default "bound" shift.
+otherwise. This kernel takes any token count. Its softmax shift is the JAX
+kernel's: a calibrated shift where one is given, else the default "bound",
+|q_i| max_j |k_j| - 45 per row and head (``fused_block.py:138-142``); as in
+K4, both need a power-of-two softmax scale, else the exact row max.
+``shift_mode`` also takes "fixed" (24) and "max", which the JAX kernel does
+not: the layout (``ops/quant.py``) passes "bound", as the JAX one does.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ _MAX_D = 4096              # the row pass holds a row in registers
 
 def fused_vit_block_plain(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
                           softmax_shift: float | None = None,
-                          eps: float = 1e-6, gelu: str = "sigmoid"):
+                          eps: float = 1e-6, gelu: str = "sigmoid",
+                          shift_mode: str = "bound"):
     """Plain PyTorch version of the whole-block kernel, step by step with
     its rounding points; returns (x_new bf16, yq int8, ys f32)."""
     # qkv product + rescale + bias -> bf16
@@ -57,7 +60,8 @@ def fused_vit_block_plain(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
         xq, xs, q["qkv"]["wq"], q["qkv"]["scale"], q["qkv"]["bias"])
     # attention (p in bf16, row sum floored), then the per-token row quant
     # over all heads
-    aq, as_ = attn_ops.reference_attention_quant(qkv, num_heads, softmax_shift)
+    aq, as_ = attn_ops.reference_attention_quant(qkv, num_heads, softmax_shift,
+                                                 shift_mode)
     # proj + residual rounded to bf16, two-pass LN2 of the rounded value,
     # row quant
     x1, hq, hs = int8_ops.int8_matmul_res_ln_quant_plain(
@@ -93,7 +97,8 @@ STAGES = ("qkv gemm", "attention + row quant", "proj gemm", "ln2 row quant",
 
 def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
                     softmax_shift: float | None = None, eps: float = 1e-6,
-                    gelu: str = "sigmoid", stage_ns: torch.Tensor | None = None):
+                    gelu: str = "sigmoid", stage_ns: torch.Tensor | None = None,
+                    shift_mode: str = "bound"):
     """One quantized ViT block in a single kernel launch.
 
     xq/xs: (B, N, D) int8 + (B, N, 1) f32 quantizing norm1(res); res:
@@ -101,7 +106,8 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
     ``wq`` (O, K) + scale + bias, norm2 scale + bias); next_ln: the next
     block's norm1 {scale, bias}, required (the last block, which has no
     follow-on quant, runs on the split kernels). softmax_shift: calibrated
-    per-layer scalar or None; gelu: "sigmoid", "erf" or "hard". Returns
+    per-layer scalar or None, which then takes shift_mode ("bound", the
+    JAX kernel's, "fixed" or "max"); gelu: "sigmoid", "erf" or "hard". Returns
     (x_new, yq, ys) where yq/ys quantize next_ln(x_new). stage_ns: an
     optional int64 tensor of len(STAGES) + 1 on the device, into which the
     kernel notes the card's nanosecond clock at its start and after each
@@ -123,7 +129,7 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
                          f"{xq.device}")
     if xq.device.type == "cpu":
         return fused_vit_block_plain(xq, xs, res, q, next_ln, num_heads,
-                                     softmax_shift, eps, gelu)
+                                     softmax_shift, eps, gelu, shift_mode)
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -161,7 +167,7 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
     ys = torch.empty_like(xs)
     if xq.numel() == 0:
         return x_new, yq, ys
-    fixed = attn_ops._fixed_shift(softmax_shift, head_dim)
+    kind, shift = attn_ops._shift(shift_mode, softmax_shift, head_dim)
     lib = _build.library()
     scratch = torch.empty(
         lib.cvt_fused_block_scratch_bytes(B * N, D, O1), dtype=torch.uint8,
@@ -172,7 +178,7 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
             *(t.data_ptr() for t in operands), scratch.data_ptr(),
             x_new.data_ptr(), yq.data_ptr(), ys.data_ptr(), B, N, num_heads,
             head_dim, O1, 1.0 / math.sqrt(head_dim),
-            float(softmax_shift) if fixed else 0.0, int(fixed),
+            shift, attn_ops.SHIFT_MODES[kind],
             int8_ops.GELUS[gelu], eps,
             None if stage_ns is None else stage_ns.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -183,7 +189,8 @@ def fused_vit_block(xq, xs, res, q: dict, next_ln: dict, num_heads: int,
 
 
 def fused_vit_stack(xq, xs, res, blocks, next_norm1s, shifts, num_heads: int,
-                    eps: float = 1e-6, gelu: str = "sigmoid"):
+                    eps: float = 1e-6, gelu: str = "sigmoid",
+                    shift_mode: str = "bound"):
     """A chain of fused blocks: blocks[i] followed by next_norm1s[i], with
     the per-layer shifts[i] (floats or None, in any mixture).
 
@@ -197,5 +204,5 @@ def fused_vit_stack(xq, xs, res, blocks, next_norm1s, shifts, num_heads: int,
     x = res
     for q, nxt, shift in zip(blocks, next_norm1s, shifts):
         x, xq, xs = fused_vit_block(xq, xs, x, q, nxt, num_heads, shift, eps,
-                                    gelu)
+                                    gelu, shift_mode=shift_mode)
     return x, xq, xs

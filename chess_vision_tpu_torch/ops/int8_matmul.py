@@ -11,7 +11,12 @@ stands for both the JAX package's per-image kernel and its flat twin:
   int8_matmul_scale_bias    bf16(y), the qkv product (``quant_dense_q``,
                             which the JAX package leaves to XLA)
 
-with y = f32(xq @ wq) * xs * ws + bias. Weights are int8 stored (O, K), K
+with y = f32(xq @ wq) * xs * ws + bias. ``int8_matmul_gelu_quant(...,
+bf16_epilogue=True)`` is K8 in the JAX package's bf16 epilogue
+(``CHESS_VISION_EPILOGUE=bf16``, ``_gelu_quant_kernel``'s ``bf16_epi``):
+the GELU on bf16 values (``gelu_bf16``) and the amax in bf16, the codes from
+f32. The JAX flat kernel K11 has no such epilogue, so the flat layout never
+passes it. Weights are int8 stored (O, K), K
 contiguous (``convert/jax_params.int8_pack_from_jax``). On a CUDA tensor each
 runs the hand-written kernel ``csrc/int8_matmul.cu``; on a CPU tensor its
 plain version (``*_plain``), the same arithmetic in PyTorch with an exact
@@ -37,8 +42,10 @@ from chess_vision_tpu_torch.ops import rowquant as rq
 # Kernel launches per epilogue since the last reset (chip_smoke.py proves the
 # main path went through the kernel with them).
 LAUNCHES = {"scale_bias": 0, "gelu_quant": 0, "res_ln_quant": 0, "res": 0}
+BF16_EPILOGUE_LAUNCHES = 0  # of LAUNCHES["gelu_quant"], the bf16 epilogue's
 
 GELUS = {"erf": 0, "sigmoid": 1, "hard": 2}
+_BF16_GELU = 3  # kGeluBf16 in csrc/int8_gemm.cuh: + the form, the bf16 epilogue
 _EPILOGUES = {"scale_bias": 0, "res": 1, "res_ln_quant": 2, "gelu_quant": 3}
 _GELU_FNS = {"erf": rq.gelu_erf, "sigmoid": rq.gelu_sigmoid_div,
              "hard": rq.gelu_hard}
@@ -75,8 +82,44 @@ def int8_matmul_scale_bias_plain(xq, xs, wq, ws, bias) -> torch.Tensor:
     return _rescaled(xq, xs, wq, ws, bias).to(torch.bfloat16)
 
 
-def int8_matmul_gelu_quant_plain(xq, xs, wq, ws, bias, gelu: str = "erf"):
-    return rq.quantize_rows(_GELU_FNS[gelu](_rescaled(xq, xs, wq, ws, bias)))
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def gelu_bf16(y: torch.Tensor, gelu: str) -> torch.Tensor:
+    """The GELU of the bf16 epilogue, as the JAX kernel computes
+    ``_gelu(y.astype(bf16))`` on the CPU: y rounded to bf16, each operation
+    on bf16 values with its constant rounded to bf16 and its result rounded
+    to bf16, but the last, whose f32 value is returned (XLA computes a bf16
+    operation in f32 and drops a rounding to bf16 that is converted straight
+    back to f32, as the codes' ``g.astype(f32)`` does). f32 in, f32 out."""
+    x = _bf16(y.float())
+    if gelu == "sigmoid":  # x / (1 + exp(-1.702 x))
+        return x / _bf16(1.0 + _bf16(torch.exp(_bf16(-1.703125 * x))))
+    if gelu == "hard":  # x * clip(0.4255 x + 0.5, 0, 1)
+        return x * torch.clamp(_bf16(_bf16(0.42578125 * x) + 0.5), 0.0, 1.0)
+    z = _bf16(x * 0.70703125)
+    az = z.abs()
+    t = _bf16(1.0 / _bf16(1.0 + _bf16(0.328125 * az)))
+    p = _bf16(-1.453125 + _bf16(t * 1.0625))
+    for a in (1.421875, -0.28515625, 0.25390625):
+        p = _bf16(a + _bf16(t * p))
+    poly = _bf16(t * p)
+    erf = _bf16(torch.sign(z) * _bf16(1.0 - _bf16(poly * _bf16(torch.exp(_bf16(-az * az))))))
+    return _bf16(0.5 * x) * _bf16(1.0 + erf)
+
+
+def int8_matmul_gelu_quant_plain(xq, xs, wq, ws, bias, gelu: str = "erf",
+                                 bf16_epilogue: bool = False):
+    y = _rescaled(xq, xs, wq, ws, bias)
+    if not bf16_epilogue:
+        return rq.quantize_rows(_GELU_FNS[gelu](y))
+    g = gelu_bf16(y, gelu)
+    # the amax in bf16 (the rounded max |g|), the codes from the f32 g
+    amax = _bf16(g.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-8)
+    inv = torch.full_like(amax, 127.0) / amax  # fl(127 / amax), as the kernel
+    q = torch.round(g * inv).clamp(-127, 127).to(torch.int8)
+    return q, amax * (1.0 / 127.0)
 
 
 def int8_matmul_res_plain(xq, xs, wq, ws, bias, res) -> torch.Tensor:
@@ -92,7 +135,7 @@ def int8_matmul_res_ln_quant_plain(xq, xs, wq, ws, bias, res, ln_scale,
 
 
 def _launch(epilogue: str, xq, xs, wq, ws, bias, res=None, gelu="erf",
-            ln_scale=None, ln_bias=None, eps=1e-6):
+            ln_scale=None, ln_bias=None, eps=1e-6, bf16_epilogue=False):
     """Check the operands, allocate the outputs, launch; returns the outputs
     of the epilogue."""
     dev = xq.device
@@ -146,10 +189,14 @@ def _launch(epilogue: str, xq, xs, wq, ws, bias, res=None, gelu="erf",
             rc = lib.cvt_int8_matmul(
                 xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                 bias.data_ptr(), ptr(res), out.data_ptr(), M, K, O,
-                _EPILOGUES[epilogue], GELUS[gelu], ptr(g), ptr(b), eps,
+                _EPILOGUES[epilogue],
+                GELUS[gelu] + (_BF16_GELU if bf16_epilogue else 0),
+                ptr(g), ptr(b), eps,
                 ptr(yq), ptr(ys), torch.cuda.current_stream().cuda_stream)
         _build.check(rc, f"int8 matmul ({epilogue})")
         LAUNCHES[epilogue] += 1
+        global BF16_EPILOGUE_LAUNCHES
+        BF16_EPILOGUE_LAUNCHES += bf16_epilogue
     return out, yq, ys
 
 
@@ -160,12 +207,16 @@ def int8_matmul_scale_bias(xq, xs, wq, ws, bias) -> torch.Tensor:
     return _launch("scale_bias", xq, xs, wq, ws, bias)[0]
 
 
-def int8_matmul_gelu_quant(xq, xs, wq, ws, bias, gelu: str = "erf"):
+def int8_matmul_gelu_quant(xq, xs, wq, ws, bias, gelu: str = "erf",
+                           bf16_epilogue: bool = False):
     """fc1 + GELU ("erf", "sigmoid" or "hard") + requant: (..., K) int8 rows
-    -> (int8 (..., O), f32 (..., 1))."""
+    -> (int8 (..., O), f32 (..., 1)); bf16_epilogue: the JAX bf16 epilogue
+    (module docstring)."""
     if xq.device.type == "cpu":
-        return int8_matmul_gelu_quant_plain(xq, xs, wq, ws, bias, gelu)
-    _, yq, ys = _launch("gelu_quant", xq, xs, wq, ws, bias, gelu=gelu)
+        return int8_matmul_gelu_quant_plain(xq, xs, wq, ws, bias, gelu,
+                                            bf16_epilogue)
+    _, yq, ys = _launch("gelu_quant", xq, xs, wq, ws, bias, gelu=gelu,
+                        bf16_epilogue=bf16_epilogue)
     return yq, ys
 
 

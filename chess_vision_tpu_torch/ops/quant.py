@@ -1,8 +1,12 @@
 """Int8 (W8A8 dynamic) ChessViT serving: pack, forward and calibration.
 
-Counterpart of ``chess_vision_tpu/ops/quant.py`` and its three kernel
+Counterpart of ``chess_vision_tpu/ops/quant.py`` and its five kernel
 layouts, which ``chessvit_int8_apply`` takes as ``layout`` (the JAX package
-reads ``CHESS_VISION_INT8_LAYOUT``; here the Predictor reads it, once).
+reads ``CHESS_VISION_INT8_LAYOUT``; here the Predictor reads it, once), and
+its serving modes, which it takes as ``modes`` (``Int8Modes``: the JAX
+package reads ``CHESS_VISION_ATTN_SOFTMAX``, ``CHESS_VISION_ATTN_QK``,
+``CHESS_VISION_ATTN_EXP`` and ``CHESS_VISION_EPILOGUE`` where each kernel is
+traced; here the Predictor reads them once, ``int8_modes``).
 The four large products of each block (qkv, proj, fc1, fc2) run as
 int8 x int8 -> int32 with per-output-channel weight scales (quantized once,
 ``quantize_chessvit``) and per-token activation scales (quantized where the
@@ -26,8 +30,29 @@ the same ops on rows, with the attention of
 padded keys.
 
 ``"fused"``: every block but the last is ONE kernel launch
-(``ops/fused_block.fused_vit_block``, K14); the last block, which has no
-next LayerNorm to quantize for, runs as ``block_int8``.
+(``ops/fused_block.fused_vit_block``, K14, with the calibrated or the bound
+shift, as the JAX kernel); the last block, which has no next LayerNorm to
+quantize for, runs as ``block_int8``. As in the JAX package, the layout falls
+back to ``"block"`` under the int8 attention legs or the "max" shift.
+
+``"hybrid"`` (``_block_hybrid``): every product ``bf16(y)`` alone
+(``int8_matmul_scale_bias``, the JAX ``quant_dense_q``), the residual added
+in bf16, the attention ``fused_qkv_attention`` (K2) on the bf16 qkv, and each
+dynamic quantization one ``fused_rowquant`` (K7: LayerNorm, none, and the
+fc1 GELU's form).
+
+``"xla"``: the XLA-form block ``_block``, whose attention is K2 and whose
+quantizations are plain PyTorch (its products ``torch._int_mm``, as the JAX
+layout's are XLA's).
+
+The modes (``Int8Modes``), each changing what the JAX kernels compute:
+``softmax`` the quantizing attention's shift where no calibrated one is
+given ("bound", the default, "fixed" or "max"); ``attn_qk`` its int8 legs
+("bf16", "int8": QK^T in int8, "int8pv": P V too); ``attn_exp`` ("bf16":
+s - shift rounded to bf16 before the exp); ``epilogue`` K8's ("bf16": the
+GELU in bf16). The flat layout's GELU kernel (K11) has no bf16 epilogue, and
+K14 none of the attention modes, as in the JAX package; the hybrid and xla
+layouts take none of them.
 
 Each op launches its CUDA kernel on a CUDA tensor and runs its plain PyTorch
 version on a CPU tensor.
@@ -39,6 +64,7 @@ as ``fused_qkv_attention`` (the K2 kernel on a CUDA tensor).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
@@ -55,29 +81,73 @@ from chess_vision_tpu_torch.ops import int8_matmul as int8_ops
 from chess_vision_tpu_torch.ops import rowquant as rowquant_ops
 
 
-LAYOUTS = ("block", "flat", "fused")
-# The JAX package's other two values of CHESS_VISION_INT8_LAYOUT.
-_TPU_ONLY_LAYOUTS = ("xla", "hybrid")
+LAYOUTS = ("block", "flat", "fused", "hybrid", "xla")
 _FLAT_ROWS = 32  # the flat layout pads each image to a multiple of this
 
 
 def int8_layout() -> str:
     """``CHESS_VISION_INT8_LAYOUT``, the kernel layout of the int8 forward as
-    the JAX package selects it: "block" (default), "flat" or "fused". Read
-    by the caller once (the Predictor, when it is built) and passed down."""
+    the JAX package selects it: "block" (default), "flat", "fused", "hybrid"
+    or "xla". Read by the caller once (the Predictor, when it is built) and
+    passed down."""
     return check_layout(os.environ.get("CHESS_VISION_INT8_LAYOUT", "block"))
 
 
 def check_layout(layout: str) -> str:
-    if layout in _TPU_ONLY_LAYOUTS:
-        raise ValueError(
-            f"int8 layout {layout!r} is not ported: in the JAX package it is "
-            "a workaround for a TPU compile helper that rejects the kernel "
-            f"programs, and serves no purpose here; use one of {list(LAYOUTS)}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown int8 layout {layout!r}; expected one of "
                          f"{list(LAYOUTS)}")
     return layout
+
+
+SOFTMAX_SHIFTS = tuple(attn_ops.SHIFT_MODES)
+ATTN_QKS = ("bf16", "int8", "int8pv")
+ATTN_EXPS = ("f32", "bf16")
+EPILOGUES = ("f32", "bf16")
+# Int8Modes' fields: the variable each is read from, and its values
+_MODE_VARS = {"softmax": ("CHESS_VISION_ATTN_SOFTMAX", SOFTMAX_SHIFTS),
+              "attn_qk": ("CHESS_VISION_ATTN_QK", ATTN_QKS),
+              "attn_exp": ("CHESS_VISION_ATTN_EXP", ATTN_EXPS),
+              "epilogue": ("CHESS_VISION_EPILOGUE", EPILOGUES)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Modes:
+    """The int8 path's serving modes (module docstring); the defaults are
+    the JAX package's."""
+    softmax: str = "bound"
+    attn_qk: str = "bf16"
+    attn_exp: str = "f32"
+    epilogue: str = "f32"
+
+    def __post_init__(self):
+        for field, (var, choices) in _MODE_VARS.items():
+            value = getattr(self, field)
+            if value not in choices:
+                raise ValueError(f"{field} ({var}) {value!r}; expected one "
+                                 f"of {list(choices)}")
+
+    def attention(self) -> tuple:
+        """The quantizing attention's arguments after ``softmax_shift``
+        (``ops/attention.py``): shift_mode, qk_int8, pv_int8, exp_bf16."""
+        return (self.softmax, self.attn_qk in ("int8", "int8pv"),
+                self.attn_qk == "int8pv", self.attn_exp == "bf16")
+
+    def fused_ok(self) -> bool:
+        """Whether the fused layout runs as such; the JAX package falls back
+        to the block layout under the int8 legs or the "max" shift."""
+        return self.attn_qk == "bf16" and self.softmax != "max"
+
+
+def int8_modes() -> Int8Modes:
+    """The four mode variables (``_MODE_VARS``: ``CHESS_VISION_ATTN_SOFTMAX``
+    "bound", the default, "fixed" or "max"; ``CHESS_VISION_ATTN_QK`` "bf16",
+    "int8" or "int8pv"; ``CHESS_VISION_ATTN_EXP`` and ``CHESS_VISION_EPILOGUE``
+    "f32" or "bf16"), read once by the caller (the Predictor, when it is
+    built); an unknown value raises, naming its variable."""
+    return Int8Modes(**{field: os.environ[var]
+                        for field, (var, _) in _MODE_VARS.items()
+                        if var in os.environ})
 
 
 def approx_gelu() -> str:
@@ -182,6 +252,36 @@ def _block(x: torch.Tensor, q: dict, num_heads: int = 12,
                            q["fc2"]["bias"]).to(torch.bfloat16)
 
 
+_GELU_ROWQUANT = {"sigmoid": "gelu_sigmoid", "hard": "gelu_hard",
+                  "erf": "gelu"}  # the JAX _gelu_rowquant_mode
+
+
+def quant_dense_q(xq, xs, p: dict) -> torch.Tensor:
+    """The JAX ``quant_dense_q``: pre-quantized rows, int8 product, bf16(y)."""
+    return int8_ops.int8_matmul_scale_bias(xq, xs, p["wq"], p["scale"],
+                                           p["bias"])
+
+
+def _block_hybrid(x: torch.Tensor, q: dict, num_heads: int = 12,
+                  gelu: str = "sigmoid") -> torch.Tensor:
+    """One ViT block on the hybrid layout (the JAX ``_block_hybrid``): each
+    dynamic quantization one ``fused_rowquant`` (K7), each product
+    ``quant_dense_q``, the attention K2 on the bf16 qkv, the residual added
+    in bf16. (The JAX ``_hybrid_stack`` scans this over stacked weights; its
+    tests show the scan bit-equal to the loop the caller runs.)"""
+    xq, xs = rowquant_ops.fused_rowquant(x, "ln", q["norm1"]["scale"],
+                                         q["norm1"]["bias"])
+    qkv = quant_dense_q(xq, xs, q["qkv"])
+    att = attn_ops.fused_qkv_attention(qkv, num_heads)
+    aq, as_ = rowquant_ops.fused_rowquant(att, "none")
+    x = x + quant_dense_q(aq, as_, q["proj"])
+    hq, hs = rowquant_ops.fused_rowquant(x, "ln", q["norm2"]["scale"],
+                                         q["norm2"]["bias"])
+    h = quant_dense_q(hq, hs, q["fc1"])  # bf16, as the JAX layout's
+    gq, gs = rowquant_ops.fused_rowquant(h, _GELU_ROWQUANT[gelu])
+    return x + quant_dense_q(gq, gs, q["fc2"])
+
+
 def _embed(pack: dict, images: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Patch embed + cls + pos in bf16: (B, S, S, 3) -> ((B, N, D), grid G).
 
@@ -212,8 +312,9 @@ def calibrate_attn_shifts(pack: dict, images, num_heads: int = 12,
     images (normalized, (B, S, S, 3)) and records per layer the largest
     attention logit smax and the smallest per-row logit max rmin:
     shift = smax - margin, kept only where rmin >= shift - guard (every row
-    keeps a normalizer far above the flush line); else None, the exact row
-    max. ``pack`` holds the port's tensors (``int8_pack_from_jax``)."""
+    keeps a normalizer far above the flush line); else None, where the layer
+    keeps the mode's shift (the bound by default). ``pack`` holds the port's
+    tensors (``int8_pack_from_jax``)."""
     x, _ = _embed(pack, torch.as_tensor(images).to(pack["pos_embed"].device))
     shifts: list = []
     for q in pack["blocks"]:
@@ -233,21 +334,26 @@ def calibrate_attn_shifts(pack: dict, images, num_heads: int = 12,
     return shifts
 
 
+_DEFAULT_MODES = Int8Modes()
+
+
 def block_int8(x, xq, xs, q: dict, next_ln: dict | None, num_heads: int = 12,
-               softmax_shift: float | None = None, gelu: str = "sigmoid"):
+               softmax_shift: float | None = None, gelu: str = "sigmoid",
+               modes: Int8Modes = _DEFAULT_MODES):
     """One ViT block on the int8 serving path (the JAX ``_block_tpu``).
 
     x: (B, N, D) bf16 residual stream; xq/xs: this block's LN1 output, already
     quantized. Returns (x', xq', xs') with xq'/xs' quantizing next_ln(x'),
     or (x', None, None) when next_ln is None (the last block)."""
-    qkv = int8_ops.int8_matmul_scale_bias(
-        xq, xs, q["qkv"]["wq"], q["qkv"]["scale"], q["qkv"]["bias"])
-    aq, as_ = attn_ops.fused_qkv_attention_quant(qkv, num_heads, softmax_shift)
+    qkv = quant_dense_q(xq, xs, q["qkv"])
+    aq, as_ = attn_ops.fused_qkv_attention_quant(qkv, num_heads, softmax_shift,
+                                                 *modes.attention())
     x, hq, hs = int8_ops.int8_matmul_res_ln_quant(
         aq, as_, q["proj"]["wq"], q["proj"]["scale"], q["proj"]["bias"],
         x, q["norm2"]["scale"], q["norm2"]["bias"])
     gq, gs = int8_ops.int8_matmul_gelu_quant(
-        hq, hs, q["fc1"]["wq"], q["fc1"]["scale"], q["fc1"]["bias"], gelu=gelu)
+        hq, hs, q["fc1"]["wq"], q["fc1"]["scale"], q["fc1"]["bias"], gelu=gelu,
+        bf16_epilogue=modes.epilogue == "bf16")
     if next_ln is None:
         x = int8_ops.int8_matmul_res(
             gq, gs, q["fc2"]["wq"], q["fc2"]["scale"], q["fc2"]["bias"], x)
@@ -259,18 +365,19 @@ def block_int8(x, xq, xs, q: dict, next_ln: dict | None, num_heads: int = 12,
 
 def block_int8_flat(x, xq, xs, q: dict, next_ln: dict | None, images: int,
                     n_real: int, num_heads: int = 12,
-                    softmax_shift: float | None = None, gelu: str = "sigmoid"):
+                    softmax_shift: float | None = None, gelu: str = "sigmoid",
+                    modes: Int8Modes = _DEFAULT_MODES):
     """One ViT block on the flat int8 layout (the JAX ``_block_tpu_flat``).
 
     As ``block_int8`` with every tensor a flat stream: x (M, D) bf16,
     xq (M, D) int8, xs (M, 1) f32, M = images * NP rows of which the first
     n_real of each image are tokens. The GEMMs and row passes are row-local;
     only the attention knows of images, and masks the padded keys. A padded
-    row carries values of its own through the block; nothing reads them."""
-    qkv = int8_ops.int8_matmul_scale_bias(
-        xq, xs, q["qkv"]["wq"], q["qkv"]["scale"], q["qkv"]["bias"])
+    row carries values of its own through the block; nothing reads them.
+    The GELU kernel takes no bf16 epilogue here (the JAX K11 has none)."""
+    qkv = quant_dense_q(xq, xs, q["qkv"])
     aq, as_ = attn_ops.fused_qkv_attention_quant_flat(
-        qkv, images, n_real, num_heads, softmax_shift)
+        qkv, images, n_real, num_heads, softmax_shift, *modes.attention())
     x, hq, hs = int8_ops.int8_matmul_res_ln_quant(
         aq, as_, q["proj"]["wq"], q["proj"]["scale"], q["proj"]["bias"],
         x, q["norm2"]["scale"], q["norm2"]["bias"])
@@ -285,7 +392,7 @@ def block_int8_flat(x, xq, xs, q: dict, next_ln: dict | None, images: int,
         x, next_ln["scale"], next_ln["bias"])
 
 
-def _blocks_flat(x, blocks, shifts, num_heads, gelu):
+def _blocks_flat(x, blocks, shifts, num_heads, gelu, modes):
     """The block stack on the flat layout: (B, N, D) -> (B, N, D)."""
     B, N, D = x.shape
     NP = -(-N // _FLAT_ROWS) * _FLAT_ROWS
@@ -295,13 +402,16 @@ def _blocks_flat(x, blocks, shifts, num_heads, gelu):
     for i, q in enumerate(blocks):
         nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
         x, xq, xs = block_int8_flat(x, xq, xs, q, nxt, B, N, num_heads,
-                                    shifts[i], gelu)
+                                    shifts[i], gelu, modes)
     return x.reshape(B, NP, D)[:, :N]
 
 
-def _blocks_fused(x, blocks, shifts, num_heads, gelu):
+def _blocks_fused(x, blocks, shifts, num_heads, gelu, modes):
     """The block stack on the fused layout: one launch per block for all but
-    the last, which has no next LayerNorm and runs on the split kernels."""
+    the last, which has no next LayerNorm and runs on the split kernels (with
+    the modes, as the JAX ``_block_tpu`` there). K14 takes the calibrated
+    shift or the bound, whatever ``modes.softmax`` says, as the JAX
+    ``fused_vit_block`` does."""
     xq, xs = rowquant_ops.fused_rowquant(
         x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
     if len(blocks) > 1:
@@ -309,36 +419,45 @@ def _blocks_fused(x, blocks, shifts, num_heads, gelu):
             xq, xs, x, blocks[:-1], [b["norm1"] for b in blocks[1:]],
             shifts[:-1], num_heads, gelu=gelu)
     x, _, _ = block_int8(x, xq, xs, blocks[-1], None, num_heads, shifts[-1],
-                         gelu)
+                         gelu, modes)
     return x
 
 
 def chessvit_int8_apply(pack: dict, images: torch.Tensor, attn_shifts=None,
                         gelu: str = "sigmoid", num_heads: int = 12,
-                        layout: str = "block") -> dict:
+                        layout: str = "block",
+                        modes: Int8Modes = _DEFAULT_MODES) -> dict:
     """images: (B, S, S, 3) normalized -> {"squares" (B, 832), "turn" (B, 1),
     "castling" (B, 4)}, f32, as ``ChessViT.forward``.
 
     pack: the port's tensors (``int8_pack_from_jax``); attn_shifts: per-layer
-    calibrated softmax shifts (floats or None); gelu: the fc1 GELU
-    ("sigmoid", "hard" or "erf"); layout: "block", "flat" or "fused" (see
-    the module docstring)."""
+    calibrated softmax shifts (floats or None; the hybrid and xla layouts
+    take none); gelu: the fc1 GELU ("sigmoid", "hard" or "erf"); layout:
+    one of ``LAYOUTS``; modes: ``Int8Modes`` (see the module docstring)."""
     check_layout(layout)
     x, G = _embed(pack, images)
     B, _, D = x.shape
     blocks = pack["blocks"]
     shifts = attn_shifts or [None] * len(blocks)
-    if layout == "flat":
-        x = _blocks_flat(x, blocks, shifts, num_heads, gelu)
+    if layout == "fused" and not modes.fused_ok():
+        layout = "block"
+    if layout == "xla":
+        for q in blocks:
+            x = _block(x, q, num_heads, gelu)
+    elif layout == "hybrid":
+        for q in blocks:
+            x = _block_hybrid(x, q, num_heads, gelu)
+    elif layout == "flat":
+        x = _blocks_flat(x, blocks, shifts, num_heads, gelu, modes)
     elif layout == "fused":
-        x = _blocks_fused(x, blocks, shifts, num_heads, gelu)
+        x = _blocks_fused(x, blocks, shifts, num_heads, gelu, modes)
     else:
         xq, xs = rowquant_ops.fused_rowquant(
             x, "ln", blocks[0]["norm1"]["scale"], blocks[0]["norm1"]["bias"])
         for i, q in enumerate(blocks):
             nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
             x, xq, xs = block_int8(x, xq, xs, q, nxt, num_heads, shifts[i],
-                                   gelu)
+                                   gelu, modes)
 
     # final LayerNorm, pool and heads in f32 (not cast back to bf16)
     x = _layernorm(x, pack["norm"])

@@ -8,8 +8,11 @@ board come back) -> host FEN assembly.
 A bounded window of ``inflight`` batches lets decode, staging and FEN
 assembly on the host overlap the device's work. ``quant="int8"`` serves the
 W8A8 form instead (``ops/quant.py``: int8 GEMM, row-quant and quantizing
-attention kernels), with per-layer softmax shifts calibrated on a few inputs;
-``CHESS_VISION_INT8_LAYOUT=block|flat|fused`` picks its kernel layout.
+attention kernels), with per-layer softmax shifts calibrated on a few inputs
+(else the JAX default "bound" shift);
+``CHESS_VISION_INT8_LAYOUT=block|flat|fused|hybrid|xla`` picks its kernel
+layout and ``CHESS_VISION_ATTN_SOFTMAX``, ``_ATTN_QK``, ``_ATTN_EXP`` and
+``_EPILOGUE`` its serving modes (``ops/quant.Int8Modes``).
 
 ``devices=[...]`` serves over several devices from one process (the
 ``serve`` CLI's ``--dp`` takes every visible CUDA device): one replica of the
@@ -85,18 +88,19 @@ def make_infer_fn(model, mean, std, mode: str = "rgb"):
 
 def make_int8_infer_fn(pack, mean, std, attn_shifts=None,
                        gelu: str = "sigmoid", num_heads: int = 12,
-                       layout: str = "block", mode: str = "rgb"):
+                       layout: str = "block", mode: str = "rgb",
+                       modes: quant_ops.Int8Modes = quant_ops.Int8Modes()):
     """The int8 (W8A8) counterpart of ``make_infer_fn``: same inputs and
     outputs, ChessViT run by ``ops/quant.chessvit_int8_apply`` on ``pack``
     (the port's tensors) with the calibrated ``attn_shifts``, the fc1
-    ``gelu`` and the kernel ``layout`` closed in."""
+    ``gelu``, the kernel ``layout`` and the serving ``modes`` closed in."""
 
     @torch.inference_mode()
     def infer(*inputs: torch.Tensor):
         x = model_input(inputs, mean, std, torch.bfloat16, mode)
         out = quant_ops.chessvit_int8_apply(pack, x, attn_shifts=attn_shifts,
                                             gelu=gelu, num_heads=num_heads,
-                                            layout=layout)
+                                            layout=layout, modes=modes)
         preds = out["squares"].reshape(-1, 64, 13).argmax(dim=-1)
         return preds.to(torch.uint8), out["turn"][:, 0] > 0, out["castling"] > 0
 
@@ -133,13 +137,17 @@ class Predictor:
 
     ``quant="int8"`` (ViT only) serves the W8A8 form: weights quantized once,
     and, given ``calib_paths``, per-layer softmax shifts calibrated on those
-    images. Its fc1 GELU is read from ``CHESS_VISION_GELU`` (default
-    "sigmoid") and its kernel layout from ``CHESS_VISION_INT8_LAYOUT``
-    ("block", the default, "flat" or "fused"; the JAX package's "xla" and
-    "hybrid" are not ported and raise), both once, here. Then ``model`` is
-    None and ``pack``, ``attn_shifts``, ``gelu`` and ``layout`` hold what
-    the forward runs on. Calibration images are decoded to RGB and
-    normalized on the host in either ``mode``, as in the JAX package.
+    images (without them, each layer's shift is the mode's: the "bound" by
+    default, as in the JAX package). Its fc1 GELU is read from
+    ``CHESS_VISION_GELU`` (default "sigmoid"), its kernel layout from
+    ``CHESS_VISION_INT8_LAYOUT`` ("block", the default, "flat", "fused",
+    "hybrid" or "xla") and its modes from ``CHESS_VISION_ATTN_SOFTMAX``,
+    ``CHESS_VISION_ATTN_QK``, ``CHESS_VISION_ATTN_EXP`` and
+    ``CHESS_VISION_EPILOGUE`` (``ops/quant.int8_modes``), all once, here; an
+    unknown value raises. Then ``model`` is None and ``pack``,
+    ``attn_shifts``, ``gelu``, ``layout`` and ``int8_modes`` hold what the
+    forward runs on. Calibration images are decoded to RGB and normalized
+    on the host in either ``mode``, as in the JAX package.
 
     ``mode="ycbcr420"`` stages and ships 4:2:0 planes (module docstring).
 
@@ -173,12 +181,13 @@ class Predictor:
         self.input_size = cfg["model"].get("input_size") or 224
         data_cfg = get_data_config(cfg["model"].get("name", ""))
         self.model = self.pack = self.attn_shifts = self.gelu = None
-        self.layout = None
+        self.layout = self.int8_modes = None
         if quant == "int8":
             if cfg["model"].get("arch", "vit") != "vit":
                 raise ValueError("int8 quantization currently supports arch=vit")
             self.gelu = quant_ops.approx_gelu()
             self.layout = quant_ops.int8_layout()
+            self.int8_modes = quant_ops.int8_modes()
             num_heads = cfg["model"].get("num_heads", 12)
             calib = None
             if calib_paths:
@@ -197,7 +206,8 @@ class Predictor:
             self.infers = [make_int8_infer_fn(
                 p, data_cfg["mean"], data_cfg["std"],
                 attn_shifts=self.attn_shifts, gelu=self.gelu,
-                num_heads=num_heads, layout=self.layout, mode=mode)
+                num_heads=num_heads, layout=self.layout, mode=mode,
+                modes=self.int8_modes)
                 for p in self.packs]
         else:
             model = build_model(cfg)
@@ -386,8 +396,9 @@ def main(argv=None):
                         help="int8 W8A8 serving (ViT only)")
     parser.add_argument("--calib", type=int, default=8,
                         help="int8 only: calibrate per-layer softmax shifts "
-                             "on the first N inputs (0 = exact row-max "
-                             "shifts, no calibration)")
+                             "on the first N inputs (0 = no calibration: "
+                             "CHESS_VISION_ATTN_SOFTMAX's shift, the bound "
+                             "by default)")
     parser.add_argument("--dp", action="store_true",
                         help="data-parallel serving over every visible CUDA "
                              "device (one replica each; --batch-size must "

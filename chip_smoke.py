@@ -63,7 +63,8 @@ Phases, one line each; any failure exits non-zero before the last line:
              the scalar GELU of the other kernels, bit for bit on 2^28 values
              per GELU.
   8. K4      quantizing attention vs ``reference_attention_quant`` at
-             (256, 257, 2304) with the exact row max and with a fixed shift,
+             (256, 257, 2304) with the default bound shift and with a fixed
+             shift,
              at (3, 17, 384) and at the ragged (2, 65, 2304) with 12 heads
              both ways: dequantized outputs within ATTN_ATOL; ptxas's
              registers and spills, its shared memory per block and how many
@@ -124,7 +125,7 @@ Phases, one line each; any failure exits non-zero before the last line:
              prints a ``torch.profiler`` table of N warm train steps.
  12. K5      flat quantizing attention vs ``reference_attention_quant_flat``
              at (73728, 2304) (256 images of 288 rows, 257 real) with the
-             exact row max and with a fixed shift, and at a small ragged
+             bound shift and with a fixed shift, and at a small ragged
              shape: real rows within ATTN_ATOL; real rows equal K4's on the
              unpadded values bit for bit; padded keys filled with large
              values change no real row. Then K11-K13, the flat layout's
@@ -319,12 +320,40 @@ Phases, one line each; any failure exits non-zero before the last line:
              at batch 64 and one f32 step at batch 16 against plain attention
              within TRAIN_GRAD_RTOL and F32_GRAD_RTOL. (c) the same on 64
              heads of 12. The phase's seconds.
- 27. report  the kernels JSON line (every kernel with its bound and, where
+ 27. modes   the int8 path's serving modes and the hybrid and xla layouts
+             at full width, without calibration (every softmax on its mode's
+             shift). (a) K4 and K5 at (256, 257, 2304) and (73728, 2304) in
+             each mode (the bound, the JAX default; a fixed shift of 24; the
+             row max; the bf16 exp; the int8 QK^T leg; the int8 P V leg
+             alone; both int8 legs; the legs' ``attention_quant_i8_kernel``,
+             ptxas printed) against their plain versions: dequantized within
+             ATTN_LEVELS steps of each row (with the bf16 exp, all but
+             EXP_BF16_ROWS of the rows, and those within EXP_BF16_LEVELS;
+             the kernel's f32 exp against the plain bf16 exp, a planted
+             fault, outside that); an overshooting bound's rows zeros in
+             both, and the bound without its -45 (a planted fault, the plain
+             version with BOUND_OFFSET 0) outside the bound; K8 in the bf16 epilogue with
+             each GELU within one level (its time in turns with the f32
+             epilogue's); K7's none and GELU forms, which the hybrid layout
+             runs, against their bytes bound. (b) ``Predictor(quant="int8")``
+             under each of MODE_PATHS (the bound in the block, flat and fused
+             layouts; fixed, max, int8, int8pv, the bf16 exp and the bf16
+             epilogue in the block layout; hybrid; xla) serves two batches of
+             256 with the counts set to 0 just before and read after (the
+             hybrid layout: K2 12, K7 48 and the product 48 times a batch, no
+             K4 or K8-K10; xla: K2 alone), every int8 kernel call of one
+             batch against its plain version, logits within
+             INT8_SQUARES_ULPS of the plain path's; under fused, K14 with the
+             bound on block 0 against its plain version and bit-identical to
+             the split chain, timed in turns with a fixed shift. Every kernel
+             time by (kernel, mode) and the phase's seconds.
+ 28. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel must have been launched by a main path: K3's long
              routes by phase 24's, the head dims 80 and 128 by phase 25's,
-             the any-head-dim kernels by phase 26's), the nvidia-smi line,
-             then {"ok": true, "device": {...}}.
+             the any-head-dim kernels by phase 26's, the int8 legs and K8's
+             bf16 epilogue by phase 27's), the nvidia-smi line, then
+             {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over the
@@ -377,6 +406,21 @@ ATTN_ATOL = 2e-2  # the JAX package's bound for its own kernel
 # Read 1.000-1.010 steps at seed 0; no row of that run gets more than 0.0198
 # (ATTN_ATOL, which the kernel calls of phases 4, 8 and 12 keep, is 0.02).
 ATTN_LEVELS = 1.35
+# K4/K5 with the bf16 exp (CHESS_VISION_ATTN_EXP=bf16), per row: the share of
+# rows beyond ATTN_LEVELS. exp(bf16(s - shift)) rounds its argument to steps
+# of 1/8 to 1/4 at the shifts of the bound (s - shift of 16 to 64); the
+# kernel's scores (mma.sync) and the plain version's (cuBLAS) add their
+# products in other orders and differ in the last bit, so a score next to
+# a step boundary lands a step apart and its p e^(+-1/4) apart: a row whose
+# heaviest key does so moves by up to a quarter of its largest value. The
+# per-row bound holds elsewhere; such rows stay rare (1.37e-4 of them at
+# seed 0 on the H100).
+EXP_BF16_ROWS = 1e-3
+# ... and those rows within EXP_BF16_LEVELS steps: a quarter of a row's
+# largest value is 32 of its steps (read 4 to 15 on the H100). The planted
+# fault, the kernel's f32 exp against the plain version's bf16 one, must
+# fail the pair.
+EXP_BF16_LEVELS = 32.0
 # K3 vs its plain version, per output element: both round dS and pn to bf16
 # and each output once from f32 sums taken in another order, so values near a
 # rounding boundary land one bf16 ulp apart: 3.9e-3 read at |values| up to 2.8
@@ -874,20 +918,21 @@ def main() -> int:
         p384_phase(args, kernels, kind, smi, workdir)
         head_dims_phase(args, kernels, kind, smi, workdir)
         any_head_dims_phase(args, kernels, kind, smi, workdir)
+        int8_modes_phase(args, cfg, params, kernels, kind, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 27: the kernels line, the card and the last line."""
+    """Phase 28: the kernels line, the card and the last line."""
     import torch
 
     idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[27 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[28 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -1351,11 +1396,13 @@ def path_op_checks(predictor, boards) -> dict:
         diff = (q.int() - rq_.int()).abs()
         deq = (q.float() * s - rq_.float() * rs).abs()
         step = torch.maximum(s, rs)  # one quantization step of each row
+        rows = (deq / step).amax(dim=-1)
         return {"levels": diff.max().item(),
                 "flips": (diff > 0).float().mean().item(),
                 "scale_rel": ((s - rs).abs() / rs.abs()).max().item(),
                 "deq": deq.max().item(),
-                "deq_levels": (deq / step).max().item(),
+                "deq_levels": rows.max().item(),
+                "rows_over": (rows > ATTN_LEVELS).float().mean().item(),
                 "deq_bound": (ATTN_LEVELS * step).max().item(),
                 "nonfinite": float(not torch.isfinite(s).all())}
 
@@ -1379,7 +1426,7 @@ def path_op_checks(predictor, boards) -> dict:
                 record(name, ulps=bf16_ulps(out, ref))
             elif len(out) == 3:  # res_ln_quant: x', yq, ys
                 vals = codes(*out[1:], *ref[1:])
-                del vals["deq_levels"], vals["deq_bound"]
+                del vals["deq_levels"], vals["deq_bound"], vals["rows_over"]
                 record(name, ulps=bf16_ulps(out[0], ref[0]), **vals)
             elif name in shift_arg:  # the quantizing attentions
                 vals = codes(*out, *ref)
@@ -1391,7 +1438,7 @@ def path_op_checks(predictor, boards) -> dict:
                 record(name, **vals)
             else:
                 vals = codes(*out, *ref)
-                del vals["deq_levels"], vals["deq_bound"]
+                del vals["deq_levels"], vals["deq_bound"], vals["rows_over"]
                 record(name, **vals)
             return out
         return run
@@ -1435,11 +1482,13 @@ def block_ok(w: dict) -> bool:
             and w["scale_rel"] <= BLOCK_SCALE_RTOL and not w["nonfinite"])
 
 
-def path_op_failures(worst: dict, tag: str = "[9 int8]") -> list[str]:
+def path_op_failures(worst: dict, tag: str = "[9 int8]",
+                     exp_bf16: bool = False) -> list[str]:
     """The criteria of phases 6-8 at the path's own activations; the
     quantizing attention's codes, where its shift is the calibrated one, also
     within one level in under 1e-3 of the elements, and its dequantized
-    outputs within ATTN_LEVELS steps of their row; the whole-block kernel
+    outputs within ATTN_LEVELS steps of their row (``attn_ok``: with the
+    bf16 exp, all but EXP_BF16_ROWS of the rows); the whole-block kernel
     within BLOCK_BOUNDS. Returns each op that fails them."""
     failed = []
     for name, w in worst.items():
@@ -1449,7 +1498,7 @@ def path_op_failures(worst: dict, tag: str = "[9 int8]") -> list[str]:
             ok = ("levels" not in w or (w["levels"] <= 1 and w["flips"] < 1e-3))
             ok &= "ulps" not in w or w["ulps"] <= 1.0
             if name.startswith("fused_qkv_attention_quant"):
-                ok &= w["deq_levels"] <= ATTN_LEVELS and not w["nonfinite"]
+                ok &= attn_ok({**w, "finite": not w["nonfinite"]}, exp_bf16)
             elif "scale_rel" in w:
                 ok &= w["scale_rel"] <= 1e-5 and not w["nonfinite"]
         if not ok:
@@ -1457,8 +1506,9 @@ def path_op_failures(worst: dict, tag: str = "[9 int8]") -> list[str]:
     return failed
 
 
-def require_path_ops(worst: dict, tag: str = "[9 int8]") -> None:
-    for failure in path_op_failures(worst, tag):
+def require_path_ops(worst: dict, tag: str = "[9 int8]",
+                     exp_bf16: bool = False) -> None:
+    for failure in path_op_failures(worst, tag, exp_bf16):
         require(False, failure)
     for name, w in worst.items():
         if name.startswith("fused_qkv_attention_quant"):
@@ -4540,6 +4590,365 @@ def any_head_dims_phase(args, kernels: dict, kind: str, smi: str,
     print(f"[26 any head dim] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+
+# Phase 27's Predictors, built without calibration boards, so every softmax
+# takes its mode's shift: (tag, CHESS_VISION_INT8_LAYOUT, other variables).
+MODE_PATHS = (
+    ("block bound", "block", {}),
+    ("flat bound", "flat", {}),
+    ("fused bound", "fused", {}),
+    ("block fixed", "block", {"CHESS_VISION_ATTN_SOFTMAX": "fixed"}),
+    ("block max", "block", {"CHESS_VISION_ATTN_SOFTMAX": "max"}),
+    ("block int8", "block", {"CHESS_VISION_ATTN_QK": "int8"}),
+    ("block int8pv", "block", {"CHESS_VISION_ATTN_QK": "int8pv"}),
+    ("block exp bf16", "block", {"CHESS_VISION_ATTN_EXP": "bf16"}),
+    ("block epilogue bf16", "block", {"CHESS_VISION_EPILOGUE": "bf16"}),
+    ("hybrid", "hybrid", {}),
+    ("xla", "xla", {}),
+)
+# K4/K5 in each mode, as the quantizing attention's keywords
+ATTN_MODES = (("bound", {}), ("fixed", {"shift_mode": "fixed"}),
+              ("max", {"shift_mode": "max"}), ("exp bf16", {"exp_bf16": True}),
+              ("int8", {"qk_int8": True}), ("pv only", {"pv_int8": True}),
+              ("int8pv", {"qk_int8": True, "pv_int8": True}))
+
+
+def attn_levels(q, s, rq_, rs) -> dict:
+    """Quantizing attention, kernel vs plain: the largest code difference,
+    the share of codes that differ, the dequantized difference in
+    quantization steps of its row (``ATTN_LEVELS``) and the share of rows
+    beyond that bound."""
+    import torch
+
+    diff = (q.int() - rq_.int()).abs()
+    steps = ((q.float() * s - rq_.float() * rs).abs()
+             / torch.maximum(s, rs)).amax(dim=-1)
+    return {"levels": diff.max().item(), "flips": (diff > 0).float().mean().item(),
+            "deq_levels": steps.max().item(),
+            "rows_over": (steps > ATTN_LEVELS).float().mean().item(),
+            "finite": bool(torch.isfinite(s).all())}
+
+
+def attn_ok(w: dict, exp_bf16: bool) -> bool:
+    """ATTN_LEVELS on every row, or with the bf16 exp on all but
+    EXP_BF16_ROWS of them and EXP_BF16_LEVELS on those."""
+    if exp_bf16:
+        return (w["finite"] and w["rows_over"] <= EXP_BF16_ROWS
+                and w["deq_levels"] <= EXP_BF16_LEVELS)
+    return w["finite"] and w["deq_levels"] <= ATTN_LEVELS
+
+
+def overshoot_qkv(qkv, H: int):
+    """qkv with a bound that overshoots: image 0's keys of head 0 in the
+    first 32 of their 64 columns, and its q rows 0-3 and 4-7 in the other 32,
+    of norms that put |q| max_j |k_j| * scale at 115 and 200. Their scores are
+    0, so the bound overshoots their max by 70 and 155: p = exp(-70) stays
+    above the f32 flush line, exp(-155) does not (those rows' head 0 columns
+    are zeros, as in the JAX kernel), and a bound without its -45 flushes
+    rows 0-3 too (exp(-115))."""
+    import torch
+
+    out = qkv.clone()
+    D = qkv.shape[-1] // 3
+    out[0, :, D + 32:D + 64] = 0
+    kmax = out[0, :, D:D + 64].float().square().sum(-1).max().sqrt().item()
+    direction = torch.ones(32, device=qkv.device) / math.sqrt(32)
+    for rows, target in ((slice(0, 4), 115.0), (slice(4, 8), 200.0)):
+        out[0, rows, :64] = 0
+        out[0, rows, 32:64] = (direction * (target / (0.125 * kmax))).bfloat16()
+    return out
+
+
+def mode_kernel_checks(args, dev, kernels: dict) -> dict:
+    """Phase 27a: K4 and K5 in each mode (ATTN_MODES), K8 in the bf16
+    epilogue and K7 in the forms the hybrid layout runs, at the main path's
+    shapes, against their plain versions on the same inputs and timed by CUDA
+    events; the bound's overshooting rows and its planted fault. Returns the
+    kernel times by (kernel, mode)."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 27)
+    N = SIZE // 16 * SIZE // 16 + 1
+    NP = -(-N // 32) * 32
+    H, D = 12, 768
+    qkv = torch.randn((BATCH, N, 3 * D), device=dev, generator=gen).bfloat16()
+    padded = torch.randn((BATCH, NP, 3 * D), device=dev,
+                         generator=gen).bfloat16()
+    padded[:, :N] = qkv
+    flat = padded.reshape(BATCH * NP, 3 * D)
+    real = lambda t: t.reshape(BATCH, NP, -1)[:, :N]  # noqa: E731
+    times = {}
+    for mode, kw in ATTN_MODES:
+        for which in ("K4", "K5"):
+            if which == "K4":
+                run = lambda: attn_ops.fused_qkv_attention_quant(  # noqa: E731
+                    qkv, H, **kw)
+                plain = lambda: attn_ops.reference_attention_quant(  # noqa: E731
+                    qkv, H, **kw)
+                pick = lambda t: t  # noqa: E731
+            else:
+                run = lambda: attn_ops.fused_qkv_attention_quant_flat(  # noqa: E731
+                    flat, BATCH, N, H, **kw)
+                plain = lambda: attn_ops.reference_attention_quant_flat(  # noqa: E731
+                    flat, BATCH, N, H, **kw)
+                pick = real
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            w = attn_levels(*(pick(t) for t in (*out, *ref)))
+            del out, ref
+            ms = cuda_ms(run, 10)
+            plain_ms = cuda_ms(plain, 2)
+            times[(which, mode)] = ms
+            print(f"[27a {which}] {mode} at {tuple((qkv if which == 'K4' else flat).shape)}"
+                  f" H={H}: vs plain {w} (bound {ATTN_LEVELS} steps"
+                  f"{f', rows beyond under {EXP_BF16_ROWS}, within {EXP_BF16_LEVELS}' if kw.get('exp_bf16') else ''}"
+                  f"); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            require(attn_ok(w, kw.get("exp_bf16", False)),
+                    f"[27a {which}] {mode}: {w}")
+            if which == "K4" and mode == "int8":
+                kernels["fused_qkv_attention_quant_i8"] = kernel_entry(
+                    "fused_qkv_attention_quant_i8", "attention_quant.cu",
+                    "chess_vision_tpu/ops/attention.py:486", w["deq_levels"],
+                    ms, plain_ms,
+                    nbytes=2 * qkv.numel() + BATCH * N * D + 4 * BATCH * N,
+                    ops={"int8": 2 * BATCH * H * N * N * 64,
+                         "bf16": 2 * BATCH * H * N * N * 64})
+    print(f"  [27a K4] ptxas: "
+          f"{ptxas_counts('attention_quant_i8_kernel', 64)}", flush=True)
+
+    # the bf16 exp's planted fault: the kernel's f32 exp against the plain
+    # version's bf16 one must fail attn_ok
+    planted = attn_levels(*attn_ops.fused_qkv_attention_quant(qkv, H),
+                          *attn_ops.reference_attention_quant(qkv, H,
+                                                              exp_bf16=True))
+    caught = not attn_ok(planted, True)
+    print(f"[27a K4] planted fault (the f32 exp against the plain bf16 exp): "
+          f"{planted} ({'fails' if caught else 'PASSES'} the bf16 exp's "
+          f"bounds)", flush=True)
+    require(caught, "[27a K4] the planted fault (the f32 exp against the "
+            "bf16 exp) passes")
+
+    # the bound's overshooting rows, and its planted fault: the bound
+    # without its -45 (the plain version with BOUND_OFFSET 0) must fail
+    wild = overshoot_qkv(qkv, H)
+    out = attn_ops.fused_qkv_attention_quant(wild, H)
+    ref = attn_ops.reference_attention_quant(wild, H)
+    with mock.patch.object(attn_ops, "BOUND_OFFSET", 0.0):
+        bad = attn_ops.reference_attention_quant(wild, H)
+    torch.cuda.synchronize()
+    w, planted = attn_levels(*out, *ref), attn_levels(*out, *bad)
+    zeros = bool((out[0][0, 4:8, :64] == 0).all() and (ref[0][0, 4:8, :64] == 0).all())
+    kept = bool((out[0][0, 0:4, :64] != 0).any())
+    print(f"[27a K4] overshooting bound (rows 0-3 by 70, 4-7 by 155): vs plain "
+          f"{w}; rows 4-7 of head 0 zeros in both {zeros}, rows 0-3 not "
+          f"{kept}; planted fault (the bound without its -45) vs the kernel "
+          f"{planted['deq_levels']:.2f} steps (bound {ATTN_LEVELS}: "
+          f"{'fails' if planted['deq_levels'] > ATTN_LEVELS else 'PASSES'})",
+          flush=True)
+    require(w["deq_levels"] <= ATTN_LEVELS and zeros and kept,
+            f"[27a K4] overshooting bound: {w}, zeros {zeros}, kept {kept}")
+    require(planted["deq_levels"] > ATTN_LEVELS,
+            "[27a K4] the planted fault (the bound without its -45) passes")
+    del qkv, padded, flat, wild, out, ref, bad
+
+    # K8 in the bf16 epilogue, every GELU, beside the f32 epilogue in turns
+    M = BATCH * N
+    ops = operands_at(dev, gen, M, 768, 3072)
+    for gelu in mm.GELUS:
+        what = f"[27a K8] bf16 epilogue ({M}, 768) -> 3072 {gelu}"
+        err = codes_check(what, *mm.int8_matmul_gelu_quant(
+            *ops, gelu, bf16_epilogue=True),
+            *mm.int8_matmul_gelu_quant_plain(*ops, gelu, bf16_epilogue=True))
+        if gelu != "sigmoid":
+            continue
+        run = lambda: mm.int8_matmul_gelu_quant(  # noqa: E731
+            *ops, gelu, bf16_epilogue=True)
+        f32 = lambda: mm.int8_matmul_gelu_quant(*ops, gelu)  # noqa: E731
+        turns = {"bf16": [], "f32": []}
+        for which in ("bf16", "f32", "f32", "bf16"):
+            turns[which].append(cuda_ms(run if which == "bf16" else f32, 20))
+        plain_ms = cuda_ms(lambda: mm.int8_matmul_gelu_quant_plain(
+            *ops, gelu, bf16_epilogue=True), 3)
+        entry = kernel_entry(
+            "int8_matmul_gelu_quant_bf16", "int8_matmul.cu",
+            "chess_vision_tpu/ops/int8_matmul.py:219", err,
+            min(turns["bf16"]), plain_ms,
+            nbytes=M * 768 + 4 * M + 3072 * 768 + 8 * 3072 + M * 3072 + 4 * M,
+            ops=2 * M * 768 * 3072, op_type="int8",
+            library_ms=int_mm_ms(ops[0], ops[2], what))
+        kernels[entry["name"]] = entry
+        times[("K8", "bf16 epilogue")] = min(turns["bf16"])
+        print(f"{what}: ms in turns (bf16, f32, f32, bf16) {turns}; plain "
+              f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})", flush=True)
+    del ops
+
+    # K7 in the forms only the hybrid layout runs: none (768), GELU (3072)
+    for width, mode in ((768, "none"), (3072, "gelu_sigmoid")):
+        x = (torch.randn((M, width), device=dev, generator=gen) * 2).bfloat16()
+        what = f"[27a K7] row quant ({M}, {width}) {mode}"
+        codes_check(what, *rq.fused_rowquant(x, mode), *rq.rowquant_plain(x, mode))
+        ms = cuda_ms(lambda: rq.fused_rowquant(x, mode), 20)
+        bound = (3 * M * width + 4 * M) / HBM_BYTES_PER_S * 1e3
+        times[("K7", mode)] = ms
+        print(f"{what}: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes): "
+              f"{bound / ms:.3f} of it", flush=True)
+        del x
+    return times
+
+
+def mode_want(layout: str, depth: int, batches: int) -> dict:
+    """The launches of ``batches`` int8 forwards in the layouts phase 27 adds
+    to ``int8_want``'s: hybrid, 4 row passes (K7) and 4 products a block and
+    K2; xla, K2 alone (its products and quantizations are PyTorch's)."""
+    hybrid = layout == "hybrid"
+    return {"preprocess_u8": batches,
+            "fused_qkv_attention": depth * batches,
+            "fused_rowquant": 4 * depth * batches if hybrid else 0,
+            "fused_qkv_attention_quant": 0,
+            "fused_qkv_attention_quant_flat": 0,
+            "fused_vit_block": 0,
+            "int8_matmul_scale_bias": 4 * depth * batches if hybrid else 0,
+            "int8_matmul_gelu_quant": 0,
+            "int8_matmul_res_ln_quant": 0,
+            "int8_matmul_res": 0}
+
+
+def mode_path_check(tag: str, args, dev, cfg, params, boards, layout: str,
+                    env: dict, kernels: dict, times: dict) -> None:
+    """Phase 27b: one Predictor(quant="int8") under ``env``, uncalibrated:
+    two batches served with the counts set to 0 just before and read just
+    after; one batch with every int8 kernel call against its plain version
+    (``path_op_checks``) and the logits against the plain path's
+    (``INT8_SQUARES_ULPS``); the fused layout's first K14 on its path's
+    block against its plain version and the split chain."""
+    import torch
+
+    from chess_vision_tpu_torch.experiments.plain import (forward_logits,
+                                                          plain_int8_ops)
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.ops import int8_matmul as mm
+    from chess_vision_tpu_torch.ops import preprocess as pre_ops
+    from chess_vision_tpu_torch.ops import quant
+    from chess_vision_tpu_torch.serve import Predictor
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"CHESS_VISION_INT8_LAYOUT": layout,
+                                      **env}):
+        predictor = Predictor((cfg, params), batch_size=BATCH, device=dev,
+                              quant="int8")
+    want_modes = quant.Int8Modes(
+        env.get("CHESS_VISION_ATTN_SOFTMAX", "bound"),
+        env.get("CHESS_VISION_ATTN_QK", "bf16"),
+        env.get("CHESS_VISION_ATTN_EXP", "f32"),
+        env.get("CHESS_VISION_EPILOGUE", "f32"))
+    require(predictor.layout == layout and predictor.attn_shifts is None
+            and predictor.int8_modes == want_modes,
+            f"{tag} layout {predictor.layout}, shifts {predictor.attn_shifts}, "
+            f"modes {predictor.int8_modes}")
+    predictor.predict_array(boards[:BATCH])  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    depth = cfg["model"]["depth"]
+    batches = math.ceil(len(boards) / BATCH)
+    reset_counts()
+    attn_ops.QUANT_I8_LAUNCHES = mm.BF16_EPILOGUE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fens = predictor.predict_array(boards)
+    rate = len(boards) / (time.perf_counter() - t0)
+    launches = int8_counts()
+    legs, epilogue = attn_ops.QUANT_I8_LAUNCHES, mm.BF16_EPILOGUE_LAUNCHES
+    want = (mode_want(layout, depth, batches) if layout in ("hybrid", "xla")
+            else int8_want(layout, depth, batches))
+    want_legs = depth * batches if "CHESS_VISION_ATTN_QK" in env else 0
+    want_epilogue = depth * batches if "CHESS_VISION_EPILOGUE" in env else 0
+    print(f"{tag} {len(boards)} boards in {batches} batches of {BATCH}: "
+          f"launches {launches}, int8 legs {legs}, bf16 epilogue {epilogue}; "
+          f"{rate:.1f} boards/s (one run; set-up {setup_s:.1f} s)", flush=True)
+    require(launches == want and legs == want_legs
+            and epilogue == want_epilogue,
+            f"{tag} launch counts {launches}, legs {legs}, epilogue "
+            f"{epilogue}; want {want}, {want_legs}, {want_epilogue}")
+    if legs:
+        kernels["fused_qkv_attention_quant_i8"]["launches"] += legs
+    if epilogue:
+        kernels["int8_matmul_gelu_quant_bf16"]["launches"] += epilogue
+
+    worst = path_op_checks(predictor, boards[:BATCH])
+    print(f"{tag} each kernel call of one batch vs its plain version (worst "
+          f"per op): {worst}", flush=True)
+    require_path_ops(worst, tag, predictor.int8_modes.attn_exp == "bf16")
+    logits_k = forward_logits(predictor, boards[:BATCH])
+    with plain_int8_ops(), plain_ops(attn_ops, pre_ops):
+        logits_p = forward_logits(predictor, boards[:BATCH])
+        fens_plain = predictor.predict_array(boards[:BATCH])
+    require_logits(tag, fens[:BATCH], fens_plain, logits_k, logits_p,
+                   INT8_SQUARES_ULPS)
+    if layout == "fused":
+        fused_bound_check(tag, args, predictor, kernels, times)
+
+
+def fused_bound_check(tag: str, args, predictor, kernels: dict,
+                      times: dict) -> None:
+    """K14 with the bound (no calibrated shift) on the served model's block
+    0 at the path's shape: against its plain version (``BLOCK_BOUNDS``) and
+    bit for bit against the split chain, timed by CUDA events in turns with
+    the calibrated-shift form."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import fused_block as fb
+    from chess_vision_tpu_torch.ops import quant
+    from chess_vision_tpu_torch.ops import rowquant as rq
+
+    dev = predictor.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 28)
+    blocks = predictor.pack["blocks"]
+    q, nxt = blocks[0], blocks[1]["norm1"]
+    N = SIZE // 16 * SIZE // 16 + 1
+    x = (torch.randn((BATCH, N, 768), device=dev, generator=gen) * 0.5).bfloat16()
+    xq, xs = rq.fused_rowquant(x, "ln", q["norm1"]["scale"], q["norm1"]["bias"])
+    run = lambda shift=None: fb.fused_vit_block(  # noqa: E731
+        xq, xs, x, q, nxt, 12, shift)
+    out, chain = run(), quant.block_int8(x, xq, xs, q, nxt, 12)
+    ref = fb.fused_vit_block_plain(xq, xs, x, q, nxt, 12)
+    torch.cuda.synchronize()
+    as_chain = all(bool((a == b).all()) for a, b in zip(out, chain))
+    diff = block_diff(out, ref)
+    del out, chain, ref
+    turns = {"bound": [], "fixed": []}
+    for which in ("bound", "fixed", "fixed", "bound"):
+        turns[which].append(cuda_ms(
+            lambda: run(None if which == "bound" else 0.0), 5))
+    times[("K14", "bound")] = min(turns["bound"])
+    print(f"{tag} K14 with the bound, block 0 at ({BATCH}, {N}, 768): vs plain "
+          f"{diff}; bit-identical to the split chain {as_chain}; ms in turns "
+          f"(bound, fixed, fixed, bound) {turns}", flush=True)
+    require(block_ok(diff), f"{tag} K14 with the bound vs plain: {diff}")
+    require(as_chain, f"{tag} K14 with the bound differs from the split chain")
+
+
+def int8_modes_phase(args, cfg, params, kernels: dict, kind: str,
+                     smi: str) -> None:
+    """Phase 27: the int8 path's serving modes and the hybrid and xla
+    layouts (MODE_PATHS), uncalibrated, at full width."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    times = mode_kernel_checks(args, dev, kernels)
+    boards = path_boards(args, np.random.default_rng(args.seed + 27), 2 * BATCH)
+    for tag, layout, env in MODE_PATHS:
+        mode_path_check(f"[27b {tag}]", args, dev, cfg, params, boards, layout,
+                        env, kernels, times)
+        torch.cuda.empty_cache()
+    print(f"[27 modes] kernel ms by (kernel, mode): "
+          f"{ {f'{k} {m}': round(v, 4) for (k, m), v in times.items()} }; "
+          f"{kind}, {smi}", flush=True)
+    print(f"[27 modes] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 if __name__ == "__main__":
     try:

@@ -90,10 +90,19 @@ def _input(rng, q0):
     return (tx, txq, txs), (jx, jxq, jxs)
 
 
-@pytest.mark.parametrize("shift,gelu", [(None, "sigmoid"), (3.0, "sigmoid"),
-                                        (3.0, "erf"), (3.0, "hard")],
+@pytest.mark.parametrize("shift,gelu,mode", [(None, "sigmoid", "max"),
+                                             (3.0, "sigmoid", "bound"),
+                                             (3.0, "erf", "bound"),
+                                             (3.0, "hard", "bound")],
                          ids=["row-max", "calibrated", "erf", "hard"])
-def test_fused_block_matches_jax_fused_kernel(shift, gelu):
+def test_fused_block_matches_jax_fused_kernel(shift, gelu, mode):
+    check_fused_block(shift, gelu, mode)
+
+
+def check_fused_block(shift, gelu, mode):
+    """The port's K14 (plain) with ``shift``, ``gelu`` and ``shift_mode``
+    against the JAX kernel in interpret mode, which takes the calibrated
+    shift or its bound (tests/test_torch_int8_layouts.py runs the bound)."""
     rng = np.random.default_rng(21)
     q, nxt = _mkblock(rng), _mkblock(rng)["norm1"]
     (tx, txq, txs), (jx, jxq, jxs) = _input(rng, q)
@@ -103,12 +112,12 @@ def test_fused_block_matches_jax_fused_kernel(shift, gelu):
     before = fb.LAUNCHES
     out_x, out_q, out_s = fb.fused_vit_block(
         txq, txs, tx, _torch_blk(q), {k: _t(v) for k, v in nxt.items()}, H,
-        shift, gelu=gelu)
+        shift, gelu=gelu, shift_mode=mode)
     assert fb.LAUNCHES == before  # a CPU tensor: the plain version
     assert out_x.dtype == torch.bfloat16 and out_x.shape == (B, N, D)
     assert out_q.dtype == torch.int8 and out_s.shape == (B, N, 1)
     levels, bounds = _block_diff((out_x, out_q, out_s), (ref_x, ref_q, ref_s))
-    if shift is None:
+    if shift is None and mode == "max":
         # the port's exact row max against the JAX "bound" shift: the same
         # softmax with p rounded to bf16 at other values, which moves most
         # elements a little (as two calibrated shifts do); bounded by size
@@ -119,7 +128,7 @@ def test_fused_block_matches_jax_fused_kernel(shift, gelu):
     # a planted fault falls outside: the block with another GELU
     wrong = fb.fused_vit_block(
         txq, txs, tx, _torch_blk(q), {k: _t(v) for k, v in nxt.items()}, H,
-        shift, gelu="hard" if gelu == "erf" else "erf")
+        shift, gelu="hard" if gelu == "erf" else "erf", shift_mode=mode)
     with pytest.raises(AssertionError):
         _assert_same_block(*_block_diff(wrong, (ref_x, ref_q, ref_s)))
 
@@ -257,8 +266,8 @@ def test_int8_forward_fused_layout_matches_jax(params, monkeypatch):
 
 def test_predictor_serves_flat_and_fused_layouts(params, monkeypatch):
     """``Predictor(quant="int8")`` reads CHESS_VISION_INT8_LAYOUT once, when
-    it is built; flat and fused give the block layout's FENs on squares with
-    a confident margin; the TPU-only and unknown values raise."""
+    it is built; flat, fused, xla and hybrid give the block layout's FENs on
+    squares with a confident margin; an unknown value raises."""
     from chess_vision_tpu_torch.serve import Predictor
 
     boards = np.random.default_rng(9).integers(
@@ -303,10 +312,19 @@ def test_predictor_serves_flat_and_fused_layouts(params, monkeypatch):
         np.testing.assert_array_equal(ids[layout][confident],
                                       ids["block"][confident])
 
-    for layout, match in (("xla", "not ported"), ("hybrid", "not ported"),
-                          ("nosuch", "unknown int8 layout")):
+    # the JAX package's other two layouts serve too (the XLA-form scheme:
+    # the same FENs on the confident squares), an unknown one raises
+    for layout in ("xla", "hybrid"):
         monkeypatch.setenv("CHESS_VISION_INT8_LAYOUT", layout)
-        with pytest.raises(ValueError, match=match):
-            Predictor((CFG, params), batch_size=2, device="cpu", quant="int8")
+        predictor = Predictor((CFG, params), batch_size=2, device="cpu",
+                              quant="int8")
+        assert predictor.layout == layout
+        served = np.stack([fen_to_labels(f.split()[0])
+                           for f in predictor.predict_array(boards)])
+        np.testing.assert_array_equal(served[confident],
+                                      ids["block"][confident])
+    monkeypatch.setenv("CHESS_VISION_INT8_LAYOUT", "nosuch")
+    with pytest.raises(ValueError, match="unknown int8 layout"):
+        Predictor((CFG, params), batch_size=2, device="cpu", quant="int8")
     # the bf16 Predictor does not read the variable
     assert Predictor((CFG, params), batch_size=2, device="cpu").layout is None

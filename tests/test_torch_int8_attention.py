@@ -8,8 +8,9 @@ on the card (test_torch_int8_kernels_cuda.py).
 Tolerances, those of the JAX package's own tests: dequantized attention
 within 0.02 of the same softmax mode and 0.04 across modes
 (tests/test_attention.py test_fixed_shift_softmax_matches_max_shift);
-scales rtol 1e-5. The port's attention without a calibrated shift takes the
-exact row max, which stands in for the JAX default "bound" shift.
+scales rtol 1e-5. Without a calibrated shift both take the JAX default
+"bound" shift; ``shift_mode="max"`` names the exact row max
+(tests/test_torch_int8_modes.py holds every mode within one int8 level).
 """
 
 import jax.numpy as jnp
@@ -49,11 +50,14 @@ def test_attention_quant_matches_jax_modes(B, N, H, Dh, monkeypatch):
     oq, os_ = attn.fused_qkv_attention_quant(_t(qkv).bfloat16(), H)
     assert oq.dtype == torch.int8 and os_.shape == (B, N, 1)
     ours = _deq(oq.numpy(), os_.numpy())
+    ours_max = _deq(*(t.numpy() for t in attn.fused_qkv_attention_quant(
+        _t(qkv).bfloat16(), H, shift_mode="max")))
     ref_bound = _deq(*jax_attn.fused_qkv_attention_quant(jq, H, interpret=True))
     monkeypatch.setenv("CHESS_VISION_ATTN_SOFTMAX", "max")
     ref_max = _deq(*jax_attn.fused_qkv_attention_quant(jq, H, interpret=True))
-    np.testing.assert_allclose(ours, ref_max, atol=0.02)
-    np.testing.assert_allclose(ours, ref_bound, atol=0.04)
+    np.testing.assert_allclose(ours_max, ref_max, atol=0.02)
+    np.testing.assert_allclose(ours, ref_bound, atol=0.02)
+    np.testing.assert_allclose(ours_max, ref_bound, atol=0.04)
 
 
 @pytest.mark.parametrize("N", [257, 33])

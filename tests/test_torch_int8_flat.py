@@ -7,8 +7,9 @@ mode, as tests/test_int8_flat.py does. The CUDA kernel is held against the
 plain version on the card (test_torch_layout_kernels_cuda.py).
 
 Tolerances: those of tests/test_torch_int8_attention.py for the attention
-(dequantized output within 0.02 of the same softmax mode and 0.04 of the JAX
-default "bound" shift, which the port's exact row max stands in for), and
+(dequantized output within 0.02 of the same softmax mode, the JAX default
+"bound" shift without a calibrated one or "max" where named, and 0.04
+across modes), and
 LOGITS_ATOL of tests/test_torch_int8_model.py for the whole forward. Only
 real rows are compared: what a padded row holds is never read.
 """
@@ -67,13 +68,18 @@ def test_flat_attention_matches_jax_modes(monkeypatch):
     assert oq.dtype == torch.int8 and oq.shape == (B * NP, D)
     assert os_.dtype == torch.float32 and os_.shape == (B * NP, 1)
     ours = _real(_deq(oq.numpy(), os_.numpy()))
+    ours_max = _real(_deq(*(t.numpy() for t in
+                            attn.fused_qkv_attention_quant_flat(
+                                _t(qkv.reshape(B * NP, 3 * D)).bfloat16(), B,
+                                N_REAL, H, shift_mode="max"))))
     ref_bound = _real(_deq(*jax_attn.fused_qkv_attention_quant_flat(
         jqkv, B, N_REAL, H, interpret=True)))
     monkeypatch.setenv("CHESS_VISION_ATTN_SOFTMAX", "max")
     ref_max = _real(_deq(*jax_attn.fused_qkv_attention_quant_flat(
         jqkv, B, N_REAL, H, interpret=True)))
-    np.testing.assert_allclose(ours, ref_max, atol=0.02)
-    np.testing.assert_allclose(ours, ref_bound, atol=0.04)
+    np.testing.assert_allclose(ours_max, ref_max, atol=0.02)
+    np.testing.assert_allclose(ours, ref_bound, atol=0.02)
+    np.testing.assert_allclose(ours_max, ref_bound, atol=0.04)
 
 
 def test_flat_attention_fixed_shift_matches_jax():
@@ -90,10 +96,13 @@ def test_flat_attention_fixed_shift_matches_jax():
     np.testing.assert_allclose(_real(ours), _real(ref), atol=0.02)
 
 
-@pytest.mark.parametrize("shift", [None, -30.0], ids=["max", "fixed"])
-def test_padded_keys_never_reach_a_real_row(shift):
+@pytest.mark.parametrize("shift,mode", [(None, "max"), (-30.0, "max"),
+                                        (None, "bound")],
+                         ids=["max", "fixed", "bound"])
+def test_padded_keys_never_reach_a_real_row(shift, mode):
     """Padded key and value rows set to large finite values change no real
-    row, bit for bit; every row, padded ones included, stays finite. The
+    row, bit for bit (the bound leaves them out of its key norms); every
+    row, padded ones included, stays finite. The
     real rows are those of the unpadded attention (K4's plain version) up to
     the order of the sums: PyTorch adds 32 terms, five of them exact zeros,
     in another order than 27, so a scale may differ in its last bit and a
@@ -103,13 +112,13 @@ def test_padded_keys_never_reach_a_real_row(shift):
     loud = qkv.copy()
     loud[:, N_REAL:, D:] = 1e4  # padded keys and values
     run = lambda a: attn.fused_qkv_attention_quant_flat(  # noqa: E731
-        _t(a.reshape(B * NP, 3 * D)).bfloat16(), B, N_REAL, H, shift)
+        _t(a.reshape(B * NP, 3 * D)).bfloat16(), B, N_REAL, H, shift, mode)
     (oq, os_), (lq, ls) = run(qkv), run(loud)
     np.testing.assert_array_equal(_real(oq.numpy()), _real(lq.numpy()))
     np.testing.assert_array_equal(_real(os_.numpy()), _real(ls.numpy()))
     assert torch.isfinite(os_).all() and torch.isfinite(ls).all()
     kq, ks = attn.fused_qkv_attention_quant(
-        _t(qkv[:, :N_REAL]).bfloat16(), H, shift)
+        _t(qkv[:, :N_REAL]).bfloat16(), H, shift, mode)
     np.testing.assert_allclose(_real(os_.numpy()), ks.numpy(), rtol=1e-6)
     levels = np.abs(_real(oq.numpy()).astype(np.int32) - kq.numpy())
     assert levels.max() <= 1 and (levels > 0).mean() < 1e-3
@@ -200,10 +209,11 @@ def test_flat_block_chain_matches_jax_and_block_layout(make, shift, gain,
     x = _t(xpad).bfloat16()
     xq, xs = rq.fused_rowquant(x, "ln", t0["norm1"]["scale"],
                                t0["norm1"]["bias"])
+    row_max = quant.Int8Modes(softmax="max")  # the JAX side's, set above
     x, xq, xs = quant.block_int8_flat(x, xq, xs, t0, t1["norm1"], B, N_REAL,
-                                      H, shift)
+                                      H, shift, modes=row_max)
     x, none_q, none_s = quant.block_int8_flat(x, xq, xs, t1, None, B, N_REAL,
-                                              H, shift)
+                                              H, shift, modes=row_max)
     assert none_q is None and none_s is None
     ours = _real(x.float().numpy())
     # The first pack (random int8 weights, scales up to 0.02) drives the bf16
@@ -222,8 +232,9 @@ def test_flat_block_chain_matches_jax_and_block_layout(make, shift, gain,
     xb = _t(x3).bfloat16()
     bq, bs = rq.fused_rowquant(xb, "ln", t0["norm1"]["scale"],
                                t0["norm1"]["bias"])
-    xb, bq, bs = quant.block_int8(xb, bq, bs, t0, t1["norm1"], H, shift)
-    xb, _, _ = quant.block_int8(xb, bq, bs, t1, None, H, shift)
+    xb, bq, bs = quant.block_int8(xb, bq, bs, t0, t1["norm1"], H, shift,
+                                  modes=row_max)
+    xb, _, _ = quant.block_int8(xb, bq, bs, t1, None, H, shift, modes=row_max)
     np.testing.assert_array_equal(ours, xb.float().numpy())
 
 

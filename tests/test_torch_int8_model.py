@@ -15,10 +15,11 @@ Logits of the whole forward within LOGITS_ATOL, the bound the port's bf16
 model is held to (tests/test_torch_model.py): int8 codes may land one level
 apart where a value sits on a rounding boundary (the op tests bound that to
 under 1e-3 of the elements), each such flip moves an output by one
-quantization step of its row, and without calibration the port's exact
-row-max softmax shift rounds the probabilities to bf16 at other values than
-the JAX default bound shift. Through the two blocks of the tiny model the
-largest difference measured 0.039 (a castling logit; logits reach 2.6).
+quantization step of its row, and without calibration both take the JAX
+default "bound" shift, whose sums of squares the two packages add in other
+orders. Through the two blocks of the tiny model the largest difference
+measured 0.039 (a castling logit; logits reach 2.6) when the port took the
+exact row max there.
 FENs agree on every square whose top-2 margin exceeds twice the bound."""
 
 import jax
