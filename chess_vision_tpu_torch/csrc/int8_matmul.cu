@@ -746,8 +746,9 @@ cudaError_t launch_res_ln(const CUtensorMap& map_a, const CUtensorMap& map_b,
   }
 }
 
-// gelu4 against the scalar GELU of the other kernels on n values spread over
-// signs, 40 binades and all mantissas: counts the values whose bits differ.
+// gelu4 (Gelu 3: the row quant's gelu_sigmoid_mul4) against the scalar GELU
+// of the other kernels on n values spread over signs, 40 binades and all
+// mantissas: counts the values whose bits differ.
 template <int Gelu>
 __global__ void gelu_selftest_kernel(long long n, unsigned long long* mismatches) {
   unsigned long long bad = 0;
@@ -763,9 +764,13 @@ __global__ void gelu_selftest_kernel(long long n, unsigned long long* mismatches
       const uint32_t sign = (uint32_t)(h >> 63) << 31;
       const uint32_t expo = 127u - 30u + (uint32_t)((h >> 40) % 40u);  // 2^-30 .. 2^9
       y[e] = __uint_as_float(sign | (expo << 23) | ((uint32_t)h & 0x7FFFFFu));
-      ref[e] = gelu(y[e], Gelu);
+      ref[e] = Gelu == 3 ? gelu_sigmoid_mul(y[e]) : gelu(y[e], Gelu);
     }
-    gelu4<Gelu>(y);
+    if constexpr (Gelu == 3) {
+      gelu_sigmoid_mul4(y);
+    } else {
+      gelu4<Gelu>(y);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) bad += __float_as_uint(y[e]) != __float_as_uint(ref[e]);
   }
@@ -775,15 +780,17 @@ __global__ void gelu_selftest_kernel(long long n, unsigned long long* mismatches
 }  // namespace
 
 // Runs gelu4 (the GEMM epilogue's GELU, four values a call with a branch-free
-// division) against the scalar GELU on 4 * n values; adds the number of
-// values whose bits differ to the device counter `mismatches` (u64).
+// division; gelu 3, the row quant's sigmoid form) against the scalar GELU on
+// 4 * n values; adds the number of values whose bits differ to the device
+// counter `mismatches` (u64).
 extern "C" int cvt_gelu_selftest(long long n, int gelu, void* mismatches, void* stream) {
-  if (n < 1 || gelu < kGeluErf || gelu > kGeluHard) return (int)cudaErrorInvalidValue;
+  if (n < 1 || gelu < kGeluErf || gelu > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned long long* out = static_cast<unsigned long long*>(mismatches);
   switch (gelu) {
     case kGeluSigmoid: gelu_selftest_kernel<kGeluSigmoid><<<1024, 256, 0, st>>>(n, out); break;
     case kGeluHard: gelu_selftest_kernel<kGeluHard><<<1024, 256, 0, st>>>(n, out); break;
+    case 3: gelu_selftest_kernel<3><<<1024, 256, 0, st>>>(n, out); break;
     default: gelu_selftest_kernel<kGeluErf><<<1024, 256, 0, st>>>(n, out); break;
   }
   return (int)cudaGetLastError();
@@ -849,9 +856,9 @@ extern "C" int cvt_int8_matmul(const void* xq, const void* xs, const void* w,
     case kEpiResLnQ:  // the two-launch route
       err = launch_wgmma<kWgRes>(map_a, map_b, a, st);
       if (err != cudaSuccess) return (int)err;
-      return (int)cvt::launch_rowquant(static_cast<const __nv_bfloat16*>(out), m, o,
-                                       cvt::kRowLn, static_cast<const float*>(ln_g),
-                                       static_cast<const float*>(ln_b), eps, a.yq, a.ys, st);
+      return (int)cvt::launch_rowquant_mode<cvt::kRowLn>(
+          static_cast<const __nv_bfloat16*>(out), m, o, static_cast<const float*>(ln_g),
+          static_cast<const float*>(ln_b), eps, a.yq, a.ys, st);
     default:  // kEpiGeluQ
       err = cudaMemsetAsync(a.amax, 0, 4 * (m + (m + kTileM - 1) / kTileM), st);
       if (err != cudaSuccess) return (int)err;

@@ -4,8 +4,8 @@ revision's, in turns on one card, and compare their outputs.
 Two revisions compare only inside one process on one card (rates move by
 ~10% between machines), so this builds the other revision's
 ``attention.cu``, ``attention_quant.cu``, ``attention_bwd.cu``,
-``int8_matmul.cu``, ``fused_block.cu`` and ``attention_variants.cu`` (with
-the headers beside them) into
+``int8_matmul.cu``, ``fused_block.cu``, ``attention_variants.cu`` and
+``rowquant.cu`` (with the headers beside them) into
 a second library in a temporary directory, one nvcc process per source, all
 started together, and calls both libraries through the same C interface on
 the same inputs, at the ViT-B/16 shapes of the serving and training paths.
@@ -84,6 +84,33 @@ Sections (``--sections``, all by default):
            ``reference_attention_bwd``, and whether this checkout's call is
            the same twice, bit for bit. A record of either carries its head
            dim, heads, dtype and this checkout's plan
+  legs     the int8 legs (``cvt_attention_quant_i8``: qk_int8, pv_int8
+           alone and both) of K4 at (batch, 257, 2304) and of K5 at (batch *
+           288, 2304) with 257 real rows an image: ms in the order other,
+           this, this, other, the count of codes and of scales that differ
+           from the other's, and the bound
+  k7       the row quant (``cvt_rowquant``) in every form (none, ln, gelu,
+           gelu_sigmoid, gelu_hard) at (batch * 257, 768) and (batch * 257,
+           3072): ms in the same order, the counts of differing codes and
+           scales, the bound and each time's share of it
+  legsprobes  this checkout's ``attention_quant.cu`` built again as
+           timing-only probes (``CVT_I8_PROBE``), each running one part of
+           the int8 legs twice: ``legs_coding_x2`` (the head's coding pass),
+           ``legs_walk1_x2`` (the row max), ``legs_walk2_x2`` (the row sums),
+           ``legs_last_walk_x2`` (p and P V), ``legs_epilogue_x2`` (K4's
+           epilogue); int8, int8pv and pv only at (batch, 257, 2304), ms in
+           the order this, each probe, each probe backwards, this: what a
+           probe adds is what its part costs
+  k7probes  this checkout's ``rowquant.cu`` built again as timing-only
+           probes (``CVT_K7_PROBE``) of the sigmoid GELU form's ring, each
+           with one choice changed or one part taken out: ``k7_rows_4``,
+           ``k7_rows_8``, ``k7_rows_1`` (rows a warp: 4, 8, or 1 with no
+           prefetch; this checkout: 2), ``k7_persistent`` (the resident
+           blocks' warps walk all rows at a stride), ``k7_no_recip`` (the
+           GELU without its reciprocal); at (batch * 257, 3072), with none at
+           3072 and 768 and ln at 768 beside them (forms that do not take the
+           ring: the probes leave them as they are), in the order this, each
+           probe, each probe backwards, this
   anyprobes  this checkout's ``attention_any.cu`` and ``attention_any_bwd.cu``
            built again as timing-only probes (``CVT_ANY_PROBE``,
            ``attention_any.cuh``'s ``AnyProbe``), each with one part taken
@@ -277,8 +304,9 @@ def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
     ints = [ctypes.c_int] * 4
     lib.cvt_attention_bwd.argtypes = [*[_P] * (4 if old["k3_stats"] else 3),
                                       *ints, ctypes.c_float, _P]
-    lib.cvt_int8_matmul.argtypes = _build._SIGNATURES["cvt_int8_matmul"]
-    lib.cvt_attention_fwd.argtypes = _build._SIGNATURES["cvt_attention_fwd"]
+    for name in ("cvt_int8_matmul", "cvt_attention_fwd", "cvt_attention_quant_i8",
+                 "cvt_rowquant"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
     extra = [_P] if old["k4_scratch"] else []
     for name in ("cvt_attention_quant", "cvt_attention_quant_flat"):
         getattr(lib, name).argtypes = [*extra, *_build._SIGNATURES[name]]
@@ -499,6 +527,73 @@ def variants_ab(libs: dict, variants: dict, rows: int, gen) -> list:
                        "bit_identical_to_other": same})
         print("VARIANTS", json.dumps(report[-1]), flush=True)
     return report
+
+
+_LEGS = {"int8": 1, "pv only": 2, "int8pv": 3}
+
+
+def legs_ab(libs: dict, batch: int, np_: int, legs: str, gen,
+            order=_ORDER) -> dict:
+    """K4's (np_ = 257) or K5's (np_ = 288 rows an image, 257 real) int8
+    legs, ``cvt_attention_quant_i8`` in both libraries on the same values:
+    ms in turns, the codes and scales that differ from the other's, and the
+    bound (bytes: qkv read once, codes and scales written once)."""
+    n, heads, dh = 257, 12, 64
+    D = heads * dh
+    qkv = torch.randn((batch, np_, 3 * D), device=gen.device,
+                      generator=gen).bfloat16()
+    outs = {name: (torch.empty((batch, np_, D), device=gen.device,
+                               dtype=torch.int8),
+                   torch.empty((batch, np_, 1), device=gen.device))
+            for name in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name):
+        oq, os_ = outs[name]
+        rc = libs[name].cvt_attention_quant_i8(
+            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), batch, np_, n,
+            heads, dh, dh ** -0.5, _LEGS[legs], stream)
+        _build.check(rc, f"{name}'s int8 legs")
+
+    times = in_turns({name: (lambda name=name: run(name)) for name in libs}, order)
+    nbytes = 2 * qkv.numel() + batch * np_ * (D + 4)
+    record = {"name": "K4" if np_ == n else "K5", "legs": legs,
+              "shape": list(qkv.shape), "ms": times, "bound_ms": nbytes / 3.35e12 * 1e3}
+    if "other" in libs:
+        record["codes_differ"] = int((outs["this"][0] != outs["other"][0]).sum())
+        record["scales_differ"] = int((outs["this"][1] != outs["other"][1]).sum())
+    return record
+
+
+def k7_ab(libs: dict, rows: int, d: int, mode: str, gen, order=_ORDER) -> dict:
+    """K7 (``cvt_rowquant``) in form ``mode`` on bf16 (rows, d) in both
+    libraries: ms in turns, the codes and scales that differ from the
+    other's, and the bound (bytes: x read once, codes and scales written
+    once) with each time's share of it."""
+    dev = gen.device
+    x = (torch.randn((rows, d), device=dev, generator=gen) * 2).bfloat16()
+    g = torch.rand(d, device=dev, generator=gen) + 0.5
+    b = torch.randn(d, device=dev, generator=gen) * 0.1
+    outs = {name: (torch.empty((rows, d), device=dev, dtype=torch.int8),
+                   torch.empty((rows, 1), device=dev)) for name in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name):
+        q, s = outs[name]
+        rc = libs[name].cvt_rowquant(
+            x.data_ptr(), 0, rows, d, rq.MODES[mode], g.data_ptr(),
+            b.data_ptr(), 1e-6, q.data_ptr(), s.data_ptr(), stream)
+        _build.check(rc, f"{name}'s row quant")
+
+    times = in_turns({name: (lambda name=name: run(name)) for name in libs}, order)
+    bound = (3 * rows * d + 4 * rows + 8 * d) / 3.35e12 * 1e3
+    record = {"mode": mode, "shape": [rows, d], "ms": times, "bound_ms": bound,
+              "share_of_bound": {name: [bound / t for t in ts]
+                                 for name, ts in times.items()}}
+    if "other" in libs:
+        record["codes_differ"] = int((outs["this"][0] != outs["other"][0]).sum())
+        record["scales_differ"] = int((outs["this"][1] != outs["other"][1]).sum())
+    return record
 
 
 def k14_ab(libs: dict, batch: int, fixed: bool, gen) -> dict:
@@ -838,9 +933,10 @@ def f32_ab(entries: dict, backward: bool, batch: int, gen,
 
 _SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15", "k2f32",
              "k3f32", "k3long", "k2any", "k3any", "longprobes", "f32probes",
-             "anyprobes")
+             "anyprobes", "legs", "k7", "legsprobes", "k7probes")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
-                  "int8_matmul.cu", "fused_block.cu", "attention_variants.cu")
+                  "int8_matmul.cu", "fused_block.cu", "attention_variants.cu",
+                  "rowquant.cu")
 # (batch, tokens, heads, head dim, images a block) of k15's bits-only cases
 _K15_RAGGED = ((2, 17, 2, 32, 1), (4, 65, 5, 64, 2), (2, 300, 12, 64, 2),
                (3, 257, 2, 32, 1))
@@ -860,6 +956,13 @@ _F32_PROBES = {"no_products_1": 1, "no_products_2": 2, "no_products_3": 3,
                "no_exchange": 4, "no_stats": 5}
 # this checkout's attention_any.cu and attention_any_bwd.cu built with
 # timing-only macros (attention_any.cuh's AnyProbe)
+# this checkout's attention_quant.cu and rowquant.cu built with timing-only
+# macros (CVT_I8_PROBE: one part of the int8 legs run twice; CVT_K7_PROBE:
+# one part of K7 taken out)
+_I8_PROBES = {"legs_coding_x2": 1, "legs_walk1_x2": 2, "legs_walk2_x2": 3,
+              "legs_last_walk_x2": 4, "legs_epilogue_x2": 5}
+_K7_PROBES = {"k7_rows_4": 1, "k7_rows_8": 2, "k7_rows_1": 3,
+              "k7_persistent": 4, "k7_no_recip": 5}
 _ANY_PROBES = {"any_no_scores": 1, "any_no_values": 2, "any_no_copies": 3,
                "any_no_outer": 4, "any_no_dq": 5, "any_no_exchange": 6,
                "any_no_reduce": 7}
@@ -911,6 +1014,14 @@ def main() -> int:
             jobs.update({name: (_build.CSRC_DIR, ("attention_f32.cu",),
                                 [f"-DCVT_F32_PROBE={number}"])
                          for name, number in _F32_PROBES.items()})
+        if "legsprobes" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("attention_quant.cu",),
+                                [f"-DCVT_I8_PROBE={number}"])
+                         for name, number in _I8_PROBES.items()})
+        if "k7probes" in sections:
+            jobs.update({name: (_build.CSRC_DIR, ("rowquant.cu",),
+                                [f"-DCVT_K7_PROBE={number}"])
+                         for name, number in _K7_PROBES.items()})
         if "anyprobes" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("attention_any.cu", "attention_any_bwd.cu"),
                                 [f"-DCVT_ANY_PROBE={number}"])
@@ -933,6 +1044,12 @@ def main() -> int:
             for name in _LONG_PROBES if name in paths}
         any_probes = {name: any_entries(ctypes.CDLL(paths.pop(name)), _build.CSRC_DIR)
                       for name in _ANY_PROBES if name in paths}
+        probe_libs = {}
+        for name in (*_I8_PROBES, *_K7_PROBES):
+            if name in paths:
+                probe_libs[name] = ctypes.CDLL(paths.pop(name))
+                entry = "cvt_rowquant" if name in _K7_PROBES else "cvt_attention_quant_i8"
+                getattr(probe_libs[name], entry).argtypes = _build._SIGNATURES[entry]
         variants = {name: load_gemm_variant(path) for name, path in paths.items()}
         rows = args.batch * 257
         for dh in dims if "k2" in sections else ():
@@ -965,6 +1082,31 @@ def main() -> int:
             for fixed in (False, True):
                 report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
                 print("K14", json.dumps(report["k14"][-1]), flush=True)
+        if "legs" in sections:
+            for np_ in (257, 288):
+                for legs in _LEGS:
+                    report["legs"].append(legs_ab(libs, args.batch, np_, legs, gen))
+                    print("LEGS", json.dumps(report["legs"][-1]), flush=True)
+        if "k7" in sections:
+            for d in (768, 3072):
+                for mode in rq.MODES:
+                    report["k7"].append(k7_ab(libs, rows, d, mode, gen))
+                    print("K7", json.dumps(report["k7"][-1]), flush=True)
+        if "legsprobes" in sections:
+            order = ["this", *_I8_PROBES, *reversed(_I8_PROBES), "this"]
+            both = {"this": libs["this"], **{k: probe_libs[k] for k in _I8_PROBES}}
+            for legs in ("int8", "int8pv", "pv only"):
+                report["legsprobes"].append(
+                    {"order": order, **legs_ab(both, args.batch, 257, legs, gen, order)})
+                print("LEGSPROBES", json.dumps(report["legsprobes"][-1]), flush=True)
+        if "k7probes" in sections:
+            order = ["this", *_K7_PROBES, *reversed(_K7_PROBES), "this"]
+            both = {"this": libs["this"], **{k: probe_libs[k] for k in _K7_PROBES}}
+            for d, mode in ((3072, "gelu_sigmoid"), (3072, "none"), (768, "none"),
+                            (768, "ln")):
+                report["k7probes"].append(
+                    {"order": order, **k7_ab(both, rows, d, mode, gen, order)})
+                print("K7PROBES", json.dumps(report["k7probes"][-1]), flush=True)
         if "k15" in sections:
             for name in av.VARIANTS:
                 report["k15"].append(k15_ab(libs, old["k15_scratch"], name,

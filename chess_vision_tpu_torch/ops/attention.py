@@ -95,6 +95,8 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
 BWD_SHORT_MAX_HEAD_DIM = 64  # attention_bwd.cu's largest instantiation
 QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
+# kMaxSmem there: the int8 legs keep a head's codes in a block's shared memory
+I8_MAX_SMEM = 232448
 _MAX_GRID_YZ = 65535
 # The f32 kernels' cluster (csrc/attention_f32.cuh): a CTA holds at most
 # F32_CTA_KEYS keys (kCtaKeys: 4 warps of 16), a cluster at most
@@ -763,10 +765,16 @@ def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
     stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(qkv.device):
         if qk_int8 or pv_int8:
+            legs = int(qk_int8) | 2 * int(pv_int8)
+            smem = lib.cvt_attention_quant_i8_smem(n_real, head_dim, legs)
+            if not 0 < smem <= I8_MAX_SMEM:
+                raise ValueError(
+                    f"the int8 legs hold a head's codes in shared memory: "
+                    f"{n_real} keys at head dim {head_dim} need {smem} bytes, "
+                    f"more than a block's {I8_MAX_SMEM}")
             rc = lib.cvt_attention_quant_i8(
                 qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images, np_,
-                n_real, num_heads, head_dim, scale,
-                int(qk_int8) | 2 * int(pv_int8), stream)
+                n_real, num_heads, head_dim, scale, legs, stream)
         else:
             kind, fixed = _shift(shift_mode, softmax_shift, head_dim)
             mode = SHIFT_MODES[kind] + (_EXP_BF16_FLAG if exp_bf16 else 0)

@@ -262,19 +262,26 @@ def res_route(o: int, epilogue: str = "res_ln_quant", device="cuda") -> dict:
             "count": info[2], "smem_bytes": info[3]}
 
 
+# the forms gelu_selftest takes: the epilogue's, and the row quant's (K7)
+# sigmoid GELU x * (1 / d)
+SELFTEST_GELUS = {**GELUS, "sigmoid_mul": 3}
+
+
 def gelu_selftest(n: int, gelu: str = "sigmoid", device="cuda") -> int:
-    """On the card: the GEMM epilogue's four-at-a-time GELU (branch-free
-    division) against the scalar GELU of the other kernels on 4 * n values;
-    returns how many differ in any bit (0 is the contract)."""
-    if gelu not in GELUS:
-        raise ValueError(f"unknown gelu {gelu!r}; expected one of {list(GELUS)}")
+    """On the card: the four-at-a-time GELU with the branch-free division
+    (the GEMM epilogue's; ``sigmoid_mul``, the row quant's sigmoid form)
+    against the scalar GELU of the other kernels on 4 * n values; returns how
+    many differ in any bit (0 is the contract)."""
+    if gelu not in SELFTEST_GELUS:
+        raise ValueError(f"unknown gelu {gelu!r}; expected one of "
+                         f"{list(SELFTEST_GELUS)}")
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     bad = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.cvt_gelu_selftest(n, GELUS[gelu], bad.data_ptr(),
+        rc = lib.cvt_gelu_selftest(n, SELFTEST_GELUS[gelu], bad.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "gelu self-test")
     return int(bad.item())

@@ -55,9 +55,13 @@ def gelu_hard(x: torch.Tensor) -> torch.Tensor:
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 (..., D) -> (int8 (..., D), f32 (..., 1)): symmetric per-row
-    abs-max quantization, rounding half to even, amax floored at 1e-8."""
+    abs-max quantization, rounding half to even, amax floored at 1e-8. The
+    codes take the quotient fl(127 / amax), as the JAX kernel and the CUDA
+    kernels do: PyTorch evaluates ``127.0 / amax`` as fl(1 / amax) * 127,
+    which is one unit off it for a quarter of all amax."""
     amax = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
-    q = torch.round(x * (127.0 / amax)).clamp(-127, 127).to(torch.int8)
+    inv = torch.full_like(amax, 127.0) / amax
+    q = torch.round(x * inv).clamp(-127, 127).to(torch.int8)
     return q, amax * (1.0 / 127.0)
 
 

@@ -1085,10 +1085,18 @@ def int8_kernel_phases(dev, kernels: dict) -> None:
             nbytes=3 * M * D + 4 * M + 8 * D, ops=8 * M * D, op_type="f32")
         print(f"[6 K6/K7] row quant ({M}, {D}) {mode}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']})", flush=True)
+              f"({entry['bound_by']}): {entry['bound_ms'] / ms:.3f} of it",
+              flush=True)
         if mode == "ln":
             kernels["fused_rowquant"] = entry
         del x, q, s, rq_, rs
+
+    # K7's sigmoid GELU, four values a call with the branch-free reciprocal
+    bad = mm.gelu_selftest(1 << 26, "sigmoid_mul")
+    print(f"  [6 K6/K7] the row quant's sigmoid GELU, four values a call with a "
+          f"branch-free division, vs the scalar GELU on {4 << 26} values: {bad} "
+          f"differ in a bit", flush=True)
+    require(bad == 0, f"the row quant's sigmoid GELU differs in {bad} values")
 
     # exact ties: with the row's abs-max at 127 each code is its value, so
     # k + 0.5 must round half to even (as jnp.round), not away from zero
@@ -4791,7 +4799,12 @@ def mode_kernel_checks(args, dev, kernels: dict) -> dict:
     for width, mode in ((768, "none"), (3072, "gelu_sigmoid")):
         x = (torch.randn((M, width), device=dev, generator=gen) * 2).bfloat16()
         what = f"[27a K7] row quant ({M}, {width}) {mode}"
-        codes_check(what, *rq.fused_rowquant(x, mode), *rq.rowquant_plain(x, mode))
+        q, s, rq_, rs = *rq.fused_rowquant(x, mode), *rq.rowquant_plain(x, mode)
+        codes_check(what, q, s, rq_, rs)
+        if mode == "none":  # no pre-op: the same quotient, the same bits
+            require(torch.equal(q, rq_) and torch.equal(s, rs),
+                    f"{what}: not bit-equal to its plain version")
+        del q, s, rq_, rs
         ms = cuda_ms(lambda: rq.fused_rowquant(x, mode), 20)
         bound = (3 * M * width + 4 * M) / HBM_BYTES_PER_S * 1e3
         times[("K7", mode)] = ms

@@ -160,7 +160,8 @@ def k8_scheme(xq, xs, wq, ws, bias, gelu: str):
             kept[n0] = fn(acc.float() * xs[rows] * ws[n0:n0 + tile_n]
                           + bias[n0:n0 + tile_n])
             amax[rows] = torch.maximum(amax[rows], kept[n0].abs().amax(dim=1))
-        inv = 127.0 / amax[rows].clamp_min(1e-8)
+        amax_rows = amax[rows].clamp_min(1e-8)
+        inv = torch.full_like(amax_rows, 127.0) / amax_rows
         for n0, tile in kept.items():
             codes = torch.round(tile * inv[:, None]).clamp(-127, 127)
             yq[rows, n0:n0 + tile_n] = codes.to(torch.int8)
