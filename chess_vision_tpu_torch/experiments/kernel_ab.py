@@ -293,20 +293,24 @@ def ptxas_counts(log: str) -> dict:
 def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
     """The other revision's library; which older interfaces it has
     (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
-    take the f32 scratch; ``k15_scratch``: K15 takes it)."""
+    take the f32 scratch; ``k15_scratch``: K15 takes it; ``i8_no_route``: the
+    int8 legs' entry takes no route, the short route its only one)."""
+    quant_src = os.path.join(csrc, "attention_quant.cu")
     old = {"k3_stats": _param_count(os.path.join(csrc, "attention_bwd.cu"),
                                     "cvt_attention_bwd") == 10,
-           "k4_scratch": _param_count(os.path.join(csrc, "attention_quant.cu"),
-                                      "cvt_attention_quant") == 12,
+           "k4_scratch": _param_count(quant_src, "cvt_attention_quant") == 12,
            "k15_scratch": _param_count(os.path.join(csrc, "attention_variants.cu"),
-                                       "cvt_attention_variant") == 13}
+                                       "cvt_attention_variant") == 13,
+           "i8_no_route": _param_count(quant_src, "cvt_attention_quant_i8") == 11}
     lib = ctypes.CDLL(lib_path)
     ints = [ctypes.c_int] * 4
     lib.cvt_attention_bwd.argtypes = [*[_P] * (4 if old["k3_stats"] else 3),
                                       *ints, ctypes.c_float, _P]
-    for name in ("cvt_int8_matmul", "cvt_attention_fwd", "cvt_attention_quant_i8",
-                 "cvt_rowquant"):
+    for name in ("cvt_int8_matmul", "cvt_attention_fwd", "cvt_rowquant"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
+    i8 = _build._SIGNATURES["cvt_attention_quant_i8"]
+    lib.cvt_attention_quant_i8.argtypes = (i8[:-2] + i8[-1:] if old["i8_no_route"]
+                                           else i8)
     extra = [_P] if old["k4_scratch"] else []
     for name in ("cvt_attention_quant", "cvt_attention_quant_flat"):
         getattr(lib, name).argtypes = [*extra, *_build._SIGNATURES[name]]
@@ -533,11 +537,12 @@ _LEGS = {"int8": 1, "pv only": 2, "int8pv": 3}
 
 
 def legs_ab(libs: dict, batch: int, np_: int, legs: str, gen,
-            order=_ORDER) -> dict:
+            order=_ORDER, no_route: tuple = ()) -> dict:
     """K4's (np_ = 257) or K5's (np_ = 288 rows an image, 257 real) int8
-    legs, ``cvt_attention_quant_i8`` in both libraries on the same values:
-    ms in turns, the codes and scales that differ from the other's, and the
-    bound (bytes: qkv read once, codes and scales written once)."""
+    legs, ``cvt_attention_quant_i8`` in both libraries on the same values
+    (the short route; ``no_route`` names the libraries whose entry takes no
+    route): ms in turns, the codes and scales that differ from the other's,
+    and the bound (bytes: qkv read once, codes and scales written once)."""
     n, heads, dh = 257, 12, 64
     D = heads * dh
     qkv = torch.randn((batch, np_, 3 * D), device=gen.device,
@@ -550,9 +555,10 @@ def legs_ab(libs: dict, batch: int, np_: int, legs: str, gen,
 
     def run(name):
         oq, os_ = outs[name]
+        route = () if name in no_route else (0,)
         rc = libs[name].cvt_attention_quant_i8(
             qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), batch, np_, n,
-            heads, dh, dh ** -0.5, _LEGS[legs], stream)
+            heads, dh, dh ** -0.5, _LEGS[legs], *route, stream)
         _build.check(rc, f"{name}'s int8 legs")
 
     times = in_turns({name: (lambda name=name: run(name)) for name in libs}, order)
@@ -996,6 +1002,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         f32 = {"k2f32", "k3f32"} & set(sections)
         sources = list(_OTHER_SOURCES) + (["attention_f32.cu"] if f32 else [])
+        if os.path.exists(os.path.join(args.other_csrc, "attention_quant_long.cu")):
+            sources.append("attention_quant_long.cu")  # the int8 legs' long route
         if "k3long" in sections or ("k3" in sections and set(dims) != {64}):
             sources += [os.path.basename(_defining_source(args.other_csrc, name))
                         for name in _LONG_ENTRIES]
@@ -1015,7 +1023,8 @@ def main() -> int:
                                 [f"-DCVT_F32_PROBE={number}"])
                          for name, number in _F32_PROBES.items()})
         if "legsprobes" in sections:
-            jobs.update({name: (_build.CSRC_DIR, ("attention_quant.cu",),
+            jobs.update({name: (_build.CSRC_DIR,
+                                ("attention_quant.cu", "attention_quant_long.cu"),
                                 [f"-DCVT_I8_PROBE={number}"])
                          for name, number in _I8_PROBES.items()})
         if "k7probes" in sections:
@@ -1085,7 +1094,9 @@ def main() -> int:
         if "legs" in sections:
             for np_ in (257, 288):
                 for legs in _LEGS:
-                    report["legs"].append(legs_ab(libs, args.batch, np_, legs, gen))
+                    report["legs"].append(legs_ab(
+                        libs, args.batch, np_, legs, gen,
+                        no_route=("other",) if old["i8_no_route"] else ()))
                     print("LEGS", json.dumps(report["legs"][-1]), flush=True)
         if "k7" in sections:
             for d in (768, 3072):

@@ -72,8 +72,8 @@ _SIGNATURES = {
                                  ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                  _P],
     "cvt_attention_quant_i8": [_P, _P, _P, *[ctypes.c_int] * 5,
-                               ctypes.c_float, ctypes.c_int, _P],
-    "cvt_attention_quant_i8_smem": [ctypes.c_int] * 3,
+                               ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    "cvt_attention_quant_i8_smem": [ctypes.c_int] * 4,
     "cvt_attention_quant_max_clusters": [ctypes.c_int, ctypes.c_int],
     "cvt_attention_variant": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,

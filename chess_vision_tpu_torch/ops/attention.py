@@ -50,7 +50,9 @@ exchange their row maxima on chip, so at most ``QUANT_MAX_HEADS`` heads);
 function's modes: the softmax shift (``shift_mode``: "bound", the JAX
 default without a calibrated shift, |q_i| max_j |k_j| - 45 per row and
 head; "fixed"; "max"), the bf16 exp and the int8 legs (``qk_int8``,
-``pv_int8``: the kernel's second entry, ``cvt_attention_quant_i8``).
+``pv_int8``: the kernel's second entry, ``cvt_attention_quant_i8``, on two
+routes by ``i8_plan``: a head's codes in a block's shared memory, or past
+it the head streamed in key tiles, ``csrc/attention_quant_long.cu``).
 ``fused_qkv_attention_quant_flat`` (K5) is the same on the ``"flat"`` int8
 layout's (images * NP, 3*H*Dh) stream, whose token axis is padded to NP rows
 per image: keys at token index >= ``n_real`` are masked out of the softmax.
@@ -80,6 +82,7 @@ F32_LAUNCHES = 0  # of the f32 forward kernel (csrc/attention_f32.cu)
 F32_BWD_LAUNCHES = 0  # of the f32 backward, one a call on either route
 F32_BWD_LONG_LAUNCHES = 0  # of F32_BWD_LAUNCHES, those of the long route
 QUANT_I8_LAUNCHES = 0  # of QUANT_LAUNCHES and FLAT_LAUNCHES, the int8 legs'
+QUANT_I8_LONG_LAUNCHES = 0  # of QUANT_I8_LAUNCHES, those of the long route
 ANY_LAUNCHES = 0  # of LAUNCHES and F32_LAUNCHES, csrc/attention_any.cu's
 ANY_BWD_LAUNCHES = 0  # of BWD_LAUNCHES and F32_BWD_LAUNCHES, the same
 
@@ -95,8 +98,16 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_TOKENS = 288  # kMaxN in csrc/attention_bwd.cu
 BWD_SHORT_MAX_HEAD_DIM = 64  # attention_bwd.cu's largest instantiation
 QUANT_MAX_HEADS = 16  # kMaxHeads in csrc/attention_quant.cu
-# kMaxSmem there: the int8 legs keep a head's codes in a block's shared memory
+# kMaxSmem there: the int8 legs' short route keeps a head's codes in a
+# block's shared memory up to this many bytes; past them the long route
+# streams the head in key tiles (``i8_plan``). Its layout's constants:
+# kRows query rows a chunk, kStages tiles in the ring, kFlashKTile keys a tile
+# (csrc/attention_quant_i8.cuh, attention_loop.cuh).
 I8_MAX_SMEM = 232448
+I8_ROUTES = ("short", "long")  # cvt_attention_quant_i8's route, by index
+_I8_ROWS = 96
+_I8_STAGES = 2
+_KEY_TILE = 64
 _MAX_GRID_YZ = 65535
 # The f32 kernels' cluster (csrc/attention_f32.cuh): a CTA holds at most
 # F32_CTA_KEYS keys (kCtaKeys: 4 warps of 16), a cluster at most
@@ -755,26 +766,56 @@ def _check_quant_shape(D: int, num_heads: int) -> None:
                          "every head of a row chunk)")
 
 
+def i8_plan(n_keys: int, head_dim: int, legs: int) -> tuple[str, int]:
+    """The int8 legs' route for a head of ``n_keys`` keys at ``head_dim``
+    (16, 32 or 64) and its block's shared memory in bytes; ``legs`` as the
+    C entry takes them: 1 qk_int8, 2 pv_int8, 3 both.
+
+    ``"short"`` (``attention_quant_i8_kernel``) where the head's codes, or a
+    bf16 leg's rows, fit a block's ``I8_MAX_SMEM`` bytes (``I8Layout``: K and
+    V over the keys rounded up to 32, the chunk's output codes, V's column
+    scales and maxima, the epilogue's row maxima): at head dim 64 up to 960
+    keys under qk_int8 alone, 1,056 under pv_int8 alone, 1,504 under both.
+    ``"long"`` (``attention_quant_i8_long_kernel``) past them, for any key
+    count: the ring of bf16 K and V tiles and one tile's codes in place of
+    the head (``I8LongLayout``), the same bytes at every length."""
+    if legs not in (1, 2, 3):
+        raise ValueError(f"legs {legs}: 1 (qk_int8), 2 (pv_int8) or 3 (both)")
+    qk, pv = bool(legs & 1), bool(legs & 2)
+    row = 2 * (head_dim + 8)  # a bf16 row in shared memory
+    tail = (_I8_ROWS * head_dim + 2 * _I8_ROWS * 4
+            + (5 * head_dim * 4 if pv else 0))
+    kp = -(-n_keys // 32) * 32
+    vld = kp + 32 if kp % 64 == 0 else kp
+    short = ((kp * (head_dim + 20) if qk else kp * row)
+             + (head_dim * vld if pv else kp * row) + tail)
+    if short <= I8_MAX_SMEM:
+        return "short", short
+    return "long", (2 * _I8_STAGES * _KEY_TILE * row
+                    + (_KEY_TILE * (head_dim + 20) if qk else 0)
+                    + (head_dim * (_KEY_TILE + 32) if pv else 0) + tail)
+
+
 def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
                   num_heads: int, head_dim: int, softmax_shift, shift_mode,
-                  qk_int8: bool, pv_int8: bool, exp_bf16: bool, what: str):
+                  qk_int8: bool, pv_int8: bool, exp_bf16: bool, what: str,
+                  route: str | None = None):
     """Launch K4 (np_ = n_real = the rows per image) or K5 on qkv into the
-    codes oq and scales os_."""
+    codes oq and scales os_. The int8 legs take ``i8_plan``'s route;
+    ``route`` forces one (the card tests compare the two routes bit for
+    bit), and the C entry refuses a short route that does not fit."""
     scale = 1.0 / math.sqrt(head_dim)
     lib = _build.library()
     stream = torch.cuda.current_stream().cuda_stream
+    legs = int(qk_int8) | 2 * int(pv_int8)
+    if legs:
+        route = route or i8_plan(n_real, head_dim, legs)[0]
     with torch.cuda.device(qkv.device):
-        if qk_int8 or pv_int8:
-            legs = int(qk_int8) | 2 * int(pv_int8)
-            smem = lib.cvt_attention_quant_i8_smem(n_real, head_dim, legs)
-            if not 0 < smem <= I8_MAX_SMEM:
-                raise ValueError(
-                    f"the int8 legs hold a head's codes in shared memory: "
-                    f"{n_real} keys at head dim {head_dim} need {smem} bytes, "
-                    f"more than a block's {I8_MAX_SMEM}")
+        if legs:
             rc = lib.cvt_attention_quant_i8(
                 qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images, np_,
-                n_real, num_heads, head_dim, scale, legs, stream)
+                n_real, num_heads, head_dim, scale, legs,
+                I8_ROUTES.index(route), stream)
         else:
             kind, fixed = _shift(shift_mode, softmax_shift, head_dim)
             mode = SHIFT_MODES[kind] + (_EXP_BF16_FLAG if exp_bf16 else 0)
@@ -787,9 +828,10 @@ def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
                     qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images,
                     np_, n_real, num_heads, head_dim, scale, fixed, mode,
                     stream)
-    _build.check(rc, what)
-    global QUANT_I8_LAUNCHES
-    QUANT_I8_LAUNCHES += bool(qk_int8 or pv_int8)
+    _build.check(rc, what + (f" (int8 legs, {route} route)" if legs else ""))
+    global QUANT_I8_LAUNCHES, QUANT_I8_LONG_LAUNCHES
+    QUANT_I8_LAUNCHES += bool(legs)
+    QUANT_I8_LONG_LAUNCHES += bool(legs) and route == "long"
 
 
 def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
@@ -804,7 +846,11 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     default, "fixed" or "max"); qk_int8 / pv_int8 (``CHESS_VISION_ATTN_QK``
     int8 / int8pv) run the int8 legs; exp_bf16 (``CHESS_VISION_ATTN_EXP``)
     the bf16 exp. A CPU tensor takes ``reference_attention_quant``; a CUDA
-    tensor launches the kernel (bf16, head dim 16, 32 or 64) or raises."""
+    tensor launches the kernel (bf16, head dim 16, 32 or 64) or raises. The
+    int8 legs take any token count, on one of two routes of the same
+    arithmetic (``i8_plan``): a head's codes held in a block's shared memory
+    where they fit, else the head streamed through it in 64-key tiles, coded
+    as they land; the two give the same bits."""
     if qkv.device.type == "cpu":
         return reference_attention_quant(qkv, num_heads, softmax_shift,
                                          shift_mode, qk_int8, pv_int8,
@@ -870,7 +916,9 @@ def fused_qkv_attention_quant_flat(qkv: torch.Tensor, images: int,
     layout. Each image holds NP rows of which the first ``n_real`` are
     tokens; keys at index >= n_real take no part in any row's softmax.
 
-    The keywords as for ``fused_qkv_attention_quant``. A CPU tensor takes
+    The keywords as for ``fused_qkv_attention_quant``; the int8 legs take
+    its two routes by ``n_real`` (``i8_plan``), V's column scales over all NP
+    rows of an image on either. A CPU tensor takes
     ``reference_attention_quant_flat``; a CUDA tensor launches the kernel
     (bf16, head dim 16, 32 or 64) or raises."""
     if qkv.device.type == "cpu":

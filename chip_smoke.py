@@ -347,13 +347,39 @@ Phases, one line each; any failure exits non-zero before the last line:
              bound on block 0 against its plain version and bit-identical to
              the split chain, timed in turns with a fixed shift. Every kernel
              time by (kernel, mode) and the phase's seconds.
- 28. report  the kernels JSON line (every kernel with its bound and, where
+ 28. long legs  the int8 legs' long route (``attention_quant_long.cu``:
+             the head streamed through shared memory in 64-key tiles, past
+             the short route's shared memory). (a) K4 and K5 in the three
+             forms (int8, pv only, int8pv) at head dim 64 on 2 images of
+             961, 1,057, 1,505, 1,601 and 2,305 keys (2-12 heads) and at
+             head dims 16 and 32 just past qk_int8's limit (2,721 and 1,729
+             keys), each on ``i8_plan``'s route with one launch a call
+             counted on it, against their plain versions within
+             ATTN_LEVELS steps (K5 at 1,601 keys with padded V rows nine
+             times the real ones, which V's column scales see); the two
+             routes bit for bit at 257 keys (every form) and 1,504 (both
+             legs). (b) K4 at (256, 1601, 2304) and K5 at (256 * 1632,
+             2304) in the three forms, times by CUDA events beside the bound
+             (the products and the bytes) and the plain version's time on
+             LONG_CHECK images, the first LONG_CHECK images against it;
+             the two routes in turns at (256, 257, 2304); ptxas's
+             registers and spills of every long instantiation. (c)
+             ViT-B/16 served in int8 at 640 px (1,601 tokens), random
+             weights, 2 batches of 256 boards a mode, uncalibrated: the
+             bound in the block layout (K4's own kernel, no legs), then
+             CHESS_VISION_ATTN_QK int8 and int8pv in the block (K4) and flat
+             (K5, 1,632 rows an image) layouts, each checked as phase 27b
+             checks a mode on LONG_CHECK boards, 12 legs launches a batch,
+             every one on the long route; boards/s of each; the fused
+             layout under int8pv serves one batch as the block layout. The
+             phase's seconds.
+ 29. report  the kernels JSON line (every kernel with its bound and, where
              one PyTorch call computes the same function, that call's time;
              every kernel must have been launched by a main path: K3's long
              routes by phase 24's, the head dims 80 and 128 by phase 25's,
              the any-head-dim kernels by phase 26's, the int8 legs and K8's
-             bf16 epilogue by phase 27's), the nvidia-smi line, then
-             {"ok": true, "device": {...}}.
+             bf16 epilogue by phase 27's, the legs' long route by phase
+             28's), the nvidia-smi line, then {"ok": true, "device": {...}}.
 
 Bounds: ``bound_ms`` is the larger of the bytes a call must move (inputs
 read once, outputs written once) over 3.35 TB/s and its operations over the
@@ -919,20 +945,21 @@ def main() -> int:
         head_dims_phase(args, kernels, kind, smi, workdir)
         any_head_dims_phase(args, kernels, kind, smi, workdir)
         int8_modes_phase(args, cfg, params, kernels, kind, smi)
+        long_legs_phase(args, kernels, kind, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return report(kernels, kind, smi, started)
 
 
 def report(kernels: dict, kind: str, smi: str, started: float) -> int:
-    """Phase 28: the kernels line, the card and the last line."""
+    """Phase 29: the kernels line, the card and the last line."""
     import torch
 
     idle = [k["name"] for k in kernels.values() if k["launches"] < 1]
     require(not idle, f"kernels that no path launched: {idle}")
     if FAILED:
         raise SmokeFailure(f"{len(FAILED)} checks failed: {FAILED}")
-    print(f"[28 report] {time.perf_counter() - started:.1f} s in all, the build "
+    print(f"[29 report] {time.perf_counter() - started:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
@@ -2181,15 +2208,18 @@ def k3_work(n: int, head_dim: int) -> str:
             f"{smem} bytes of shared memory per block")
 
 
-def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None) -> str:
+def ptxas_counts(kernel: str, head_dim: int, variant: int | None = None,
+                 flags: tuple = ()) -> str:
     """ptxas's registers and spills of one instantiation of a kernel (K15's
-    of one variant, K3's long and f32 backward of one mode), from this
-    process's build (empty when an up-to-date library was reused)."""
+    of one variant, K3's long and f32 backward of one mode, the int8 legs'
+    of their bool template arguments ``flags``), from this process's build
+    (empty when an up-to-date library was reused)."""
     import re
 
     from chess_vision_tpu_torch.ops import _build
 
     args = f"ILi{head_dim}E" if variant is None else f"ILi{head_dim}ELi{variant}E"
+    args += "".join(f"Lb{int(f)}E" for f in flags)
     found = re.search(
         rf"Compiling entry function '[^']*{kernel}{args}[^']*'.*?"
         rf"(\d+) bytes spill stores.*?Used (\d+) registers", _build.build_log,
@@ -4832,13 +4862,16 @@ def mode_want(layout: str, depth: int, batches: int) -> dict:
 
 
 def mode_path_check(tag: str, args, dev, cfg, params, boards, layout: str,
-                    env: dict, kernels: dict, times: dict) -> None:
+                    env: dict, kernels: dict, times: dict, check: int = BATCH,
+                    long_entry: str | None = None) -> None:
     """Phase 27b: one Predictor(quant="int8") under ``env``, uncalibrated:
     two batches served with the counts set to 0 just before and read just
-    after; one batch with every int8 kernel call against its plain version
-    (``path_op_checks``) and the logits against the plain path's
-    (``INT8_SQUARES_ULPS``); the fused layout's first K14 on its path's
-    block against its plain version and the split chain."""
+    after; ``check`` boards (a batch) with every int8 kernel call against
+    its plain version (``path_op_checks``) and the logits against the plain
+    path's (``INT8_SQUARES_ULPS``); the fused layout's first K14 on its
+    path's block against its plain version and the split chain. The int8
+    legs' launches count in the short route's kernels entry, or with
+    ``long_entry`` (phase 28) every one on the long route, in that entry."""
     import torch
 
     from chess_vision_tpu_torch.experiments.plain import (forward_logits,
@@ -4849,11 +4882,14 @@ def mode_path_check(tag: str, args, dev, cfg, params, boards, layout: str,
     from chess_vision_tpu_torch.ops import quant
     from chess_vision_tpu_torch.serve import Predictor
 
+    def build(batch: int):
+        with mock.patch.dict(os.environ, {"CHESS_VISION_INT8_LAYOUT": layout,
+                                          **env}):
+            return Predictor((cfg, params), batch_size=batch, device=dev,
+                             quant="int8")
+
     t0 = time.perf_counter()
-    with mock.patch.dict(os.environ, {"CHESS_VISION_INT8_LAYOUT": layout,
-                                      **env}):
-        predictor = Predictor((cfg, params), batch_size=BATCH, device=dev,
-                              quant="int8")
+    predictor = build(BATCH)
     want_modes = quant.Int8Modes(
         env.get("CHESS_VISION_ATTN_SOFTMAX", "bound"),
         env.get("CHESS_VISION_ATTN_QK", "bf16"),
@@ -4869,37 +4905,45 @@ def mode_path_check(tag: str, args, dev, cfg, params, boards, layout: str,
     depth = cfg["model"]["depth"]
     batches = math.ceil(len(boards) / BATCH)
     reset_counts()
-    attn_ops.QUANT_I8_LAUNCHES = mm.BF16_EPILOGUE_LAUNCHES = 0
+    attn_ops.QUANT_I8_LAUNCHES = attn_ops.QUANT_I8_LONG_LAUNCHES = 0
+    mm.BF16_EPILOGUE_LAUNCHES = 0
     t0 = time.perf_counter()
     fens = predictor.predict_array(boards)
     rate = len(boards) / (time.perf_counter() - t0)
     launches = int8_counts()
     legs, epilogue = attn_ops.QUANT_I8_LAUNCHES, mm.BF16_EPILOGUE_LAUNCHES
+    long = attn_ops.QUANT_I8_LONG_LAUNCHES
     want = (mode_want(layout, depth, batches) if layout in ("hybrid", "xla")
             else int8_want(layout, depth, batches))
     want_legs = depth * batches if "CHESS_VISION_ATTN_QK" in env else 0
+    want_long = want_legs if long_entry else 0
     want_epilogue = depth * batches if "CHESS_VISION_EPILOGUE" in env else 0
     print(f"{tag} {len(boards)} boards in {batches} batches of {BATCH}: "
-          f"launches {launches}, int8 legs {legs}, bf16 epilogue {epilogue}; "
-          f"{rate:.1f} boards/s (one run; set-up {setup_s:.1f} s)", flush=True)
-    require(launches == want and legs == want_legs
+          f"launches {launches}, int8 legs {legs} ({long} on the long route), "
+          f"bf16 epilogue {epilogue}; {rate:.1f} boards/s (one run; set-up "
+          f"{setup_s:.1f} s)", flush=True)
+    require(launches == want and legs == want_legs and long == want_long
             and epilogue == want_epilogue,
-            f"{tag} launch counts {launches}, legs {legs}, epilogue "
-            f"{epilogue}; want {want}, {want_legs}, {want_epilogue}")
+            f"{tag} launch counts {launches}, legs {legs}, long {long}, "
+            f"epilogue {epilogue}; want {want}, {want_legs}, {want_long}, "
+            f"{want_epilogue}")
     if legs:
-        kernels["fused_qkv_attention_quant_i8"]["launches"] += legs
+        kernels[long_entry or "fused_qkv_attention_quant_i8"]["launches"] += legs
     if epilogue:
         kernels["int8_matmul_gelu_quant_bf16"]["launches"] += epilogue
 
-    worst = path_op_checks(predictor, boards[:BATCH])
-    print(f"{tag} each kernel call of one batch vs its plain version (worst "
-          f"per op): {worst}", flush=True)
+    worst = path_op_checks(predictor, boards[:check])
+    print(f"{tag} each kernel call of {check} boards vs its plain version "
+          f"(worst per op): {worst}", flush=True)
     require_path_ops(worst, tag, predictor.int8_modes.attn_exp == "bf16")
-    logits_k = forward_logits(predictor, boards[:BATCH])
+    logits_k = forward_logits(predictor, boards[:check])
+    # the plain FENs from a Predictor of `check` boards a batch: served at
+    # BATCH, the padded batch's plain scores would not fit the card at 640 px
+    checker = predictor if check == BATCH else build(check)
     with plain_int8_ops(), plain_ops(attn_ops, pre_ops):
-        logits_p = forward_logits(predictor, boards[:BATCH])
-        fens_plain = predictor.predict_array(boards[:BATCH])
-    require_logits(tag, fens[:BATCH], fens_plain, logits_k, logits_p,
+        logits_p = forward_logits(predictor, boards[:check])
+        fens_plain = checker.predict_array(boards[:check])
+    require_logits(tag, fens[:check], fens_plain, logits_k, logits_p,
                    INT8_SQUARES_ULPS)
     if layout == "fused":
         fused_bound_check(tag, args, predictor, kernels, times)
@@ -4962,6 +5006,285 @@ def int8_modes_phase(args, cfg, params, kernels: dict, kind: str,
           f"{ {f'{k} {m}': round(v, 4) for (k, m), v in times.items()} }; "
           f"{kind}, {smi}", flush=True)
     print(f"[27 modes] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# Phase 28 (a): K4 and K5 on the int8 legs at head dim 64, (keys, heads) of 2
+# images: just past each form's short-route limit (960, 1,056 and 1,504 keys)
+# and ViT-B/16 at 640 and 768 px (1,601 and 2,305 tokens); and just past
+# qk_int8's limit at head dims 16 and 32, (head dim, keys) on 3 heads
+LONG_CASES = ((961, 2), (1057, 3), (1505, 4), (1601, 12), (2305, 2))
+LONG_DIMS = ((16, 2721), (32, 1729))
+LEG_FORMS = ATTN_MODES[4:]  # int8, pv only, int8pv
+# (b) and (c): ViT-B/16 served at 640 px, 1,601 tokens; the plain versions
+# on this many images or boards (the plain scores of 16 images are 2 GB in
+# f32, 4 GB for the f64 products)
+LONG_SIZE = 640
+LONG_CHECK = 16
+# (c)'s Predictors, uncalibrated: (tag, layout, variables, the kernels entry
+# of their int8 legs' launches)
+LONG_PATHS = (
+    ("block bound", "block", {}, None),
+    ("block int8", "block", {"CHESS_VISION_ATTN_QK": "int8"},
+     "fused_qkv_attention_quant_i8_long"),
+    ("block int8pv", "block", {"CHESS_VISION_ATTN_QK": "int8pv"},
+     "fused_qkv_attention_quant_i8_long"),
+    ("flat int8", "flat", {"CHESS_VISION_ATTN_QK": "int8"},
+     "fused_qkv_attention_quant_flat_i8_long"),
+    ("flat int8pv", "flat", {"CHESS_VISION_ATTN_QK": "int8pv"},
+     "fused_qkv_attention_quant_flat_i8_long"),
+)
+
+
+def leg_bits(kw: dict) -> int:
+    """The int8 legs of the quantizing attention's keywords, as the C entry
+    numbers them: 1 qk_int8, 2 pv_int8, 3 both."""
+    return int(kw.get("qk_int8", False)) | 2 * int(kw.get("pv_int8", False))
+
+
+def forced_route(qkv, images: int, n_real: int, heads: int, kw: dict,
+                 route: str) -> tuple:
+    """K4 (qkv 3-D) or K5 (2-D, ``images`` of equally many rows) on the
+    int8 legs' ``route``: (codes, scales) with a row of each per row of
+    qkv."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    rows = qkv.shape[0] * qkv.shape[1] if qkv.dim() == 3 else qkv.shape[0]
+    D = qkv.shape[-1] // 3
+    oq = torch.empty((rows, D), dtype=torch.int8, device=qkv.device)
+    os_ = torch.empty((rows, 1), dtype=torch.float32, device=qkv.device)
+    attn_ops._launch_quant(qkv, oq, os_, images, rows // images, n_real, heads,
+                           D // heads, None, "max", kw.get("qk_int8", False),
+                           kw.get("pv_int8", False), False,
+                           "phase 28's int8 legs", route)
+    return oq, os_
+
+
+def legs_case(dev, gen, n: int, H: int, dh: int, kw: dict,
+              pad_gain: float = 1.0) -> dict:
+    """K4 on 2 images of n tokens of H heads of dh and K5 on them padded
+    past n (``pad_gain`` times the padded V rows, which V's column scales
+    see) against their plain versions (``attn_levels``), on ``i8_plan``'s
+    route: one launch a call, counted on it."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    B, C3 = 2, 3 * H * dh
+    route = attn_ops.i8_plan(n, dh, leg_bits(kw))[0]
+    np_ = -(-n // 32) * 32 + 32
+    padded = torch.randn((B, np_, C3), device=dev, generator=gen)
+    padded[..., :H * dh] *= 3
+    padded[:, n:, 2 * H * dh:] *= pad_gain
+    padded = padded.bfloat16()
+    qkv = padded[:, :n].contiguous()
+    flat = padded.reshape(B * np_, C3)
+    before = attn_ops.QUANT_I8_LAUNCHES, attn_ops.QUANT_I8_LONG_LAUNCHES
+    out = attn_ops.fused_qkv_attention_quant(qkv, H, **kw)
+    fout = attn_ops.fused_qkv_attention_quant_flat(flat, B, n, H, **kw)
+    torch.cuda.synchronize()
+    moved = (attn_ops.QUANT_I8_LAUNCHES - before[0],
+             attn_ops.QUANT_I8_LONG_LAUNCHES - before[1])
+    real = lambda t: t.reshape(B, np_, -1)[:, :n]  # noqa: E731
+    ref = attn_ops.reference_attention_quant_flat(flat, B, n, H, **kw)
+    return {"route": route,
+            "launches": moved == (2, 2 if route == "long" else 0),
+            "K4": attn_levels(*out, *attn_ops.reference_attention_quant(
+                qkv, H, **kw)),
+            "K5": attn_levels(*(real(t) for t in (*fout, *ref)))}
+
+
+def long_leg_checks(args, dev) -> None:
+    """Phase 28 (a): the long route's lengths and head dims against the
+    plain versions (``LONG_CASES``, ``LONG_DIMS``; K5 with padded V rows
+    nine times larger than the real ones past the limit), and the two routes
+    bit for bit where both take a head (257 keys, every form; 1,504, both
+    legs), in K4 and K5."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 281)
+    cases = [(n, H, 64) for n, H in LONG_CASES] + [(n, 3, dh) for dh, n in LONG_DIMS]
+    for n, H, dh in cases:
+        for mode, kw in LEG_FORMS:
+            pad = 9.0 if n == 1601 else 1.0
+            w = legs_case(dev, gen, n, H, dh, kw, pad)
+            ok = w["launches"] and attn_ok(w["K4"], False) and attn_ok(w["K5"], False)
+            print(f"[28a long legs] {mode} (2, {n}, {3 * H * dh}) H={H} on the "
+                  f"{w['route']} route{' (K5 padded V x9)' if pad > 1 else ''}: "
+                  f"K4 {w['K4']['deq_levels']:.3f}, K5 {w['K5']['deq_levels']:.3f} "
+                  f"steps of plain (bound {ATTN_LEVELS}); one launch a call "
+                  f"on its route {w['launches']}", flush=True)
+            require(ok, f"[28a long legs] {mode} at {n} keys, head dim {dh}: {w}")
+    for n in (257, 1504):
+        qkv = torch.randn((2, n + 32, 3 * 768), device=dev, generator=gen).bfloat16()
+        for mode, kw in LEG_FORMS:
+            if attn_ops.i8_plan(n, 64, leg_bits(kw))[0] != "short":
+                continue
+            same = []
+            for x, images in ((qkv[:, :n].contiguous(), 2),
+                              (qkv.reshape(-1, 3 * 768), 2)):
+                short = forced_route(x, images, n, 12, kw, "short")
+                long = forced_route(x, images, n, 12, kw, "long")
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(a, b) for a, b in zip(short, long)))
+            print(f"[28a long legs] {mode} at {n} keys, 12 heads: long route "
+                  f"bit-equal to the short one in K4 and K5 {same}", flush=True)
+            require(all(same), f"[28a long legs] {mode} at {n} keys: the routes differ")
+
+
+def long_leg_times(args, dev, kernels: dict) -> None:
+    """Phase 28 (b): K4 at (256, 1601, 2304) and K5 at (256 * 1632, 2304),
+    each form on the long route, timed by CUDA events beside the bound and
+    the plain version's time on LONG_CHECK images; the first LONG_CHECK
+    images against it; the kernels line's two long entries (K4 int8, K5
+    int8pv: the plain version timed over the whole batch, LONG_CHECK images
+    at a time); the two routes in turns at (256, 257, 2304), where both
+    take a head; ptxas's registers and spills of every long instantiation."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 282)
+    N = (LONG_SIZE // 16) ** 2 + 1
+    NP = -(-N // 32) * 32
+    H, D, sub = 12, 768, LONG_CHECK
+    padded = torch.randn((BATCH, NP, 3 * D), device=dev, generator=gen).bfloat16()
+    qkv = padded[:, :N].contiguous()
+    flat = padded.reshape(BATCH * NP, 3 * D)
+    for mode, kw in LEG_FORMS:
+        legs = leg_bits(kw)
+        for which in ("K4", "K5"):
+            if which == "K4":
+                run = lambda: attn_ops.fused_qkv_attention_quant(qkv, H, **kw)  # noqa: E731
+                plain = lambda x: attn_ops.reference_attention_quant(x, H, **kw)  # noqa: E731
+                parts = [qkv[i:i + sub] for i in range(0, BATCH, sub)]
+                pick = lambda t: t[:sub]  # noqa: E731
+                rows, shape = N, tuple(qkv.shape)
+            else:
+                run = lambda: attn_ops.fused_qkv_attention_quant_flat(  # noqa: E731
+                    flat, BATCH, N, H, **kw)
+                plain = lambda x: attn_ops.reference_attention_quant_flat(  # noqa: E731
+                    x, sub, N, H, **kw)
+                parts = [flat[i * NP:(i + sub) * NP] for i in range(0, BATCH, sub)]
+                pick = lambda t: t[:sub * NP].reshape(sub, NP, -1)[:, :N]  # noqa: E731
+                rows, shape = NP, tuple(flat.shape)
+            out = run()
+            ref = plain(parts[0])
+            torch.cuda.synchronize()
+            w = attn_levels(*(pick(t) for t in (*out, *ref)))
+            del out, ref
+            ms = cuda_ms(run, 3)
+            plain_sub = cuda_ms(lambda: plain(parts[0]), 1)
+            products = 2 * BATCH * H * rows * N * 64  # each of QK^T and P V
+            ops = {"int8": 2 * products} if legs == 3 else {"int8": products,
+                                                            "bf16": products}
+            nbytes = 2 * BATCH * rows * 3 * D + BATCH * rows * (D + 4)
+            entry = {("K4", "int8"): "fused_qkv_attention_quant_i8_long",
+                     ("K5", "int8pv"): "fused_qkv_attention_quant_flat_i8_long"
+                     }.get((which, mode))
+            plain_ms = None
+            if entry:  # the kernels line's: the plain version over the batch
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for part in parts:
+                    plain(part)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+            bound = kernel_entry(
+                entry or f"{which} {mode}", "attention_quant_long.cu",
+                "chess_vision_tpu/ops/attention.py:"
+                + ("486" if which == "K4" else "772"), w["deq_levels"], ms,
+                plain_ms, nbytes=nbytes, ops=ops)
+            if entry:
+                kernels[entry] = bound
+            print(f"[28b long legs] {which} {mode} at {shape} H={H} on the "
+                  f"{attn_ops.i8_plan(N, 64, legs)[0]} route: kernel {ms:.4f} ms, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                  f"{nbytes / 1e9:.3f} GB, {ops}); plain {plain_sub:.4f} ms on "
+                  f"{sub} images{f', {plain_ms:.4f} ms over all {BATCH}' if plain_ms else ''}; "
+                  f"first {sub} images vs plain {w}", flush=True)
+            require(attn_ok(w, False), f"[28b long legs] {which} {mode}: {w}")
+    del padded, qkv, flat
+    # the two routes in turns where both take a head: ViT-B/16 at 256 px
+    n = SIZE // 16 * SIZE // 16 + 1
+    x = torch.randn((BATCH, n, 3 * D), device=dev, generator=gen).bfloat16()
+    for mode, kw in LEG_FORMS:
+        turns = {"short": [], "long": []}
+        for route in ("short", "long", "long", "short"):
+            turns[route].append(cuda_ms(
+                lambda: forced_route(x, BATCH, n, H, kw, route), 10))
+        print(f"[28b long legs] {mode} at {tuple(x.shape)} H={H}, ms in turns "
+              f"(short, long, long, short): {turns}", flush=True)
+    del x
+    for dh in (16, 32, 64):
+        counts = {mode: ptxas_counts("attention_quant_i8_long_kernel", dh,
+                                     flags=(kw.get("qk_int8", False),
+                                            kw.get("pv_int8", False)))
+                  for mode, kw in LEG_FORMS}
+        print(f"  [28b long legs] ptxas at head dim {dh} (launch bounds 96 "
+              f"threads, 4 blocks an SM): {counts}", flush=True)
+
+
+def long_path_phase(args, dev, kernels: dict) -> None:
+    """Phase 28 (c): ViT-B/16 served in int8 at 640 px (1,601 tokens), random
+    weights from --seed, 2 batches of 256 boards resized from 256 px as the
+    loader resizes them: the bound (no legs, K4's own kernel) in the block
+    layout, then the int8 legs (``CHESS_VISION_ATTN_QK`` int8 and int8pv) in
+    the block (K4) and flat (K5) layouts, each as phase 27b checks a mode
+    with LONG_CHECK boards against the plain path, every legs launch on the
+    long route; the fused layout under int8pv serves one batch as the block
+    layout (the JAX rule)."""
+    import torch
+
+    from chess_vision_tpu_torch.ops import attention as attn_ops
+    from chess_vision_tpu_torch.serve import Predictor
+
+    cfg = {"model": dict(FULL_WIDTH, input_size=LONG_SIZE),
+           "training": {"mixed_precision": True}}
+    params = random_jax_params(cfg, args.seed)
+    boards = MemoryCorpus(2 * BATCH, args.seed + 28, LONG_SIZE).boards
+    times = {}
+    for tag, layout, env, entry in LONG_PATHS:
+        mode_path_check(f"[28c {tag} {LONG_SIZE}px]", args, dev, cfg, params,
+                        boards, layout, env, kernels, times, check=LONG_CHECK,
+                        long_entry=entry)
+        torch.cuda.empty_cache()
+    with mock.patch.dict(os.environ, {"CHESS_VISION_INT8_LAYOUT": "fused",
+                                      "CHESS_VISION_ATTN_QK": "int8pv"}):
+        predictor = Predictor((cfg, params), batch_size=BATCH, device=dev,
+                              quant="int8")
+    reset_counts()
+    attn_ops.QUANT_I8_LAUNCHES = attn_ops.QUANT_I8_LONG_LAUNCHES = 0
+    fens = predictor.predict_array(boards[:BATCH])
+    launches = int8_counts()
+    legs, long = attn_ops.QUANT_I8_LAUNCHES, attn_ops.QUANT_I8_LONG_LAUNCHES
+    depth = cfg["model"]["depth"]
+    print(f"[28c fused int8pv {LONG_SIZE}px] {len(fens)} boards in one batch: "
+          f"launches {launches}, int8 legs {legs} ({long} on the long route): "
+          f"the block layout's", flush=True)
+    require(launches == int8_want("block", depth, 1) and legs == long == depth,
+            f"[28c fused int8pv] launches {launches}, legs {legs}, long {long}")
+    kernels["fused_qkv_attention_quant_i8_long"]["launches"] += long
+
+
+def long_legs_phase(args, kernels: dict, kind: str, smi: str) -> None:
+    """Phase 28: the int8 legs' long route, at every length and on ViT-B/16
+    at 640 px."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    long_leg_checks(args, dev)
+    long_leg_times(args, dev, kernels)
+    torch.cuda.empty_cache()
+    long_path_phase(args, dev, kernels)
+    print(f"[28 long legs] phase {time.perf_counter() - t_phase:.1f} s; {kind}, "
+          f"{smi}", flush=True)
 
 if __name__ == "__main__":
     try:

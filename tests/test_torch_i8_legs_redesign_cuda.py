@@ -1,7 +1,8 @@
 """The redesigned int8 legs kernel (``attention_quant_i8_kernel``: a head's
-codes made once in shared memory) and K7's row quant (one kernel a form, a
-persistent grid whose warps prefetch their next row) on the card, against
-their plain PyTorch versions. They skip without a CUDA device. On a GPU
+codes made once in shared memory; past a block's shared memory the long
+route, held in ``tests/test_torch_i8_long_cuda.py``) and K7's row quant (one
+kernel a form, a persistent grid whose warps prefetch their next row) on the
+card, against their plain PyTorch versions. They skip without a CUDA device. On a GPU
 machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_i8_legs_redesign_cuda.py -q
@@ -74,16 +75,22 @@ def test_legs_match_plain_at_ragged_shapes(cuda, kw):
 
 
 def test_legs_refuse_a_head_past_shared_memory(cuda):
-    """At head dim 64 with both legs a head's codes fit up to 1,504 keys; one
-    more 32-key group raises before any launch."""
+    """No longer refused: at head dim 64 with both legs a head's codes fit
+    the short route up to 1,504 keys; one more 32-key group takes the long
+    route (the head streamed in key tiles), one launch, within the bound of
+    plain, as 1,504 keys on the short route."""
     qkv = _qkv((1, 1505, 3 * 64), cuda, seed=1)
-    before = attn.QUANT_I8_LAUNCHES
-    with pytest.raises(ValueError, match="shared memory"):
-        attn.fused_qkv_attention_quant(qkv, 1, qk_int8=True, pv_int8=True)
-    assert attn.QUANT_I8_LAUNCHES == before
+    before = attn.QUANT_I8_LAUNCHES, attn.QUANT_I8_LONG_LAUNCHES
+    out = attn.fused_qkv_attention_quant(qkv, 1, qk_int8=True, pv_int8=True)
+    ref = attn.reference_attention_quant(qkv, 1, qk_int8=True, pv_int8=True)
+    torch.cuda.synchronize()
+    assert (attn.QUANT_I8_LAUNCHES, attn.QUANT_I8_LONG_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert _steps(out, ref) <= ATTN_LEVELS
     out = attn.fused_qkv_attention_quant(qkv[:, :1504], 1, qk_int8=True, pv_int8=True)
     ref = attn.reference_attention_quant(qkv[:, :1504], 1, qk_int8=True, pv_int8=True)
     torch.cuda.synchronize()
+    assert attn.QUANT_I8_LONG_LAUNCHES == before[1] + 1
     assert _steps(out, ref) <= ATTN_LEVELS
 
 
