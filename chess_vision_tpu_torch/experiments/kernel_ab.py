@@ -101,6 +101,17 @@ Sections (``--sections``, all by default):
            epilogue); int8, int8pv and pv only at (batch, 257, 2304), ms in
            the order this, each probe, each probe backwards, this: what a
            probe adds is what its part costs
+  longlegsprobes  this checkout's ``attention_quant.cu`` and
+           ``attention_quant_long.cu`` built again as timing-only probes of
+           the legs' long route (``CVT_I8_PROBE``): ``long_vscale_x2`` (V's
+           column scales), ``long_kcode_x2`` (K's coding), ``long_vcode_x2``
+           (V's coding), ``long_no_copies`` (the ring's copies after its
+           first tiles: the walks run on stale tiles), ``legs_walk1_x2``,
+           ``legs_walk2_x2``, ``legs_last_walk_x2`` (each walk twice),
+           ``legs_epilogue_x2``; int8, int8pv and pv only on the long route
+           at (batch, 1601, 2304), ms in the order this, each probe, each
+           probe backwards, this, and the device bytes the design reads a
+           call (``attention.i8_long_bytes``)
   k7probes  this checkout's ``rowquant.cu`` built again as timing-only
            probes (``CVT_K7_PROBE``) of the sigmoid GELU form's ring, each
            with one choice changed or one part taken out: ``k7_rows_4``,
@@ -157,6 +168,9 @@ Usage, from the repository root on a machine with a Hopper GPU:
       --other-csrc DIR/chess_vision_tpu_torch/csrc [--batch 256] \\
       [--sections variants,gemm]
 
+``--any-shapes 257x2x384`` sets k2any's and k3any's (tokens, heads, head
+dim) at batch 64 (default: 3 heads of 256 and 64 of 12 at 257 and 577
+tokens).
 The other revision may have K3's older interface (a statistics scratch as its
 fourth pointer), K4's and K5's older one (an f32 (rows, D) scratch as their
 second pointer) and K15's (the same scratch as its second pointer); its fc1
@@ -270,7 +284,8 @@ _ATTN_KERNELS = ("attention_fwd_kernel", "attention_quant_kernel",
                  "attention_fwd_f32_kernel", "attention_bwd_f32_kernel",
                  "attention_bwd_dq_f32_kernel", "attention_bwd_dkv_f32_kernel",
                  "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
-                 "attention_bwd_cluster_kernel")
+                 "attention_bwd_cluster_kernel", "attention_quant_i8_kernel",
+                 "attention_quant_i8_long_kernel")
 
 
 def ptxas_counts(log: str) -> dict:
@@ -279,12 +294,12 @@ def ptxas_counts(log: str) -> dict:
     hash of the build's paths, which the keys leave out)."""
     counts = {}
     for block in log.split("Compiling entry function '")[1:]:
-        found = re.search(rf"({'|'.join(_ATTN_KERNELS)})((?:ILi\d+E)?(?:Li\d+E)?)",
+        found = re.search(rf"({'|'.join(_ATTN_KERNELS)})((?:ILi\d+E)?(?:L[ib]\d+E)*)",
                           block.split("'")[0])
         spills = re.search(r"(\d+) bytes spill stores", block)
         regs = re.search(r"Used (\d+) registers", block)
         if found and spills and regs:
-            args = ",".join(re.findall(r"Li(\d+)E", found.group(2)))
+            args = ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
             counts[f"{found.group(1)}<{args}>"] = [int(regs.group(1)),
                                                    int(spills.group(1))]
     return counts
@@ -294,23 +309,29 @@ def load_other(lib_path: str, csrc: str) -> tuple[ctypes.CDLL, dict]:
     """The other revision's library; which older interfaces it has
     (``k3_stats``: K3 takes the statistics scratch; ``k4_scratch``: K4 and K5
     take the f32 scratch; ``k15_scratch``: K15 takes it; ``i8_no_route``: the
-    int8 legs' entry takes no route, the short route its only one)."""
+    int8 legs' entry takes no route, the short route its only one;
+    ``i8_no_scratch``: it takes no scratch, its long route coding each tile
+    as it lands)."""
     quant_src = os.path.join(csrc, "attention_quant.cu")
     old = {"k3_stats": _param_count(os.path.join(csrc, "attention_bwd.cu"),
                                     "cvt_attention_bwd") == 10,
            "k4_scratch": _param_count(quant_src, "cvt_attention_quant") == 12,
            "k15_scratch": _param_count(os.path.join(csrc, "attention_variants.cu"),
                                        "cvt_attention_variant") == 13,
-           "i8_no_route": _param_count(quant_src, "cvt_attention_quant_i8") == 11}
+           "i8_no_route": _param_count(quant_src, "cvt_attention_quant_i8") == 11,
+           "i8_no_scratch": _param_count(quant_src, "cvt_attention_quant_i8") <= 12}
     lib = ctypes.CDLL(lib_path)
     ints = [ctypes.c_int] * 4
     lib.cvt_attention_bwd.argtypes = [*[_P] * (4 if old["k3_stats"] else 3),
                                       *ints, ctypes.c_float, _P]
     for name in ("cvt_int8_matmul", "cvt_attention_fwd", "cvt_rowquant"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
-    i8 = _build._SIGNATURES["cvt_attention_quant_i8"]
-    lib.cvt_attention_quant_i8.argtypes = (i8[:-2] + i8[-1:] if old["i8_no_route"]
-                                           else i8)
+    i8 = list(_build._SIGNATURES["cvt_attention_quant_i8"])
+    if old["i8_no_scratch"]:
+        del i8[3]
+    if old["i8_no_route"]:
+        del i8[-2]
+    lib.cvt_attention_quant_i8.argtypes = i8
     extra = [_P] if old["k4_scratch"] else []
     for name in ("cvt_attention_quant", "cvt_attention_quant_flat"):
         getattr(lib, name).argtypes = [*extra, *_build._SIGNATURES[name]]
@@ -537,13 +558,17 @@ _LEGS = {"int8": 1, "pv only": 2, "int8pv": 3}
 
 
 def legs_ab(libs: dict, batch: int, np_: int, legs: str, gen,
-            order=_ORDER, no_route: tuple = ()) -> dict:
-    """K4's (np_ = 257) or K5's (np_ = 288 rows an image, 257 real) int8
-    legs, ``cvt_attention_quant_i8`` in both libraries on the same values
-    (the short route; ``no_route`` names the libraries whose entry takes no
-    route): ms in turns, the codes and scales that differ from the other's,
-    and the bound (bytes: qkv read once, codes and scales written once)."""
-    n, heads, dh = 257, 12, 64
+            order=_ORDER, no_route: tuple = (), n: int = 257,
+            route: str = "short", no_scratch: tuple = ()) -> dict:
+    """K4's (np_ = n) or K5's (np_ rows an image, n real) int8 legs,
+    ``cvt_attention_quant_i8`` in each library on the same values on
+    ``route`` (``no_route`` names the libraries whose entry takes no route:
+    the short route, their only one; ``no_scratch`` those that take no
+    scratch): ms in turns, the codes and scales that differ from the
+    other's (or, of a width variant, from this checkout's), and the bound
+    (the larger of the bytes, qkv read once, codes and scales written once,
+    and the products: int8 at 1,979 TOP/s, a bf16 leg's at 989 TFLOP/s)."""
+    heads, dh = 12, 64
     D = heads * dh
     qkv = torch.randn((batch, np_, 3 * D), device=gen.device,
                       generator=gen).bfloat16()
@@ -552,23 +577,61 @@ def legs_ab(libs: dict, batch: int, np_: int, legs: str, gen,
                    torch.empty((batch, np_, 1), device=gen.device))
             for name in libs}
     stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty(batch * heads * attn.i8_long_scratch_bytes(n, dh, _LEGS[legs])
+                          if route == "long" else 16, dtype=torch.uint8,
+                          device=gen.device)
 
     def run(name):
         oq, os_ = outs[name]
-        route = () if name in no_route else (0,)
+        how = () if name in no_route else (attn.I8_ROUTES.index(route),)
+        where = () if name in no_scratch else (scratch.data_ptr(),)
         rc = libs[name].cvt_attention_quant_i8(
-            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), batch, np_, n,
-            heads, dh, dh ** -0.5, _LEGS[legs], *route, stream)
+            qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), *where, batch, np_,
+            n, heads, dh, dh ** -0.5, _LEGS[legs], *how, stream)
         _build.check(rc, f"{name}'s int8 legs")
 
     times = in_turns({name: (lambda name=name: run(name)) for name in libs}, order)
     nbytes = 2 * qkv.numel() + batch * np_ * (D + 4)
-    record = {"name": "K4" if np_ == n else "K5", "legs": legs,
-              "shape": list(qkv.shape), "ms": times, "bound_ms": nbytes / 3.35e12 * 1e3}
+    products = 2 * batch * heads * np_ * n * dh  # each of QK^T and P V
+    ops_s = (2 * products / 1979e12 if _LEGS[legs] == 3
+             else products / 1979e12 + products / 989e12)
+    record = {"name": "K4" if np_ == n else "K5", "legs": legs, "route": route,
+              "keys": n, "shape": list(qkv.shape), "ms": times,
+              "bound_ms": max(nbytes / 3.35e12, ops_s) * 1e3,
+              "bound_by": "bytes" if nbytes / 3.35e12 > ops_s else "operations"}
     if "other" in libs:
         record["codes_differ"] = int((outs["this"][0] != outs["other"][0]).sum())
         record["scales_differ"] = int((outs["this"][1] != outs["other"][1]).sum())
+    widths = [name for name in libs if name in _I8_LONG_WIDTHS]
+    if widths:  # the probes are wrong by design; a width variant is exact
+        record["widths_differ"] = {
+            name: int((outs[name][0] != outs["this"][0]).sum()
+                      + (outs[name][1] != outs["this"][1]).sum()) for name in widths}
     return record
+
+
+def routes_ab(batch: int, n: int, legs: str, gen) -> dict:
+    """This checkout's two routes of the int8 legs on K4 at (batch, n, 2304)
+    in turns (short, long, long, short), and whether their codes and scales
+    are equal bit for bit."""
+    heads, dh = 12, 64
+    qkv = torch.randn((batch, n, 3 * heads * dh), device=gen.device,
+                      generator=gen).bfloat16()
+    outs = {}
+
+    def run(route):
+        oq = torch.empty((batch, n, heads * dh), device=gen.device, dtype=torch.int8)
+        os_ = torch.empty((batch, n, 1), device=gen.device)
+        attn._launch_quant(qkv, oq, os_, batch, n, n, heads, dh, None, "max",
+                           bool(_LEGS[legs] & 1), bool(_LEGS[legs] & 2), False,
+                           "kernel_ab's int8 legs", route)
+        outs[route] = (oq, os_)
+
+    times = in_turns({route: (lambda route=route: run(route)) for route in attn.I8_ROUTES},
+                     ("short", "long", "long", "short"))
+    same = all(torch.equal(a, b) for a, b in zip(outs["short"], outs["long"]))
+    return {"legs": legs, "shape": list(qkv.shape), "ms": times,
+            "plan": attn.i8_plan(n, dh, _LEGS[legs])[0], "bit_equal": same}
 
 
 def k7_ab(libs: dict, rows: int, d: int, mode: str, gen, order=_ORDER) -> dict:
@@ -807,6 +870,15 @@ def any_entries(lib: ctypes.CDLL, csrc: str) -> dict:
             for name in _ANY_ENTRIES}
 
 
+def sdpa_backend(qkv: torch.Tensor, heads: int) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these values
+    (PyTorch's own choice, ``torch._fused_sdp_choice``)."""
+    B, n, C3 = qkv.shape
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous()
+               for t in qkv.reshape(B, n, 3, heads, C3 // 3 // heads).unbind(2))
+    return torch.nn.attention.SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
 def sdpa_fwd_ms(qkv: torch.Tensor, heads: int) -> float:
     """``scaled_dot_product_attention`` alone on contiguous (B, H, N, Dh)
     copies of the same q, k and v: the library yardstick of K2."""
@@ -872,6 +944,7 @@ def any_ab(entries: dict, backward: bool, dtype: torch.dtype, shape: tuple,
                      "backward_clusters_ctas_keys": [clusters, ctas, keys]},
             "ms": times,
             "sdpa_ms": sdpa_bwd_ms(qkv, g, heads) if backward else sdpa_fwd_ms(qkv, heads),
+            "sdpa_backend": sdpa_backend(qkv, heads),
             "bound_ms": max(nbytes / 3.35e12, ops / peak) * 1e3,
             "bound_by": "operations" if ops / peak > nbytes / 3.35e12 else "bytes",
             "max_abs_diff": {who: (out.float() - first.float()).abs().max().item()
@@ -939,7 +1012,8 @@ def f32_ab(entries: dict, backward: bool, batch: int, gen,
 
 _SECTIONS = ("k2", "k4", "k3", "variants", "gemm", "k14", "k15", "k2f32",
              "k3f32", "k3long", "k2any", "k3any", "longprobes", "f32probes",
-             "anyprobes", "legs", "k7", "legsprobes", "k7probes")
+             "anyprobes", "legs", "k7", "legsprobes", "longlegsprobes",
+             "k7probes")
 _OTHER_SOURCES = ("attention.cu", "attention_quant.cu", "attention_bwd.cu",
                   "int8_matmul.cu", "fused_block.cu", "attention_variants.cu",
                   "rowquant.cu")
@@ -967,6 +1041,13 @@ _F32_PROBES = {"no_products_1": 1, "no_products_2": 2, "no_products_3": 3,
 # one part of K7 taken out)
 _I8_PROBES = {"legs_coding_x2": 1, "legs_walk1_x2": 2, "legs_walk2_x2": 3,
               "legs_last_walk_x2": 4, "legs_epilogue_x2": 5}
+# the long route's probes (the walks' and the epilogue's numbers as above)
+_I8_LONG_PROBES = {"long_vscale_x2": 6, "long_kcode_x2": 7, "long_vcode_x2": 8,
+                   "long_no_copies": 9, "legs_walk1_x2": 2, "legs_walk2_x2": 3,
+                   "legs_last_walk_x2": 4, "legs_epilogue_x2": 5}
+# the long route built at other block widths (CVT_I8_LONG_WARPS; probe 10
+# changes nothing and builds head dim 64 alone): exact, timed beside it
+_I8_LONG_WIDTHS = {"long_w3": 3, "long_w6": 6, "long_w12": 12}
 _K7_PROBES = {"k7_rows_4": 1, "k7_rows_8": 2, "k7_rows_1": 3,
               "k7_persistent": 4, "k7_no_recip": 5}
 _ANY_PROBES = {"any_no_scores": 1, "any_no_values": 2, "any_no_copies": 3,
@@ -985,8 +1066,17 @@ def main() -> int:
     parser.add_argument("--head-dims", default="64",
                         help="comma-separated head dims of the sections k2, "
                              "k3, k2f32, k3f32 and k3long")
+    parser.add_argument("--route-keys", default="257,960,1504",
+                        help="comma-separated key counts at which the legs "
+                             "section times this checkout's two routes")
+    parser.add_argument("--any-shapes", default=None,
+                        help="comma-separated TOKENSxHEADSxHEAD_DIM of the "
+                             "sections k2any and k3any (batch 64)")
     args = parser.parse_args()
     dims = [int(d) for d in args.head_dims.split(",")]
+    any_shapes = (tuple(tuple(int(x) for x in shape.split("x"))
+                        for shape in args.any_shapes.split(","))
+                  if args.any_shapes else _ANY_SHAPES)
     sections = args.sections.split(",")
     if not set(sections) <= set(_SECTIONS):
         raise SystemExit(f"unknown sections {sections}; expected {_SECTIONS}")
@@ -1022,11 +1112,17 @@ def main() -> int:
             jobs.update({name: (_build.CSRC_DIR, ("attention_f32.cu",),
                                 [f"-DCVT_F32_PROBE={number}"])
                          for name, number in _F32_PROBES.items()})
-        if "legsprobes" in sections:
+        i8_probes = {**(_I8_PROBES if "legsprobes" in sections else {}),
+                     **(_I8_LONG_PROBES if "longlegsprobes" in sections else {})}
+        jobs.update({name: (_build.CSRC_DIR,
+                            ("attention_quant.cu", "attention_quant_long.cu"),
+                            [f"-DCVT_I8_PROBE={number}"])
+                     for name, number in i8_probes.items()})
+        if "longlegsprobes" in sections:
             jobs.update({name: (_build.CSRC_DIR,
                                 ("attention_quant.cu", "attention_quant_long.cu"),
-                                [f"-DCVT_I8_PROBE={number}"])
-                         for name, number in _I8_PROBES.items()})
+                                ["-DCVT_I8_PROBE=10", f"-DCVT_I8_LONG_WARPS={warps}"])
+                         for name, warps in _I8_LONG_WIDTHS.items()})
         if "k7probes" in sections:
             jobs.update({name: (_build.CSRC_DIR, ("rowquant.cu",),
                                 [f"-DCVT_K7_PROBE={number}"])
@@ -1054,7 +1150,7 @@ def main() -> int:
         any_probes = {name: any_entries(ctypes.CDLL(paths.pop(name)), _build.CSRC_DIR)
                       for name in _ANY_PROBES if name in paths}
         probe_libs = {}
-        for name in (*_I8_PROBES, *_K7_PROBES):
+        for name in (*_I8_PROBES, *_I8_LONG_PROBES, *_I8_LONG_WIDTHS, *_K7_PROBES):
             if name in paths:
                 probe_libs[name] = ctypes.CDLL(paths.pop(name))
                 entry = "cvt_rowquant" if name in _K7_PROBES else "cvt_attention_quant_i8"
@@ -1092,12 +1188,23 @@ def main() -> int:
                 report["k14"].append(k14_ab(libs, args.batch, fixed, gen))
                 print("K14", json.dumps(report["k14"][-1]), flush=True)
         if "legs" in sections:
-            for np_ in (257, 288):
+            # the short route at 257 tokens (K5: 288 rows, 257 real), the
+            # long route at 1,601 (K5: 1,632 rows), then this checkout's two
+            # routes in turns where both take a head
+            for n, np_, route in ((257, 257, "short"), (257, 288, "short"),
+                                  (1601, 1601, "long"), (1601, 1632, "long")):
                 for legs in _LEGS:
                     report["legs"].append(legs_ab(
-                        libs, args.batch, np_, legs, gen,
-                        no_route=("other",) if old["i8_no_route"] else ()))
+                        libs, args.batch, np_, legs, gen, n=n, route=route,
+                        no_route=("other",) if old["i8_no_route"] else (),
+                        no_scratch=("other",) if old["i8_no_scratch"] else ()))
                     print("LEGS", json.dumps(report["legs"][-1]), flush=True)
+            for n in (int(k) for k in args.route_keys.split(",")):
+                for legs in _LEGS:
+                    if not attn.i8_short_fits(n, 64, _LEGS[legs]):
+                        continue
+                    report["legs"].append(routes_ab(args.batch, n, legs, gen))
+                    print("ROUTES", json.dumps(report["legs"][-1]), flush=True)
         if "k7" in sections:
             for d in (768, 3072):
                 for mode in rq.MODES:
@@ -1110,6 +1217,20 @@ def main() -> int:
                 report["legsprobes"].append(
                     {"order": order, **legs_ab(both, args.batch, 257, legs, gen, order)})
                 print("LEGSPROBES", json.dumps(report["legsprobes"][-1]), flush=True)
+        if "longlegsprobes" in sections:
+            names = [*_I8_LONG_PROBES, *_I8_LONG_WIDTHS]
+            order = ["this", *names, *reversed(names), "this"]
+            both = {"this": libs["this"], **{k: probe_libs[k] for k in names}}
+            n = 1601  # ViT-B/16 at 640 px
+            for legs in ("int8", "int8pv", "pv only"):
+                report["longlegsprobes"].append(
+                    {"order": order,
+                     "device_bytes": attn.i8_long_bytes(args.batch, n, n, 12, 64,
+                                                        _LEGS[legs]),
+                     **legs_ab(both, args.batch, n, legs, gen, order, n=n,
+                               route="long")})
+                print("LONGLEGSPROBES", json.dumps(report["longlegsprobes"][-1]),
+                      flush=True)
         if "k7probes" in sections:
             order = ["this", *_K7_PROBES, *reversed(_K7_PROBES), "this"]
             both = {"this": libs["this"], **{k: probe_libs[k] for k in _K7_PROBES}}
@@ -1150,7 +1271,7 @@ def main() -> int:
             both = {"this": any_entries(libs["this"], _build.CSRC_DIR),
                     "other": any_entries(other, args.other_csrc)}
             for section in ("k2any", "k3any"):
-                for shape in _ANY_SHAPES if section in sections else ():
+                for shape in any_shapes if section in sections else ():
                     for dtype in (torch.bfloat16, torch.float32):
                         report[section].append(any_ab(both, section == "k3any",
                                                       dtype, shape, gen))

@@ -71,8 +71,9 @@ _SIGNATURES = {
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                  _P],
-    "cvt_attention_quant_i8": [_P, _P, _P, *[ctypes.c_int] * 5,
+    "cvt_attention_quant_i8": [_P, _P, _P, _P, *[ctypes.c_int] * 5,
                                ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    "cvt_attention_quant_i8_scratch": [ctypes.c_int] * 3,
     "cvt_attention_quant_i8_smem": [ctypes.c_int] * 4,
     "cvt_attention_quant_max_clusters": [ctypes.c_int, ctypes.c_int],
     "cvt_attention_variant": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -86,7 +87,8 @@ _SIGNATURES = {
                                       ctypes.c_int],
 }
 # Entry points that return something else than a cudaError_t.
-_RESTYPES = {"cvt_fused_block_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"cvt_fused_block_scratch_bytes": ctypes.c_longlong,
+             "cvt_attention_quant_i8_scratch": ctypes.c_longlong}
 
 
 def _sources() -> list[str]:

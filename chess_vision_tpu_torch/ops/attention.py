@@ -107,6 +107,16 @@ I8_MAX_SMEM = 232448
 I8_ROUTES = ("short", "long")  # cvt_attention_quant_i8's route, by index
 _I8_ROWS = 96
 _I8_STAGES = 2
+# the long route's block (attention_quant_i8.cuh kLongWarps, kLongStages):
+# warps of 32 query rows, and its ring's depth of 64-key tiles
+_I8_LONG_WARPS = 4
+_I8_LONG_STAGES = 3
+# (head dim, legs) -> the last key count the short route takes: at head dim
+# 64 it was faster at 257 keys and slower at 289 in turns on an H100 in every
+# form (kernel_ab --sections legs); 258-288 keys take both routes' layouts of
+# 257 (keys rounded up to 32 and to 64). Head dims 16 and 32, not measured,
+# keep the short route wherever it fits.
+_I8_SHORT_LAST = {(64, 1): 288, (64, 2): 288, (64, 3): 288}
 _KEY_TILE = 64
 _MAX_GRID_YZ = 65535
 # The f32 kernels' cluster (csrc/attention_f32.cuh): a CTA holds at most
@@ -766,34 +776,86 @@ def _check_quant_shape(D: int, num_heads: int) -> None:
                          "every head of a row chunk)")
 
 
+def _i8_short_bytes(n_keys: int, head_dim: int, qk: bool, pv: bool) -> int:
+    """``I8Layout``'s bytes: K's codes and scales (or bf16 rows) and V's
+    codes (or bf16 rows) over the keys rounded up to 32, the chunk's output
+    codes, V's column scales and maxima, the epilogue's row maxima."""
+    row = 2 * (head_dim + 8)  # a bf16 row in shared memory
+    tail = (_I8_ROWS * head_dim + 2 * _I8_ROWS * 4
+            + (5 * head_dim * 4 if pv else 0))
+    kp = -(-n_keys // 32) * 32
+    vld = kp + 32 if kp % 64 == 0 else kp
+    return ((kp * (head_dim + 20) if qk else kp * row)
+            + (head_dim * vld if pv else kp * row) + tail)
+
+
+def i8_short_fits(n_keys: int, head_dim: int, legs: int) -> bool:
+    """Whether the short route takes a head of ``n_keys`` keys at all (its
+    codes fit a block's ``I8_MAX_SMEM`` bytes)."""
+    return _i8_short_bytes(n_keys, head_dim, bool(legs & 1),
+                           bool(legs & 2)) <= I8_MAX_SMEM
+
+
 def i8_plan(n_keys: int, head_dim: int, legs: int) -> tuple[str, int]:
     """The int8 legs' route for a head of ``n_keys`` keys at ``head_dim``
     (16, 32 or 64) and its block's shared memory in bytes; ``legs`` as the
     C entry takes them: 1 qk_int8, 2 pv_int8, 3 both.
 
     ``"short"`` (``attention_quant_i8_kernel``) where the head's codes, or a
-    bf16 leg's rows, fit a block's ``I8_MAX_SMEM`` bytes (``I8Layout``: K and
-    V over the keys rounded up to 32, the chunk's output codes, V's column
-    scales and maxima, the epilogue's row maxima): at head dim 64 up to 960
-    keys under qk_int8 alone, 1,056 under pv_int8 alone, 1,504 under both.
-    ``"long"`` (``attention_quant_i8_long_kernel``) past them, for any key
-    count: the ring of bf16 K and V tiles and one tile's codes in place of
-    the head (``I8LongLayout``), the same bytes at every length."""
+    bf16 leg's rows, fit a block's ``I8_MAX_SMEM`` bytes (``i8_short_fits``:
+    at head dim 64 up to 960 keys under qk_int8 alone, 1,056 under pv_int8
+    alone, 1,504 under both) and, at head dim 64, up to 288 keys, past which
+    the long route was measured faster (``_I8_SHORT_LAST``). ``"long"``
+    (``attention_quant_i8_long_kernel``) past that, for any key count: a ring
+    of ``_I8_LONG_STAGES`` tiles of K's and V's codes (or a bf16 leg's rows)
+    in place of the head, and the tail for a pass of ``32 * _I8_LONG_WARPS``
+    rows (``I8LongLayout``), the same bytes at every length; the head's codes
+    go to a device scratch (``i8_long_scratch_bytes``)."""
     if legs not in (1, 2, 3):
         raise ValueError(f"legs {legs}: 1 (qk_int8), 2 (pv_int8) or 3 (both)")
     qk, pv = bool(legs & 1), bool(legs & 2)
-    row = 2 * (head_dim + 8)  # a bf16 row in shared memory
-    tail = (_I8_ROWS * head_dim + 2 * _I8_ROWS * 4
-            + (5 * head_dim * 4 if pv else 0))
-    kp = -(-n_keys // 32) * 32
-    vld = kp + 32 if kp % 64 == 0 else kp
-    short = ((kp * (head_dim + 20) if qk else kp * row)
-             + (head_dim * vld if pv else kp * row) + tail)
-    if short <= I8_MAX_SMEM:
+    short = _i8_short_bytes(n_keys, head_dim, qk, pv)
+    if short <= I8_MAX_SMEM and n_keys <= _I8_SHORT_LAST.get((head_dim, legs), n_keys):
         return "short", short
-    return "long", (2 * _I8_STAGES * _KEY_TILE * row
-                    + (_KEY_TILE * (head_dim + 20) if qk else 0)
-                    + (head_dim * (_KEY_TILE + 32) if pv else 0) + tail)
+    row = 2 * (head_dim + 8)
+    rows = 32 * _I8_LONG_WARPS
+    tile = ((_KEY_TILE * (head_dim + 20) if qk else _KEY_TILE * row)
+            + (head_dim * (_KEY_TILE + 32) if pv else _KEY_TILE * row))
+    return "long", (_I8_LONG_STAGES * tile + rows * head_dim + 2 * rows * 4
+                    + ((2 + _I8_LONG_WARPS) * head_dim * 4 if pv else 0))
+
+
+def i8_long_scratch_bytes(n_keys: int, head_dim: int, legs: int) -> int:
+    """The long route's device scratch for one (image, head) of ``n_keys``
+    keys (``attention_quant_long.cu`` ``long_scratch_bytes``): K's codes
+    [kp][head_dim] and f32 scales [kp] under qk_int8, V's codes
+    [head_dim][kp] under pv_int8, kp the keys rounded up to a 64-key tile."""
+    kp = -(-n_keys // _KEY_TILE) * _KEY_TILE
+    return ((kp * (head_dim + 4) if legs & 1 else 0)
+            + (head_dim * kp if legs & 2 else 0))
+
+
+def i8_long_bytes(images: int, n: int, n_keys: int, heads: int,
+                  head_dim: int, legs: int) -> int:
+    """The bytes the int8 legs' long route reads from device memory a call
+    (through L2 or not) for ``images`` of ``n`` rows, ``n_keys`` keys. Each
+    (image, head) reads its Q rows once; to code the head once, K's rows
+    (qk_int8), V's rows for the column scales (all n) and for the codes
+    (pv_int8); then in each pass of ``32 * _I8_LONG_WARPS`` rows, once a
+    walk (two walks, three with pv_int8), K's tiles (its codes and scales
+    from the scratch, or its bf16 rows), and V's in the last walk (its codes,
+    or its bf16 rows). Zero rows past the last key come from the scratch as
+    codes and are not read as bf16."""
+    row = 2 * head_dim  # a bf16 row of one head
+    kp = -(-n_keys // _KEY_TILE) * _KEY_TILE
+    qk, pv = bool(legs & 1), bool(legs & 2)
+    passes = -(-(-(-n // 16)) // (2 * _I8_LONG_WARPS))
+    k_tiles = kp * (head_dim + 4) if qk else n_keys * row
+    v_tiles = head_dim * kp if pv else n_keys * row
+    coding = (n_keys * row if qk else 0) + ((n + n_keys) * row if pv else 0)
+    walks = 3 if pv else 2
+    per_head = n * row + coding + passes * (walks * k_tiles + v_tiles)
+    return images * heads * per_head
 
 
 def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
@@ -810,11 +872,17 @@ def _launch_quant(qkv, oq, os_, images: int, np_: int, n_real: int,
     legs = int(qk_int8) | 2 * int(pv_int8)
     if legs:
         route = route or i8_plan(n_real, head_dim, legs)[0]
+    scratch = None
+    if route == "long":  # the head's codes, written and read by the launch
+        scratch = torch.empty(
+            images * num_heads * i8_long_scratch_bytes(n_real, head_dim, legs),
+            dtype=torch.uint8, device=qkv.device)
     with torch.cuda.device(qkv.device):
         if legs:
             rc = lib.cvt_attention_quant_i8(
-                qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(), images, np_,
-                n_real, num_heads, head_dim, scale, legs,
+                qkv.data_ptr(), oq.data_ptr(), os_.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, images,
+                np_, n_real, num_heads, head_dim, scale, legs,
                 I8_ROUTES.index(route), stream)
         else:
             kind, fixed = _shift(shift_mode, softmax_shift, head_dim)
@@ -849,8 +917,9 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, num_heads: int,
     tensor launches the kernel (bf16, head dim 16, 32 or 64) or raises. The
     int8 legs take any token count, on one of two routes of the same
     arithmetic (``i8_plan``): a head's codes held in a block's shared memory
-    where they fit, else the head streamed through it in 64-key tiles, coded
-    as they land; the two give the same bits."""
+    where they fit, else coded once into a device scratch and streamed
+    through a block's shared memory in 64-key tiles; the two give the same
+    bits."""
     if qkv.device.type == "cpu":
         return reference_attention_quant(qkv, num_heads, softmax_shift,
                                          shift_mode, qk_int8, pv_int8,

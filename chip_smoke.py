@@ -362,7 +362,7 @@ Phases, one line each; any failure exits non-zero before the last line:
              2304) in the three forms, times by CUDA events beside the bound
              (the products and the bytes) and the plain version's time on
              LONG_CHECK images, the first LONG_CHECK images against it;
-             the two routes in turns at (256, 257, 2304); ptxas's
+             the two routes in turns at 257, 960 and 1,504 keys; ptxas's
              registers and spills of every long instantiation. (c)
              ViT-B/16 served in int8 at 640 px (1,601 tokens), random
              weights, 2 batches of 256 boards a mode, uncalibrated: the
@@ -5121,7 +5121,7 @@ def long_leg_checks(args, dev) -> None:
     for n in (257, 1504):
         qkv = torch.randn((2, n + 32, 3 * 768), device=dev, generator=gen).bfloat16()
         for mode, kw in LEG_FORMS:
-            if attn_ops.i8_plan(n, 64, leg_bits(kw))[0] != "short":
+            if not attn_ops.i8_short_fits(n, 64, leg_bits(kw)):
                 continue
             same = []
             for x, images in ((qkv[:, :n].contiguous(), 2),
@@ -5141,8 +5141,9 @@ def long_leg_times(args, dev, kernels: dict) -> None:
     the plain version's time on LONG_CHECK images; the first LONG_CHECK
     images against it; the kernels line's two long entries (K4 int8, K5
     int8pv: the plain version timed over the whole batch, LONG_CHECK images
-    at a time); the two routes in turns at (256, 257, 2304), where both
-    take a head; ptxas's registers and spills of every long instantiation."""
+    at a time); the two routes in turns at (256, N, 2304) for N of 257, 960
+    and 1,504 keys, each form the short route takes there; ptxas's registers
+    and spills of every long instantiation."""
     import torch
 
     from chess_vision_tpu_torch.ops import attention as attn_ops
@@ -5210,24 +5211,29 @@ def long_leg_times(args, dev, kernels: dict) -> None:
                   f"first {sub} images vs plain {w}", flush=True)
             require(attn_ok(w, False), f"[28b long legs] {which} {mode}: {w}")
     del padded, qkv, flat
-    # the two routes in turns where both take a head: ViT-B/16 at 256 px
-    n = SIZE // 16 * SIZE // 16 + 1
-    x = torch.randn((BATCH, n, 3 * D), device=dev, generator=gen).bfloat16()
-    for mode, kw in LEG_FORMS:
-        turns = {"short": [], "long": []}
-        for route in ("short", "long", "long", "short"):
-            turns[route].append(cuda_ms(
-                lambda: forced_route(x, BATCH, n, H, kw, route), 10))
-        print(f"[28b long legs] {mode} at {tuple(x.shape)} H={H}, ms in turns "
-              f"(short, long, long, short): {turns}", flush=True)
-    del x
+    # the two routes in turns where both take a head: ViT-B/16 at 256 px,
+    # and each form's last lengths on the short route
+    for n in (SIZE // 16 * SIZE // 16 + 1, 960, 1504):
+        x = torch.randn((BATCH, n, 3 * D), device=dev, generator=gen).bfloat16()
+        for mode, kw in LEG_FORMS:
+            if not attn_ops.i8_short_fits(n, 64, leg_bits(kw)):
+                continue
+            turns = {"short": [], "long": []}
+            for route in ("short", "long", "long", "short"):
+                turns[route].append(cuda_ms(
+                    lambda: forced_route(x, BATCH, n, H, kw, route), 5))
+            print(f"[28b long legs] {mode} at {tuple(x.shape)} H={H}, ms in turns "
+                  f"(short, long, long, short): {turns}", flush=True)
+        del x
+    warps = attn_ops._I8_LONG_WARPS
     for dh in (16, 32, 64):
         counts = {mode: ptxas_counts("attention_quant_i8_long_kernel", dh,
                                      flags=(kw.get("qk_int8", False),
                                             kw.get("pv_int8", False)))
                   for mode, kw in LEG_FORMS}
-        print(f"  [28b long legs] ptxas at head dim {dh} (launch bounds 96 "
-              f"threads, 4 blocks an SM): {counts}", flush=True)
+        print(f"  [28b long legs] ptxas at head dim {dh} (launch bounds "
+              f"{32 * warps} threads, {12 // warps} blocks and 12 warps an SM): "
+              f"{counts}", flush=True)
 
 
 def long_path_phase(args, dev, kernels: dict) -> None:

@@ -67,23 +67,27 @@ def i8_layout_bytes(n_keys: int, dh: int, qk: bool, pv: bool) -> int:
 
 
 def i8_long_layout_bytes(dh: int, qk: bool, pv: bool) -> int:
-    """``I8LongLayout<Dh, kQk8, kPv8>::bytes``: the ring of 2 stages of 64
-    bf16 K and V rows, one tile's codes, then as I8Layout."""
-    warps, rows, tile = 3, 96, 64
-    k_codes = 2 * (2 * 2 * tile * (dh + 8))
-    k_scale = k_codes + (tile * (dh + 16) if qk else 0)
-    v_codes = k_scale + (tile * 4 if qk else 0)
-    stage = v_codes + (dh * (tile + 32) if pv else 0)
-    v_scale = stage + rows * dh
+    """``I8LongLayout<Dh, kQk8, kPv8>::bytes``: a ring of 3 stages, each a
+    tile of K's codes [64][dh + 16] and scales [64] (or bf16 rows [64][dh +
+    8]) and V's codes [dh][96] (or bf16 rows), then a pass's staging [128][dh]
+    and the tail of I8Layout at 4 warps."""
+    warps, stages, tile = 4, 3, 64
+    rows = 32 * warps
+    tile_k = tile * (dh + 16) + tile * 4 if qk else tile * (dh + 8) * 2
+    tile_v = dh * (tile + 32) if pv else tile * (dh + 8) * 2
+    v_scale = stages * (tile_k + tile_v) + rows * dh
     part = v_scale + (dh * 4 * (2 + warps) if pv else 0)
     return part + 2 * rows * 4
 
 
 def test_i8_plan_switches_route_at_each_limit():
-    """The short route up to its last length, the long one from the next key
-    on, at head dims 16, 32 and 64 in each form; the long route's bytes the
-    same at every length."""
-    for (dh, legs), last in SHORT_LIMITS.items():
+    """The short route up to its last length (the last its shared memory
+    takes, at head dim 64 the measured crossover of 288 keys), the long one
+    from the next key on, at head dims 16, 32 and 64 in each form; the long
+    route's bytes the same at every length."""
+    for (dh, legs), fits in SHORT_LIMITS.items():
+        assert attn.i8_short_fits(fits, dh, legs) and not attn.i8_short_fits(fits + 1, dh, legs)
+        last = min(fits, attn._I8_SHORT_LAST.get((dh, legs), fits))
         assert attn.i8_plan(last, dh, legs)[0] == "short", (dh, legs)
         route, nbytes = attn.i8_plan(last + 1, dh, legs)
         assert route == "long", (dh, legs)
@@ -107,10 +111,12 @@ def test_i8_plan_bytes_are_the_kernel_layouts():
             for n in (1, 17, 64, 257, 1000, 1601, 4385):
                 route, nbytes = attn.i8_plan(n, dh, legs)
                 short = i8_layout_bytes(n, dh, qk, pv)
-                assert (route == "short") == (short <= attn.I8_MAX_SMEM)
+                assert (route == "short") == (
+                    short <= attn.I8_MAX_SMEM
+                    and n <= attn._I8_SHORT_LAST.get((dh, legs), n))
                 assert nbytes == (short if route == "short"
                                   else i8_long_layout_bytes(dh, qk, pv))
-    assert i8_long_layout_bytes(64, True, True) == 56576
+    assert i8_long_layout_bytes(64, True, True) == 45312
     assert _constant("attention_quant_i8.cuh", "kWarps") == "3"
     assert _constant("attention_quant_i8.cuh", "kRows") == "32 * kWarps"
     assert _constant("attention_quant_i8.cuh", "kStages") == str(attn._I8_STAGES)
@@ -151,16 +157,17 @@ def test_walk2_over_key_tiles_gives_the_plain_row_sums():
 @pytest.mark.parametrize("legs", [(True, False), (True, True)],
                          ids=["int8", "int8pv"])
 def test_plain_matches_jax_past_the_limit(legs):
-    """1 image, 1 head of 64, 1,057 tokens (past the short route's limit
-    under qk_int8 alone, within it with both legs): the port's plain
-    version, which both routes hold to, against the JAX kernel in interpret
-    mode."""
+    """1 image, 1 head of 64, 1,057 tokens (past the short route's shared
+    memory under qk_int8 alone, within it with both legs; on the long route
+    in both, past the measured crossover): the port's plain version, which
+    both routes hold to, against the JAX kernel in interpret mode."""
     n, dh = 1057, 64
     qkv = np.random.default_rng(7).normal(size=(1, n, 3 * dh))
     qkv[:, :, :dh] *= 4.0
     qkv = qkv.astype(F32)
     qk, pv = legs
-    assert attn.i8_plan(n, dh, int(qk) | 2 * int(pv))[0] == ("short" if pv else "long")
+    assert attn.i8_short_fits(n, dh, int(qk) | 2 * int(pv)) == pv
+    assert attn.i8_plan(n, dh, int(qk) | 2 * int(pv))[0] == "long"
     jq, js = jax_attn.fused_qkv_attention_quant(
         jnp.asarray(qkv).astype(jnp.bfloat16), 1, interpret=True, qk_int8=qk,
         pv_int8=pv)

@@ -92,7 +92,7 @@ def test_long_route_matches_plain_at_head_dim_64(cuda, kw):
     routes = [_check_both_layouts(_qkv((2, n, 3 * H * 64), cuda, seed=n), H, kw, cuda, n)
               for n, H in ((961, 2), (1057, 3), (1505, 4), (1601, 12), (2305, 2))]
     assert routes[-2:] == ["long", "long"]
-    limit = {1: 960, 2: 1056, 3: 1504}[_legs(kw)]
+    limit = min({1: 960, 2: 1056, 3: 1504}[_legs(kw)], attn._I8_SHORT_LAST[(64, _legs(kw))])
     assert routes[:3] == ["long" if n > limit else "short" for n in (961, 1057, 1505)]
 
 
@@ -130,7 +130,7 @@ def test_routes_are_bit_equal(cuda, n):
     padded[:, :n] = qkv
     flat = padded.reshape(2 * np_, -1)
     for kw in LEGS:
-        if attn.i8_plan(n, 64, _legs(kw))[0] != "short":
+        if not attn.i8_short_fits(n, 64, _legs(kw)):
             continue
         for x, rows in ((qkv, n), (flat, np_)):
             short = _forced(x, 2, n, 12, kw, "short")
@@ -150,7 +150,7 @@ def test_one_launch_a_call_on_its_route(cuda):
             route, nbytes = attn.i8_plan(n, 64, legs)
             assert lib.cvt_attention_quant_i8_smem(
                 n, 64, legs, attn.I8_ROUTES.index(route)) == nbytes
-            if route == "long":
+            if not attn.i8_short_fits(n, 64, legs):
                 assert lib.cvt_attention_quant_i8_smem(n, 64, legs, 0) > attn.I8_MAX_SMEM
     qkv = _qkv((1, 1601, 3 * 2 * 64), cuda, seed=9)
     for kw, route in ((LEGS[2], "long"), (LEGS[2], None)):
